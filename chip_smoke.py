@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Drive sdr_tpu_torch's broadcast-FM receive path on one NVIDIA GPU.
+"""Drive sdr_tpu_torch's broadcast-FM receive paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K3 from ``sdr_tpu_torch/csrc`` (one nvcc
+It builds the CUDA kernels K1-K5 from ``sdr_tpu_torch/csrc`` (one nvcc
 per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit;
-2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (32 rows of 10,485,760 u8 bytes -> 655,360 demod
-   samples -> 196,671 resampled -> 196,608 audio samples per row, plus
-   nonzero offset/start/stride geometries), and times the kernel, the
-   plain version and, where one PyTorch call computes the same function,
-   that call (``library_ms``, timed only);
-3. runs the block-parallel FM chain (``run_time_batched``) on a synthetic
-   1 kHz broadcast at 32 x 10,485,760 bytes with every launch counter set
-   to 0 just before, checks the tone, the launch counts and agreement with
+2. the mono path, ``fm_chain()`` (K1, K2, K3): holds each kernel against
+   its plain PyTorch version on the card at the path's shapes (32 rows of
+   10,485,760 u8 bytes -> 655,360 demod samples -> 196,671 resampled ->
+   196,608 audio samples per row, plus nonzero offset/start/stride
+   geometries) and times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (``library_ms``,
+   timed only); runs the block-parallel chain (``run_time_batched``) on a
+   synthetic 1 kHz broadcast with every launch counter set to 0 just
+   before one call, checks the tone, the launch counts and agreement with
    the plain CPU run on a small input, times 20 more calls by CUDA events
-   (median, min and max), and checks that the streamed
-   ``Pipeline.run`` at 1,310,720-byte blocks gives the same samples;
-4. runs the CLI ``python -m sdr_tpu_torch.apps.fm`` on a temporary file
-   and checks the tone in the WAV;
-5. prints ``{"kernels": [...]}``, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+   (median, min and max), and checks that the streamed ``Pipeline.run``
+   at 1,310,720-byte blocks gives the same samples; runs the CLI;
+3. the stereo path, ``fm_chain(front='quantized', stereo=True,
+   deemphasis=75e-6)`` (K4, FmDemod, StereoDecode on K3, K2 -> K3 over
+   the L/R planes, the de-emphasis IIR, the volume) on a synthetic stereo
+   broadcast (L = 1 kHz, R = 400 Hz, a 10 % pilot, 75 kHz deviation) at
+   the same 32 x 10,485,760 bytes: K4 and K5 against their plain versions
+   at the path's shapes and at extra geometries, K3 at StereoDecode's
+   65-tap shape; the block-parallel chain with the counters read around
+   one call, its L/R separation, the pilot lock of every row, 20 timed
+   calls and peak memory; the same chain with ``ResampleFirScale(
+   fused=True)`` (K5) against it; the streamed run against the
+   block-parallel one and the plain CPU chain; and the stereo CLI;
+4. prints ``{"kernels": [...]}`` (every kernel with its launches on each
+   path), the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Every failed check raises, so any failure exits nonzero.  Without a CUDA
 GPU it exits nonzero before printing any result.
@@ -49,6 +58,7 @@ ROWS, ROW_BYTES = 32, 10_485_760      # block-parallel batch (bench.py's)
 STREAM_BLOCK = 1_310_720              # the CLI's default block
 CHAIN_REPS = 20                       # timed block-parallel chain calls
 FS_IN = 1_280_000                     # complex S/s
+F_L, F_R = 1_000.0, 400.0             # the stereo broadcast's L and R tones
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
 
@@ -114,10 +124,92 @@ def tone_hz(y: np.ndarray, rate: int = 48_000) -> float:
     return float(np.argmax(np.abs(np.fft.rfft(seg))) * rate / len(seg))
 
 
+def synth_stereo_broadcast(n_bytes: int, seed: int, device) -> torch.Tensor:
+    """u8 interleaved IQ of an FM stereo broadcast: the multiplex of
+    tests/test_stereo.py (mono (L+R)/2, a 10 % pilot at 19 kHz, (L-R)/2 on
+    38 kHz; L a 1 kHz tone, R a 400 Hz tone) at 75 kHz deviation, sampled
+    at 1.28 MS/s, with seeded Gaussian noise."""
+    n = n_bytes // 2
+    g = torch.Generator(device=device).manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float64, device=device) / FS_IN
+    left = torch.sin(2 * np.pi * F_L * t)
+    right = torch.sin(2 * np.pi * F_R * t)
+    comp = (0.25 * (left + right) + 0.1 * torch.cos(2 * np.pi * 19e3 * t)
+            + 0.25 * (left - right) * torch.cos(2 * np.pi * 38e3 * t))
+    del t, left, right
+    phase = torch.cumsum(comp, 0).mul_(2 * np.pi * 75e3 / FS_IN)
+    del comp
+    raw = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    for c, fn in ((0, torch.cos), (1, torch.sin)):
+        v = 0.9 * fn(phase) + 0.01 * torch.randn(
+            n, generator=g, dtype=torch.float64, device=device)
+        raw[c::2] = torch.clamp(torch.round(v * 128 + 128), 0, 255).to(
+            torch.uint8)
+    return raw
+
+
+def tone_power(x: np.ndarray, f: float, rate: int = 48_000) -> float:
+    """Peak of the Hann-windowed spectrum within 2 bins of ``f``."""
+    k = int(round(f * len(x) / rate))
+    spec = np.abs(np.fft.rfft(x * np.hanning(len(x))))
+    return float(spec[max(k - 2, 0): k + 3].max())
+
+
+def check_separation(left: np.ndarray, right: np.ndarray, what: str):
+    """The bound of tests/test_stereo.py: each tone beats its leakage into
+    the other channel by 5x."""
+    ll, rl = tone_power(left, F_L), tone_power(right, F_L)
+    rr, lr = tone_power(right, F_R), tone_power(left, F_R)
+    require(ll > 5 * rl, f"{what}: 1 kHz in L {ll} vs R {rl}")
+    require(rr > 5 * lr, f"{what}: 400 Hz in R {rr} vs L {lr}")
+    return ll / rl, rr / lr
+
+
+def phase_filters(table, taps, I: int, D: int, offset: int):
+    """Filters of the library yardstick for K2 (``taps = [1]``) and K5.
+
+    Output ``I*q + r`` reads the input ``D*q`` samples further than output
+    ``r`` at the same phases, so each ``r`` is one fixed filter ``W_r``:
+    the FIR taps composed with the resampler phases they read.  Returns
+    ``W`` as a conv1d weight ``[I, 1, L]`` and ``lo``, the first input
+    sample any filter reads."""
+    from sdr_tpu_torch.ops.fir import _resample_positions
+    Kp = table.shape[1]
+    i, o = _resample_positions(I + len(taps) - 1, I, D, offset)
+    lo = int(i.min())
+    w = np.zeros((I, 1, int(i.max()) - lo + Kp))
+    for r in range(I):
+        for j, tap in enumerate(taps):
+            s = int(i[r + j]) - lo
+            w[r, 0, s:s + Kp] += float(tap) * table[o[r + j]].astype(
+                np.float64)
+    return w.astype(np.float32), lo
+
+
+def library_resample(table, taps, I: int, D: int, offset: int, hist, x,
+                     num: int):
+    """One PyTorch call for K2's (``taps = [1]``) or K5's function over
+    ``concat(hist, x)``: a conv1d with ``I`` output channels at stride
+    ``D``, then the ``[Q, I] -> [Q*I]`` interleave.  The padded input is
+    made here, outside the returned call."""
+    w, lo = phase_filters(table, taps, I, D, offset)
+    w = torch.as_tensor(w, device=x.device)
+    lead, q = x.shape[:-1], -(-num // I)
+    v = torch.cat([hist, x], dim=-1)
+    v = v.reshape(-1, 1, v.shape[-1])[..., lo:]
+    v = torch.nn.functional.pad(
+        v, (0, max(0, (q - 1) * D + w.shape[-1] - v.shape[-1])))
+
+    def call():
+        z = torch.nn.functional.conv1d(v, w, stride=D)[..., :q]
+        return z.transpose(1, 2).reshape(lead + (-1,))[..., :num]
+
+    return call
+
+
 def check_kernels(raw, ops):
     """Each kernel vs its plain version at the main path's shapes."""
     from sdr_tpu_torch.kernels import fir, resample, u8_front_demod
-    from sdr_tpu_torch.ops.fir import _resample_positions
 
     front, back = ops
     rows = []
@@ -136,7 +228,7 @@ def check_kernels(raw, ops):
     ops1 = 2 * 2 * front.n_taps * n1 * ROWS
     b1, by1 = bound(nbytes(x, hist, liq, front.tq, y1, iq1), ops1, "int8")
     rows.append(dict(
-        name="K1 u8_front_demod", route="cuda",
+        name="K1 u8_front_demod", kernel="u8_front_demod", route="cuda",
         source="sdr_tpu_torch/csrc/u8_front_demod.cu",
         replaces="sdr_tpu/kernels/u8_front_demod_pallas.py:135",
         max_abs_err=err1,
@@ -161,32 +253,13 @@ def check_kernels(raw, ops):
     a2 = (back._table, I, D, y1, h2, back._offset_k, n2, 0)
     yr = resample.resample(*a2)
     require(torch.isfinite(yr).all().item(), "K2 output finite")
-    # library yardstick: one strided conv1d with I output channels over the
-    # concatenated stream, then the [Q, I] -> [Q*I] interleave
-    table = back.spec.phase_table
-    Kp = table.shape[1]
-    i_j, o_j = _resample_positions(I, I, D, back._offset_k)
-    L =int(i_j.max() - i_j.min()) + Kp
-    kmat = np.zeros((I, 1, L), np.float32)
-    for j in range(I):
-        s = int(i_j[j] - i_j.min())
-        kmat[j, 0, s:s + Kp] = table[o_j[j]]
-    kmat = torch.as_tensor(kmat, device=y1.device)
-    q = -(-n2 // I)
-    lo = int(i_j.min())
-    v = torch.cat([h2, y1], dim=-1)     # made outside the timed call
-    v = torch.nn.functional.pad(v, (0, max(0, lo + (q - 1) * D + L
-                                           - v.shape[-1])))
-
-    def lib2():
-        z = torch.nn.functional.conv1d(v[:, None, lo:], kmat, stride=D)
-        return z[..., :q].transpose(1, 2).reshape(ROWS, -1)[:, :n2]
-
+    lib2 = library_resample(back.spec.phase_table, [1.0], I, D,
+                            back._offset_k, h2, y1, n2)
     lib_err2 = (lib2() - yr).abs().max().item()
-    ops2 = 2 * Kp * n2 * ROWS
+    ops2 = 2 * back.spec.taps_per_phase * n2 * ROWS
     b2, by2 = bound(nbytes(y1, h2, back._table, yr), ops2, "f32")
     rows.append(dict(
-        name="K2 resample", route="cuda",
+        name="K2 resample", kernel="resample", route="cuda",
         source="sdr_tpu_torch/csrc/resample.cu",
         replaces="sdr_tpu/kernels/resample_pallas.py:187",
         max_abs_err=err2, ms=time_ms(lambda: resample.resample(*a2), 20),
@@ -213,7 +286,8 @@ def check_kernels(raw, ops):
     lib_err3 = (lib3() - y3).abs().max().item()
     b3, by3 = bound(nbytes(yr, back._taps, y3), 2 * Kf * n3 * ROWS, "f32")
     rows.append(dict(
-        name="K3 fir", route="cuda", source="sdr_tpu_torch/csrc/fir.cu",
+        name="K3 fir", kernel="fir", route="cuda",
+        source="sdr_tpu_torch/csrc/fir.cu",
         replaces="sdr_tpu/kernels/fir_pallas.py:145",
         max_abs_err=err3, ms=time_ms(lambda: fir.fir_strided(*a3), 20),
         plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
@@ -223,22 +297,17 @@ def check_kernels(raw, ops):
 
 
 def run_chain(raw, ops, kernels):
-    """The block-parallel chain with the launch counters read around it,
-    then the streamed run over the same signal."""
-    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    """The mono block-parallel chain with the launch counters read around
+    one call, then the streamed run over the same signal."""
     from sdr_tpu_torch.stream import Pipeline
 
-    run_time_batched(ops, raw, ROWS)               # warm-up
-    torch.cuda.synchronize()
+    counted_call(ops, raw, kernels)                     # warm-up
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    y = run_time_batched(ops, raw, ROWS)
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} not launched on the main path")
+    for name in ("u8_front_demod", "resample", "fir"):
+        require(launches[name] > 0,
+                f"kernel {name} not launched on the main path")
     out = y.cpu().numpy()
     per_row = ops[1].out_len(ops[0].out_len(ROW_BYTES))
     require(out.shape == (ROWS * per_row,), f"output shape {out.shape}")
@@ -248,22 +317,7 @@ def run_chain(raw, ops, kernels):
     print(f"block-parallel chain: {ROWS} x {ROW_BYTES} bytes; peak memory "
           f"{peak} bytes; tone {hz:.2f} Hz; launches in one call "
           f"{launches}")
-
-    # each call between CUDA events: the span on the device's clock from
-    # the call's first enqueue to its last kernel's end, host gaps included
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(CHAIN_REPS)]
-    for a, b in ev:
-        a.record()
-        run_time_batched(ops, raw, ROWS)
-        b.record()
-    torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in ev)
-    ms = float(np.median(times))
-    print(f"block-parallel chain over {CHAIN_REPS} calls by CUDA events: "
-          f"median {ms} ms (min {times[0]}, max {times[-1]}); "
-          f"{raw.numel() // 2 / (ms * 1e-3):.6e} complex input samples/s "
-          "(median)")
+    time_chain(ops, raw, "block-parallel chain")
 
     pipe = Pipeline(ops, block_in=STREAM_BLOCK)
     torch.cuda.synchronize()
@@ -292,8 +346,12 @@ def run_chain(raw, ops, kernels):
     return launches
 
 
-def run_cli(raw):
-    """The CLI on a temporary recording, streamed and block-parallel."""
+def run_cli(raw, stereo: bool):
+    """The CLI on a temporary recording of 16 blocks, streamed and with
+    ``--batched 4``: the mono chain, or the stereo + de-emphasis chain on
+    the quantized front."""
+    chain = (["--front", "quantized", "--stereo", "--deemphasis", "75e-6"]
+             if stereo else [])
     wavs = []
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "capture.u8")
@@ -304,21 +362,273 @@ def run_cli(raw):
             out = os.path.join(tmp, f"audio{len(wavs)}.wav")
             proc = subprocess.run(
                 [sys.executable, "-m", "sdr_tpu_torch.apps.fm", "--in", src,
-                 "--out", out, *extra], cwd=ROOT, env=env,
+                 "--out", out, *chain, *extra], cwd=ROOT, env=env,
                 capture_output=True, text=True, timeout=300)
-            print(f"cli {' '.join(extra) or '(streamed)'}: rc "
+            print(f"cli {' '.join(chain + extra) or '(streamed)'}: rc "
                   f"{proc.returncode} {proc.stdout.strip()}")
             require(proc.returncode == 0, f"cli failed: {proc.stderr}")
             with wave.open(out, "rb") as wf:
                 require(wf.getframerate() == 48_000, "WAV rate")
+                require(wf.getnchannels() == (2 if stereo else 1),
+                        "WAV channels")
                 pcm = np.frombuffer(wf.readframes(wf.getnframes()), "<i2")
-            hz = tone_hz(pcm.astype(np.float64))
-            require(abs(hz - 1000) < 5, f"cli tone at {hz} Hz")
+            if stereo:
+                pcm = pcm.reshape(-1, 2).astype(np.int32)
+                sep = check_separation(pcm[4000:, 0].astype(np.float64),
+                                       pcm[4000:, 1].astype(np.float64),
+                                       "stereo cli")
+            else:
+                hz = tone_hz(pcm.astype(np.float64))
+                require(abs(hz - 1000) < 5, f"cli tone at {hz} Hz")
             wavs.append(pcm)
-    require(np.array_equal(wavs[0], wavs[1]),
-            "cli streamed and --batched WAVs differ")
-    print(f"cli: {len(wavs[0])} samples, tone {hz:.2f} Hz, streamed == "
-          "batched")
+    if stereo:
+        # the IIR's entering state is rounded otherwise block-parallel
+        lsb = int(np.abs(wavs[0] - wavs[1]).max())
+        require(lsb <= 1, f"stereo cli streamed vs --batched: {lsb} LSB")
+        print(f"stereo cli: {len(wavs[0])} 2-channel frames, separation "
+              f"L {sep[0]:.1f}x R {sep[1]:.1f}x, streamed vs batched "
+              f"{lsb} LSB")
+    else:
+        require(np.array_equal(wavs[0], wavs[1]),
+                "cli streamed and --batched WAVs differ")
+        print(f"cli: {len(wavs[0])} samples, tone {hz:.2f} Hz, streamed == "
+              "batched")
+
+
+def check_stereo_kernels(raw, ops):
+    """K4, K3 at StereoDecode's 65-tap shape, and K5, each vs its plain
+    version at the stereo path's shapes and at extra geometries."""
+    from sdr_tpu_torch.kernels import backhalf, fir, resample, u8_front
+    from sdr_tpu_torch.ops.quantized import u8_front_plan
+
+    front, demod, stereo, back = ops[:4]
+    rows = []
+    x = raw.view(ROWS, ROW_BYTES)
+
+    # K4 at the block-parallel batch, history from the halo: 86 bytes, not
+    # a whole number of 16-byte output steps
+    hist = front.shard_carry(x)
+    n1 = front.out_len(ROW_BYTES)
+    args = (front.tq, front.scale, front.factor, x, hist, n1)
+    y4 = u8_front.u8_front(*args)
+    err4 = (y4 - u8_front.u8_front_reference(*args)).abs().max().item()
+    # s16 taps, a byte offset, and leading dims [B] and [B, C]
+    tq16, sc16 = u8_front_plan(front.taps, "s16")
+    tq16 = torch.as_tensor(tq16, device=x.device)
+    for a in [(tq16, sc16, 8, x[:4], hist[:4], n1),
+              (front.tq, front.scale, 8, x[:4], hist[:4], n1 - 2, 10),
+              (front.tq, front.scale, 8, x[:4].view(2, 2, ROW_BYTES),
+               hist[:4].view(2, 2, -1), n1)]:
+        err4 = max(err4, (u8_front.u8_front(*a)
+                          - u8_front.u8_front_reference(*a)).abs().max()
+                   .item())
+    torch.cuda.synchronize()
+    require(torch.isfinite(y4).all().item(), "K4 output finite")
+    require(err4 == 0, f"K4 vs plain {err4} != 0")
+    b4, by4 = bound(nbytes(x, hist, front.tq, y4),
+                    2 * 2 * front.n_taps * n1 * ROWS, "int8")
+    rows.append(dict(
+        name="K4 u8_front", kernel="u8_front", route="cuda",
+        source="sdr_tpu_torch/csrc/u8_front.cu",
+        replaces="sdr_tpu/kernels/u8_front_pallas.py:192",
+        max_abs_err=err4,
+        ms=time_ms(lambda: u8_front.u8_front(*args), 20),
+        plain_ms=time_ms(lambda: u8_front.u8_front_reference(*args), 3, 1),
+        bound_ms=b4, bound_by=by4, library_ms=None,
+        library_note="no PyTorch call computes an exact-integer "
+                     "decimation of interleaved u8"))
+
+    # K3 at StereoDecode's shape: 65 taps over concat(hist, composite)
+    _, comp = demod.apply(demod.shard_carry(y4), y4)
+    sc = stereo.shard_carry(comp)
+    xe = torch.cat([sc[0], comp], dim=-1)
+    nc = comp.shape[-1]
+    a3 = (stereo._lp15, xe, nc, 1, stereo.H - 64)      # the mono lowpass
+    err3 = 0.0
+    for a in (a3, (stereo._bp19, xe, xe.shape[-1] - 64, 1, 0)):
+        err3 = max(err3, (fir.fir_strided(*a) - fir.fir_strided_reference(*a))
+                   .abs().max().item())
+    require(err3 <= 1e-6, f"K3 (65 taps) vs plain {err3} > 1e-6")
+    y3 = fir.fir_strided(*a3)
+    w3 = stereo._lp15.view(1, 1, -1)
+
+    def lib3():
+        return torch.nn.functional.conv1d(xe[:, None, stereo.H - 64:],
+                                          w3)[:, 0, :nc]
+
+    lib_err3 = (lib3() - y3).abs().max().item()
+    b3, by3 = bound(nbytes(xe, stereo._lp15, y3), 2 * 65 * nc * ROWS, "f32")
+    rows.append(dict(
+        name="K3 fir (StereoDecode, 65 taps, start 64)", kernel="fir",
+        launches_note="the fir kernel's launches on the path at every "
+                      "shape: 65 taps in StereoDecode, 64 in the back half",
+        route="cuda", source="sdr_tpu_torch/csrc/fir.cu",
+        replaces="sdr_tpu/kernels/fir_pallas.py:145",
+        max_abs_err=err3, ms=time_ms(lambda: fir.fir_strided(*a3), 20),
+        plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
+        bound_ms=b3, bound_by=by3, library_ms=time_ms(lib3, 20),
+        library_max_abs_diff=lib_err3))
+
+    # K5 over the L/R planes, history from the halo; and offsets 1 and 2,
+    # starts 37 and 5, outputs not a multiple of the 256-output tile
+    _, lr = stereo.apply(sc, comp)
+    h5 = back.shard_carry(lr)
+    I, D = back.spec.interpolation, back.spec.decimation
+    n5 = back.out_len(nc)
+    a5 = (back._table, I, D, back._taps, lr, h5, back._offset_k, n5, 0)
+    y5 = backhalf.resample_fir(*a5)
+    err5 = 0.0
+    for off, start, num in [(back._offset_k, 0, n5), (1, 37, n5 - 21),
+                            (2, 5, n5 - 3)]:
+        a = (back._table, I, D, back._taps, lr, h5, off, num, start)
+        err5 = max(err5, (backhalf.resample_fir(*a)
+                          - backhalf.resample_fir_reference(*a)).abs().max()
+                   .item())
+    require(torch.isfinite(y5).all().item(), "K5 output finite")
+    require(err5 <= 2e-5, f"K5 vs plain {err5} > 2e-5")
+    Kf = back.taps_f.shape[0]
+
+    def pair():
+        yr = resample.resample(back._table, I, D, lr, h5, back._offset_k,
+                               n5 + Kf - 1)
+        return fir.fir_strided(back._taps, yr, n5)
+
+    pair_err = (pair() - y5).abs().max().item()
+    lib5 = library_resample(back.spec.phase_table, back._taps_scaled, I, D,
+                            back._offset_k, h5, lr, n5)
+    lib_err5 = (lib5() - y5).abs().max().item()
+    require(lib_err5 <= 2e-5, f"K5 vs its conv1d yardstick {lib_err5}")
+    b5, by5 = bound(nbytes(lr, h5, back._table, back._taps, y5),
+                    2 * (back.spec.taps_per_phase + Kf) * y5.numel(), "f32")
+    rows.append(dict(
+        name="K5 backhalf", kernel="backhalf", route="cuda",
+        source="sdr_tpu_torch/csrc/backhalf.cu",
+        replaces="sdr_tpu/kernels/backhalf_pallas.py:240",
+        max_abs_err=err5, ms=time_ms(lambda: backhalf.resample_fir(*a5), 20),
+        plain_ms=time_ms(lambda: backhalf.resample_fir_reference(*a5), 3, 1),
+        bound_ms=b5, bound_by=by5, library_ms=time_ms(lib5, 20),
+        library_max_abs_diff=lib_err5,
+        library_note="conv1d with the FIR taps composed with the resampler "
+                     "phases, one filter per output phase; the port's "
+                     "K2 -> K3 pair on the same input is pair_ms",
+        pair_ms=time_ms(pair, 20), pair_max_abs_diff=pair_err))
+    return rows
+
+
+def time_chain(ops, raw, what: str) -> float:
+    """Median ms of CHAIN_REPS back-to-back block-parallel calls, each
+    between CUDA events: the span on the device's clock from the call's
+    first enqueue to its last kernel's end, host gaps included."""
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(CHAIN_REPS)]
+    for a, b in ev:
+        a.record()
+        run_time_batched(ops, raw, ROWS)
+        b.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in ev)
+    ms = float(np.median(times))
+    print(f"{what} over {CHAIN_REPS} calls by CUDA events: median {ms} ms "
+          f"(min {times[0]}, max {times[-1]}); "
+          f"{raw.numel() // 2 / (ms * 1e-3):.6e} complex input samples/s "
+          "(median)")
+    return ms
+
+
+def counted_call(ops, raw, kernels):
+    """One block-parallel call with every launch counter set to 0 just
+    before it and read just after."""
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    y = run_time_batched(ops, raw, ROWS)
+    torch.cuda.synchronize()
+    return y, {k.name: k.launches for k in kernels}
+
+
+def run_stereo_chain(raw, ops, kernels):
+    """The stereo path block-parallel (launch counts, separation, lock,
+    timing, peak memory), its fused variant (K5), and the streamed run."""
+    from sdr_tpu_torch.apps.chains import fm_chain, fm_taps
+    from sdr_tpu_torch.parallel.sharded import time_sharded_fn
+    from sdr_tpu_torch.stream import Pipeline, ResampleFirScale
+
+    counted_call(ops, raw, kernels)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, raw, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("u8_front", "resample", "fir"):
+        require(launches[name] > 0,
+                f"kernel {name} not launched on the stereo path")
+    per_row = ops[3].out_len(ops[0].out_len(ROW_BYTES))
+    require(tuple(y.shape) == (2, ROWS * per_row), f"output {y.shape}")
+    out = y.cpu().numpy()
+    require(np.isfinite(out).all(), "stereo output finite")
+    seg = out[:, 4000:4000 + (1 << 20)]
+    sep = check_separation(seg[0], seg[1], "stereo block-parallel")
+    # the lock state after every row (the stream's carry at each row end)
+    xb = raw.view(ROWS, ROW_BYTES)
+    cb, _ = time_sharded_fn(ops, return_carries=True)(xb)
+    locks = cb[2][1]
+    require(bool((locks == 1).all()), f"pilot lock per row {locks.tolist()}")
+    print(f"stereo block-parallel chain: {ROWS} x {ROW_BYTES} bytes -> "
+          f"{tuple(y.shape)}; peak memory {peak} bytes; separation L "
+          f"{sep[0]:.1f}x R {sep[1]:.1f}x; locked on all {ROWS} rows; "
+          f"launches in one call {launches}")
+    time_chain(ops, raw, "stereo block-parallel chain")
+
+    # the same chain with the fused back half
+    _, ars, afl = fm_taps()
+    require(isinstance(ops[3], ResampleFirScale) and not ops[3].fused,
+            "stereo chain's back half")
+    fops = [*ops[:3], ResampleFirScale(ars, 3, 10, afl, 1.0, fused=True),
+            *ops[4:]]
+    counted_call(fops, raw, kernels)                    # warm-up
+    yf, launches_f = counted_call(fops, raw, kernels)
+    require(launches_f["backhalf"] > 0 and launches_f["resample"] == 0,
+            f"fused stereo path launches {launches_f}")
+    dfused = (yf - y).abs().max().item()
+    require(dfused <= 2e-5, f"fused vs unfused back half {dfused} > 2e-5")
+    print(f"stereo chain, ResampleFirScale(fused=True): max abs diff to "
+          f"unfused {dfused}; launches in one call {launches_f}")
+    time_chain(fops, raw, "stereo block-parallel chain, fused back half")
+
+    # streamed: within 1e-5, not bitwise -- the IIR's state entering a row
+    # comes from C^n and the matrix affine prefix block-parallel, from the
+    # recurrence itself streamed, and the two round differently
+    pipe = Pipeline(ops, block_in=STREAM_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = list(pipe.run(raw[i:i + STREAM_BLOCK] for i in
+                           range(0, raw.numel(), STREAM_BLOCK)))
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    streamed = torch.cat(blocks, dim=-1)
+    dstream = (streamed - y).abs().max().item()
+    require(dstream <= 1e-5, f"stereo streamed vs block-parallel {dstream}")
+    print(f"stereo streamed Pipeline.run at {STREAM_BLOCK}-byte blocks: max "
+          f"abs diff to block-parallel {dstream}; "
+          f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+
+    small = raw[:4 * STREAM_BLOCK].cpu()
+    cpu_ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6,
+                       device="cpu")
+    _, ref = Pipeline(cpu_ops, block_in=STREAM_BLOCK,
+                      device="cpu").process(small)
+    n = ref.shape[-1]
+    diff = (streamed[:, :n].cpu() - ref).abs().max().item()
+    require(diff <= 1e-5, f"stereo card vs CPU plain chain {diff} > 1e-5")
+    print(f"stereo card vs CPU plain chain on 4 blocks: max abs diff {diff}")
+    return launches, launches_f
+
+
+def print_rows(rows, card: str) -> None:
+    for r in rows:
+        print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
+              f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+              f"bound {r['bound_ms']} ms ({r['bound_by']}) on {card}")
 
 
 def main(argv=None) -> int:
@@ -350,18 +660,36 @@ def main(argv=None) -> int:
                 print(f"  {k.name}: {line.strip()}")
 
     device = torch.device("cuda")
+    # the mono path: fm_chain(), K1 -> K2 -> K3
     raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
     ops = fm_chain(device=device)
     rows = check_kernels(raw, ops)
-    for r in rows:
-        print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
-              f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
-              f"bound {r['bound_ms']} ms ({r['bound_by']}) on {card}")
-    launches = run_chain(raw, ops, KERNELS)
-    for r, k in zip(rows, KERNELS):
-        r["launches"] = launches[k.name]
-    run_cli(raw)
+    print_rows(rows, card)
+    mono = run_chain(raw, ops, KERNELS)
+    run_cli(raw, stereo=False)
+    del raw, ops
 
+    # the stereo + de-emphasis path on the quantized front: K4, K3, K2 -> K3
+    # (and K5 with the fused back half)
+    raw = synth_stereo_broadcast(ROWS * ROW_BYTES, args.seed, device)
+    ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6,
+                   device=device)
+    srows = check_stereo_kernels(raw, ops)
+    print_rows(srows, card)
+    stereo, fused = run_stereo_chain(raw, ops, KERNELS)
+    run_cli(raw, stereo=True)
+
+    # launches: each row's on the path its shapes come from, and on every
+    # path, each path's counts taken around one call of its own
+    paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused}
+    for r in rows:
+        r["launches"] = mono[r["kernel"]]
+    for r in srows:
+        r["launches"] = (fused if r["kernel"] == "backhalf"
+                         else stereo)[r["kernel"]]
+    rows += srows
+    for r in rows:
+        r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

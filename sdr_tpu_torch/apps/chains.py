@@ -1,15 +1,21 @@
 """Receive-chain constructors (counterpart of sdr_tpu/apps/chains.py).
 
-This slice of the port carries the broadcast-FM receiver as the JAX
-package runs it on an accelerator: fused front (convert + decimate + demod
-in one kernel) and fused back (resample -> FIR -> volume).  Other chain
-options raise ``NotImplementedError`` naming the slice that brings them.
+The broadcast-FM receiver as the JAX package runs it on an accelerator:
+the fused front (convert + decimate + demod in one kernel) or the
+quantized front (convert + decimate in one kernel, then the demod), an
+optional stereo decoder, the fused back (resample -> FIR -> volume) and
+optional de-emphasis.  Other chain options raise ``NotImplementedError``
+naming the slice that brings them.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from sdr_tpu_torch.ops import design
-from sdr_tpu_torch.stream.ops import ResampleFirScale, U8FrontDemod
+from sdr_tpu_torch.ops.iir import deemphasis_taps
+from sdr_tpu_torch.stream.ops import (FmDemod, Iir, ResampleFirScale, Scale,
+                                      StereoDecode, U8FrontDemod, U8FrontEnd)
 
 __all__ = ["fm_taps", "fm_chain"]
 
@@ -29,31 +35,50 @@ def fm_taps():
     return rf, ars, afl
 
 
-def fm_chain(volume: float = 0.2, front: str = "auto", stereo: bool = False,
-             deemphasis: float | None = None, fuse_back="auto",
-             device="cuda"):
-    """Broadcast FM receiver ops: u8 IQ at 1.28 MS/s -> decimate 8 -> FM
-    demod (160 kS/s) -> 3/10 resample -> 64-tap audio FIR -> volume, 48 kS/s
-    mono audio.
+def fm_chain(volume: float = 0.2, front: str = "auto",
+             front_precision: str = "s8", stereo: bool = False, fs_in: float = 1_280_000.0,
+             deemphasis: float | None = None, deemphasis_mode: str = "iir",
+             fuse_back="auto", device="cuda"):
+    """Broadcast FM receiver ops: u8 IQ at ``fs_in`` (1.28 MS/s) ->
+    decimate 8 -> FM demod (160 kS/s) -> 3/10 resample -> 64-tap audio FIR
+    -> volume, 48 kS/s audio: mono ``[n]``, or ``[2, n]`` L/R with
+    ``stereo=True``.
 
-    ``front``: 'auto' or 'fused' (the only front of this slice; its taps
-    are quantized to 8 bits, the JAX package's default).  ``fuse_back``:
-    'auto' or True.  The ops hold their taps on ``device`` (default the
-    card; raises without a GPU)."""
-    if front not in ("auto", "fused"):
+    ``front``: 'auto' or 'fused' (convert + decimate + demod in kernel K1)
+    or 'quantized' (convert + decimate in K4, then ``FmDemod`` with the
+    polynomial atan2).  ``front_precision``: the taps quantized to 's8' (the
+    default) or 's16'.  ``stereo=True`` puts a ``StereoDecode`` after the
+    demod; the back half batches over its [2] L/R axis.  ``deemphasis``:
+    the RC time constant in seconds (75e-6 in the Americas, 50e-6 in
+    Europe) of a single-pole ``Iir`` at the audio rate, before the volume.
+    ``fuse_back``: 'auto' or True (``ResampleFirScale``).  The ops hold
+    their taps on ``device`` (default the card; raises without a GPU)."""
+    if front not in ("auto", "fused", "quantized"):
         raise NotImplementedError(
-            f"front={front!r} (the f32 'exact' stages and the 'quantized' "
-            "front end, kernel K4) waits for a later slice of the port")
+            f"front={front!r} (the f32 'exact' stages, the Fir stream op) "
+            "waits for the exact-front slice of the port")
     if fuse_back not in ("auto", True):
         raise NotImplementedError(
-            "fuse_back=False (the separate Fir and Scale stages) waits for "
-            "a later slice of the port")
-    if stereo:
-        raise NotImplementedError(
-            "stereo decoding waits for the stereo/de-emphasis slice")
-    if deemphasis is not None:
-        raise NotImplementedError(
-            "de-emphasis waits for the stereo/de-emphasis slice")
+            "fuse_back=False (the separate Fir and Scale stages, the Fir "
+            "stream op) waits for the exact-front slice of the port")
+    if deemphasis is not None and deemphasis_mode != "iir":
+        if deemphasis_mode == "fir":
+            raise NotImplementedError(
+                "deemphasis_mode='fir' (a 64-tap Fir stage) waits for the "
+                "exact-front slice of the port")
+        raise ValueError(f"unknown deemphasis_mode {deemphasis_mode!r}")
     rf, ars, afl = fm_taps()
-    return [U8FrontDemod(rf, 8, precision="s8", device=device),
-            ResampleFirScale(ars, 3, 10, afl, volume, device=device)]
+    if deemphasis is None:
+        back = [ResampleFirScale(ars, 3, 10, afl, volume, device=device)]
+    else:
+        b, a = deemphasis_taps(fs_in / 8 * 3 / 10, deemphasis)
+        back = [ResampleFirScale(ars, 3, 10, afl, 1.0, device=device),
+                Iir(np.concatenate([b, a]), device=device),
+                Scale(volume, device=device)]
+    if stereo:
+        back = [StereoDecode(fs=fs_in / 8, device=device), *back]
+    if front == "quantized":
+        return [U8FrontEnd(rf, 8, precision=front_precision, device=device),
+                FmDemod(atan2="poly", device=device), *back]
+    return [U8FrontDemod(rf, 8, precision=front_precision, device=device),
+            *back]

@@ -4,10 +4,16 @@ sdr_tpu/apps/fm.py):
     python -m sdr_tpu_torch.apps.fm --in capture.iq --out audio.wav \\
         --block 1310720
 
-Reads RTL-SDR-format u8 interleaved IQ at 1.28 MS/s and writes 48 kHz mono
-WAV.  Runs on the card; ``--device cpu`` runs the plain PyTorch versions.
-Live radio (rtl_tcp), the native ring loader, live audio, stereo and
-de-emphasis wait for later slices of the port.
+Reads RTL-SDR-format u8 interleaved IQ at 1.28 MS/s and writes 48 kHz
+WAV: mono, or L/R with ``--stereo`` (multiplex decode), optionally
+de-emphasised (``--deemphasis 75e-6``):
+
+    python -m sdr_tpu_torch.apps.fm --in capture.iq --out audio.wav \\
+        --front quantized --stereo --deemphasis 75e-6
+
+Runs on the card; ``--device cpu`` runs the plain PyTorch versions.
+Live radio (rtl_tcp), the native ring loader and live audio wait for
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -33,6 +39,17 @@ def main(argv=None):
     ap.add_argument("--block", default="1310720", type=parse_size,
                     help="u8 items per block (must keep chain rates integral)")
     ap.add_argument("--volume", type=float, default=0.2)
+    ap.add_argument("--front", default="auto",
+                    choices=["auto", "fused", "quantized"],
+                    help="front end: convert + decimate + demod in one "
+                         "kernel (auto, fused) or convert + decimate, then "
+                         "the demod (quantized)")
+    ap.add_argument("--stereo", action="store_true",
+                    help="decode the stereo multiplex (L/R WAV out)")
+    ap.add_argument("--deemphasis", type=float, default=None,
+                    metavar="TAU",
+                    help="broadcast de-emphasis time constant in seconds "
+                         "(75e-6 Americas, 50e-6 Europe; default off)")
     ap.add_argument("--batched", type=int, default=0, metavar="B",
                     help="process B blocks block-parallel per step "
                          "(0 = stream block by block)")
@@ -45,11 +62,14 @@ def main(argv=None):
                          "plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    pipe = Pipeline(fm_chain(args.volume, device=args.device),
+    pipe = Pipeline(fm_chain(args.volume, front=args.front,
+                             stereo=args.stereo, fs_in=float(FS_IN),
+                             deemphasis=args.deemphasis, device=args.device),
                     block_in=args.block, device=args.device)
     # block_in counts u8 items: two per complex sample
     audio_rate = 2 * FS_IN * pipe.block_out // pipe.block_in
-    write, close = wav_sink(args.out, audio_rate)
+    write, close = wav_sink(args.out, audio_rate,
+                            channels=2 if args.stereo else 1)
     source = iq_file_source(args.inp, args.block)
     if args.max_blocks:
         source = itertools.islice(source, args.max_blocks)

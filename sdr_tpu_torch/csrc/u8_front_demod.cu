@@ -14,6 +14,7 @@
 //   block copies the tile's input window into shared memory once, so each
 //   input byte is read from device memory about once, and every thread
 //   then reads its own window (I and Q bytes as one 16-bit word) there.
+//   The window loading and the integer sums are K4's too (u8_window.cuh).
 // * A row's stream is concat(hist, x): byte p < H comes from the row's
 //   H-byte history, the rest from its block.  Reading through the two
 //   pointers covers every output; no concatenated copy is ever made.
@@ -32,13 +33,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "u8_window.cuh"
+
 namespace {
 
-constexpr int TILE = 256;
+using u8w::align16;
+using u8w::front_sample;
 
-__host__ __device__ constexpr long long align16(long long v) {
-  return (v + 15) / 16 * 16;
-}
+constexpr int TILE = 256;
 
 __device__ __forceinline__ float poly_atan2(float b, float a) {
   // sdr_tpu/ops/demod.py:fast_atan2; coefficients rounded to f32 as
@@ -58,22 +60,6 @@ __device__ __forceinline__ float poly_atan2(float b, float a) {
   if (ab > aa) r = __fsub_rn(static_cast<float>(1.5707963267948966), r);
   if (a < 0.f) r = __fsub_rn(static_cast<float>(3.141592653589793), r);
   return b < 0.f ? -r : r;
-}
-
-// decimated (I, Q) of the output whose window starts at w (16-bit words:
-// low byte I, high byte Q)
-__device__ __forceinline__ float2 front_sample(const unsigned short* w,
-                                               const int32_t* taps, int K,
-                                               float scale) {
-  int ai = 0, aq = 0;
-  for (int k = 0; k < K; ++k) {
-    const unsigned short v = w[k];
-    const int tk = taps[k];
-    ai += tk * (static_cast<int>(v & 0xff) - 128);
-    aq += tk * (static_cast<int>(v >> 8) - 128);
-  }
-  return make_float2(__fmul_rn(__int2float_rn(ai), scale),
-                     __fmul_rn(__int2float_rn(aq), scale));
 }
 
 __global__ void __launch_bounds__(TILE)
@@ -99,8 +85,7 @@ u8_front_demod_kernel(const uint8_t* __restrict__ x,
   const uint8_t* xr = x + row * n;
   const uint8_t* hr = hist + row * H;
   for (int k = t; k < K; k += TILE) s_taps[k] = taps[k];
-  for (long long p = pb + t; p < pe; p += TILE)
-    s_win[p - pb] = p < H ? hr[p] : xr[p - H];
+  u8w::load_window(s_win, hr, xr, H, pb, pe);
   __syncthreads();
 
   const unsigned short* w16 = reinterpret_cast<const unsigned short*>(s_win);

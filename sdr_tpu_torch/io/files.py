@@ -22,18 +22,25 @@ def iq_file_source(path, block: int) -> Iterator[np.ndarray]:
             yield b
 
 
-def wav_sink(path, sample_rate: int = 48000):
-    """A consumer writing 16-bit mono WAV.  Returns (write, close);
-    ``write`` takes float blocks ``[n]`` in [-1, 1]."""
+def wav_sink(path, sample_rate: int = 48000, channels: int = 1):
+    """A consumer writing 16-bit WAV.  Returns (write, close); ``write``
+    takes float blocks in [-1, 1]: mono ``[n]``, or planar
+    ``[channels, n]`` (the stereo chain's L/R), interleaved on write."""
     wf = wave.open(str(path), "wb")
-    wf.setnchannels(1)
+    wf.setnchannels(channels)
     wf.setsampwidth(2)
     wf.setframerate(sample_rate)
 
     def write(block):
         b = np.asarray(block, dtype=np.float64)
-        if b.ndim != 1:
-            raise ValueError("mono sink got a multi-channel block")
+        if channels > 1:
+            if b.ndim != 2 or b.shape[0] != channels:
+                raise ValueError(f"expected [{channels}, n] block, got "
+                                 f"{b.shape}")
+            b = b.T.reshape(-1)  # interleave frames
+        elif b.ndim != 1:
+            raise ValueError("mono sink got a multi-channel block: pass "
+                             "channels= to wav_sink")
         pcm = np.clip(np.round(b * 32767), -32768, 32767).astype("<i2")
         wf.writeframes(pcm.tobytes())
 

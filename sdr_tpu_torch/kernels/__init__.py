@@ -3,8 +3,11 @@
 Each module holds the kernel's wrapper, its plain PyTorch version and its
 ``KERNEL`` (build, bindings and launch count).  A wrapper launches the
 kernel for CUDA tensors and takes the plain version only for CPU tensors.
+``KERNELS`` lists them as K1 to K5.
 """
 
-from sdr_tpu_torch.kernels import fir, resample, u8_front_demod
+from sdr_tpu_torch.kernels import (backhalf, fir, resample, u8_front,
+                                   u8_front_demod)
 
-KERNELS = (u8_front_demod.KERNEL, resample.KERNEL, fir.KERNEL)
+KERNELS = (u8_front_demod.KERNEL, resample.KERNEL, fir.KERNEL,
+           u8_front.KERNEL, backhalf.KERNEL)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes plain C launch functions.  On first use it
 is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a
 shared library under ``build/kernels/`` at the repository root (named by
-a digest of source and flags, so an edited source is rebuilt), and loaded
+a digest of the source, every shared ``csrc/*.cuh`` header and the flags,
+so an edited source or header is rebuilt), and loaded
 with ``ctypes``.  Every launch function takes the CUDA stream last and
 returns ``cudaGetLastError()``; a nonzero code raises here.  Each library
 links its own CUDA runtime, so every launch first selects the tensors'
@@ -78,6 +79,9 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD / f"lib{self.name}-{h.hexdigest()[:12]}.so"
 

@@ -36,17 +36,22 @@ def fast_atan2(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, -r, r)
 
 
-def fm_demod_planar(x: torch.Tensor, last: torch.Tensor | None = None):
+def fm_demod_planar(x: torch.Tensor, last: torch.Tensor | None = None,
+                    atan2: str = "poly"):
     """Planar-complex ``x[..., 2, n]`` (real plane first) ->
-    ``(y[..., n], new_last[..., 2])`` with the polynomial atan2.
+    ``(y[..., n], new_last[..., 2])``.
 
     ``last`` is the previous block's final ``(re, im)`` sample (zeros at
-    stream start: atan2(0, 0) = 0)."""
+    stream start: atan2(0, 0) = 0).  ``atan2``: 'poly' (:func:`fast_atan2`)
+    or 'exact' (``torch.atan2``)."""
+    if atan2 not in ("poly", "exact"):
+        raise ValueError(f"atan2 must be 'poly' or 'exact', got {atan2!r}")
+    at2 = fast_atan2 if atan2 == "poly" else torch.atan2
     if last is None:
         last = torch.zeros(x.shape[:-2] + (2,), dtype=x.dtype,
                            device=x.device)
     re, im = x[..., 0, :], x[..., 1, :]
     pre = torch.cat([last[..., 0:1], re[..., :-1]], dim=-1)
     pim = torch.cat([last[..., 1:2], im[..., :-1]], dim=-1)
-    y = fast_atan2(im * pre - re * pim, re * pre + im * pim)
+    y = at2(im * pre - re * pim, re * pre + im * pim)
     return y, x[..., :, -1].clone()

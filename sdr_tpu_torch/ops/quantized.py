@@ -15,7 +15,8 @@ change a sample, so it has no counterpart here.
 
 The sums are exact in int32 (|acc| <= 51 * 32512 * 128 < 2^31 for the
 FM chain's taps).  ``torch.matmul`` on int8 would wrap in int8, so the
-plain version accumulates tap by tap in int32.
+plain version accumulates tap by tap in int32.  On the card the same sums
+run in kernel K4 (``fir_decimate_u8_planar``) or K1 (fused with the demod).
 """
 
 from __future__ import annotations
@@ -64,10 +65,12 @@ def fir_decimate_u8_planar(taps, factor: int, raw: torch.Tensor,
                            num: int | None = None, *,
                            precision: str = "s16", byte_off: int = 0):
     """Interleaved u8 IQ ``[..., 2n]`` -> decimated planar f32
-    ``[..., 2, num]``: convert + K-tap decimate-by-f with quantized taps."""
+    ``[..., 2, num]``: convert + K-tap decimate-by-f with quantized taps,
+    windows starting ``byte_off`` bytes into ``raw``.  Runs kernel K4
+    (kernels/u8_front.py) on CUDA tensors, its plain version on CPU
+    tensors."""
+    from sdr_tpu_torch.kernels.u8_front import u8_front
     tq, scale = u8_front_plan(taps, precision)
-    K, f = tq.shape[0], int(factor)
-    if num is None:
-        num = ((raw.shape[-1] - byte_off) // 2 - K) // f + 1
-    acc = front_acc(tq, f, raw, int(num), byte_off)
-    return acc.to(torch.float32) * float(np.float32(scale))
+    empty = raw.new_empty(raw.shape[:-1] + (0,))
+    return u8_front(torch.as_tensor(tq, device=raw.device), scale, factor,
+                    raw.contiguous(), empty, num, byte_off)

@@ -23,7 +23,8 @@ __all__ = ["time_sharded_fn", "run_time_batched"]
 
 def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
                     return_carries: bool = False):
-    """``fn(xb[B, n]) -> y[B, n_out]`` running the chain block-parallel.
+    """``fn(xb[B, n]) -> y[B, *planes, n_out]`` running the chain
+    block-parallel.
 
     ``initials``: per-op carries entering row 0 (a previous segment's final
     state).  ``return_carries``: ``fn`` returns ``(carries, y)`` with each
@@ -48,11 +49,19 @@ def _last_row(tree):
     return tree[-1].clone()
 
 
+def _restack(yb):
+    """``[B, *planes, n]`` -> ``[*planes, B*n]``: the rows are consecutive
+    blocks of each plane's stream (``Pipeline._restack`` of the JAX
+    package).  A copy when there are planes, a view otherwise."""
+    return yb.movedim(0, -2).reshape(yb.shape[1:-1] + (-1,))
+
+
 def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
                      carries=None, return_carries: bool = False,
                      device="cuda"):
     """Block-parallel processing of a recorded 1-D signal ``x[N]`` as
-    ``nblocks`` blocks of ``N / nblocks``.
+    ``nblocks`` blocks of ``N / nblocks``.  The output is ``[*planes, M]``
+    (``[2, M]`` for the stereo chain), as the streamed run joins it.
 
     ``carries`` (per-op state from a previous segment) and
     ``return_carries=True`` continue a stream exactly across segments;
@@ -70,6 +79,6 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     out = time_sharded_fn(ops, initials=carries,
                           return_carries=return_carries)(xb)
     if not return_carries:
-        return out.reshape(-1)
+        return _restack(out)
     cb, yb = out
-    return _last_row(cb), yb.reshape(-1)
+    return _last_row(cb), _restack(yb)

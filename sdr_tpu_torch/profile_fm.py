@@ -1,26 +1,35 @@
 """Where the time of the block-parallel FM chain goes on the card.
 
-    python -m sdr_tpu_torch.profile_fm
+    python -m sdr_tpu_torch.profile_fm [--stereo]
 
 Runs ``run_time_batched`` over the main path's 32 blocks of 10,485,760
-bytes of random u8 IQ (the work does not depend on the data) once to warm
-up, then in one process:
+bytes of random u8 IQ once to warm up, then in one process:
 
 1. ``REPS`` calls unprofiled, each between CUDA events: the call's span on
    the device's clock, host gaps included;
 2. ``REPS`` calls under ``torch.profiler``: the device time of each kernel
-   by name and their sum (busy), and the profiled wall time, which carries
-   the profiler's own overhead;
+   by name and their sum (busy), the device time of the PyTorch ops each
+   stream op's ``shard_carry`` and ``apply`` launch (a ``record_function``
+   range around each, set up here; the port's own kernels are launched
+   through ctypes, which the profiler does not link to a range, so they
+   count only by name), and the profiled wall time, which carries the
+   profiler's own overhead;
 3. one call under ``cProfile``: the host functions that take the most
    time.
 
 The idle share is ``1 - busy / span``, busy from 2 and the unprofiled
-median span from 1.  Needs a CUDA GPU.
+median span from 1.  The chain is ``fm_chain()`` (mono, the fused front),
+or with ``--stereo`` ``fm_chain(front='quantized', stereo=True,
+deemphasis=75e-6)``.  The mono chain's work does not depend on the data;
+the stereo chain's does only through the pilot lock, which gates no
+kernel.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import cProfile
+import functools
 import io
 import json
 import pstats
@@ -30,7 +39,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from sdr_tpu_torch.apps.chains import fm_chain
 from sdr_tpu_torch.parallel.sharded import run_time_batched
@@ -39,12 +48,38 @@ ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
 REPS = 20
 
 
-def main() -> int:
+def _ranged(label, fn, *args):
+    with record_function(label):
+        return fn(*args)
+
+
+def label_ops(ops) -> list:
+    """Wrap each op's ``shard_carry`` and ``apply`` in a profiler range
+    named ``<i> <Op>.<method>`` (on the instances; nothing else changes)."""
+    labels = []
+    for i, op in enumerate(ops):
+        for meth in ("shard_carry", "apply"):
+            label = f"{i} {type(op).__name__}.{meth}"
+            setattr(op, meth, functools.partial(_ranged, label,
+                                                getattr(op, meth)))
+            labels.append(label)
+    return labels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stereo", action="store_true",
+                    help="profile the stereo + de-emphasis chain on the "
+                         "quantized front")
+    args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    ops = fm_chain()
+    if args.stereo:
+        ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6)
+    else:
+        ops = fm_chain()
     raw = torch.randint(0, 256, (ROWS * ROW_BYTES,), dtype=torch.uint8,
                         device="cuda")
     run_time_batched(ops, raw, ROWS)
@@ -59,6 +94,7 @@ def main() -> int:
     torch.cuda.synchronize()
     span = float(np.median([a.elapsed_time(b) for a, b in ev]))
 
+    labels = label_ops(ops)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -66,9 +102,15 @@ def main() -> int:
             run_time_batched(ops, raw, ROWS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / REPS * 1e3
-    kernels = {}
+    kernels, by_op = {}, {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.key in labels:
+            # the range on the host holds the device time of the PyTorch
+            # ops it launched; the profiler also records each range on the
+            # device's timeline, which is not a kernel
+            if e.device_type == DeviceType.CPU:
+                by_op[e.key] = e.device_time_total / 1e3 / REPS
+        elif e.device_type == DeviceType.CUDA:
             kernels[e.key] = (e.self_device_time_total / 1e3 / REPS,
                               e.count / REPS)
     busy = sum(ms for ms, _ in kernels.values())
@@ -84,11 +126,17 @@ def main() -> int:
     print(f"card: {card}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:10.4f} ms  x{n:g}  {name[:100]}")
+    print("device time of the PyTorch ops each stream op launches (the "
+          "port's kernels, launched through ctypes, are not linked to a "
+          "range; they are listed by name above):")
+    for label in labels:
+        print(f"  {by_op.get(label, 0.0):10.4f} ms  {label}")
     print(s.getvalue())
-    print(json.dumps({"rows": ROWS, "row_bytes": ROW_BYTES, "reps": REPS,
+    print(json.dumps({"chain": "stereo" if args.stereo else "mono",
+                      "rows": ROWS, "row_bytes": ROW_BYTES, "reps": REPS,
                       "span_ms": span, "device_busy_ms": busy,
                       "idle_share": 1 - busy / span,
-                      "profiled_wall_ms": wall,
+                      "profiled_wall_ms": wall, "ops_ms": by_op,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
                       "card": card}))
     return 0

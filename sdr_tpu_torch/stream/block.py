@@ -29,12 +29,19 @@ class StreamOp:
 
     Subclasses define ``out_len(n_in)`` (may raise on an incompatible
     block), ``init_carry(n_in, batch_shape)``, ``apply(carry, x)`` and
-    ``shard_carry(xb, initial)``, and hold ``device``."""
+    ``shard_carry(xb, initial)``, and hold ``device``.  An op that emits
+    or consumes a plane axis (the planar I/Q pair, the stereo L/R pair)
+    says so in ``map_batch_shape``."""
 
     device: torch.device
 
     def out_len(self, n_in: int) -> int:
         return n_in
+
+    def map_batch_shape(self, batch_shape: tuple) -> tuple:
+        """Leading dims of this op's output given its input's: the ops
+        after it shape their carries by them (``Pipeline.init``)."""
+        return batch_shape
 
     def init_carry(self, n_in: int, batch_shape=()) -> Any:
         return ()

@@ -66,6 +66,10 @@ class Pipeline:
         self.block_in = int(block_in)
         self.batch_shape = tuple(batch_shape)
         self.lens = [self.block_in]
+        # each op's input leading dims: ops that add or drop a plane axis
+        # (U8FrontEnd, FmDemod, StereoDecode) widen or narrow the carries
+        # of the ops after them
+        self.bshapes = [self.batch_shape]
         for i, op in enumerate(self.ops):
             try:
                 self.lens.append(op.out_len(self.lens[-1]))
@@ -73,14 +77,15 @@ class Pipeline:
                 raise ValueError(
                     f"stage {i} ({op!r}) rejects block of {self.lens[-1]} "
                     f"samples: {e}") from None
+            self.bshapes.append(op.map_batch_shape(self.bshapes[-1]))
         self.block_out = self.lens[-1]
 
     # -- state -------------------------------------------------------------
 
     def init(self):
         """Initial carries: a list, one entry per op."""
-        return [op.init_carry(n, self.batch_shape)
-                for op, n in zip(self.ops, self.lens)]
+        return [op.init_carry(n, bs)
+                for op, n, bs in zip(self.ops, self.lens, self.bshapes)]
 
     def carries_from_numpy(self, leaves):
         """Carries from a list of numpy leaves in ``flatten_carries`` order
@@ -189,7 +194,9 @@ class Pipeline:
                 cs, y = self.apply(cs, blk.contiguous())
                 outs.append(y)
         if not outs:
-            return cs, x.new_empty(x.shape[:-1] + (0,), dtype=torch.float32)
+            planes = self.bshapes[-1][len(self.batch_shape):]
+            return cs, x.new_empty(x.shape[:-1] + planes + (0,),
+                                   dtype=torch.float32)
         return cs, torch.cat(outs, dim=-1)
 
     def __repr__(self):

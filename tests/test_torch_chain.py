@@ -31,6 +31,17 @@ BLOCK, NB = 163_840, 8
 ATOL = 1e-5     # f32 sums in other orders than XLA's convolutions
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes
+    (pytest-xdist), where PyTorch's idle OpenMP workers spinning would
+    cost the other workers the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _broadcast(n_bytes):
     fs, n = 1_280_000, n_bytes // 2
     t = np.arange(n) / fs
@@ -178,7 +189,9 @@ def test_cli_on_cpu(raw, tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in ({"front": "exact"}, {"front": "quantized"}, {"stereo": True},
-               {"deemphasis": 75e-6}, {"fuse_back": False}):
+    for kw in ({"front": "exact"}, {"fuse_back": False},
+               {"deemphasis": 75e-6, "deemphasis_mode": "fir"}):
         with pytest.raises(NotImplementedError, match="slice"):
             chains.fm_chain(device="cpu", **kw)
+    with pytest.raises(ValueError, match="deemphasis_mode"):
+        chains.fm_chain(device="cpu", deemphasis=75e-6, deemphasis_mode="x")

@@ -27,6 +27,17 @@ SEAM_OFF = 10
 RF = fm_taps()[0]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes
+    (pytest-xdist), where PyTorch's idle OpenMP workers spinning would
+    cost the other workers the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("precision", ["s8", "s16"])
 @pytest.mark.parametrize("byte_off", [0, SEAM_OFF])
 def test_k1_plain_matches_pallas(rng, precision, byte_off):

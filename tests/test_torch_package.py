@@ -13,13 +13,26 @@ import torch
 
 import sdr_tpu_torch
 from sdr_tpu_torch.apps import chains, fm
-from sdr_tpu_torch.kernels import KERNELS, fir, resample, u8_front_demod
+from sdr_tpu_torch.kernels import (KERNELS, backhalf, fir, resample,
+                                   u8_front, u8_front_demod)
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.parallel.sharded import run_time_batched
-from sdr_tpu_torch.stream import Pipeline
+from sdr_tpu_torch.stream import (FmDemod, Iir, Pipeline, Scale,
+                                  StereoDecode, U8FrontEnd)
 
 PKG = Path(sdr_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes
+    (pytest-xdist), where PyTorch's idle OpenMP workers spinning would
+    cost the other workers the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _imports(path):
@@ -70,6 +83,17 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     np.full(163_840, 128, np.uint8).tofile(src)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         fm.main(["--in", str(src), "--out", str(tmp_path / "a.wav")])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        fm.main(["--in", str(src), "--out", str(tmp_path / "a.wav"),
+                 "--front", "quantized", "--stereo", "--deemphasis",
+                 "75e-6"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        chains.fm_chain(front="quantized", stereo=True, deemphasis=75e-6)
+    for make in (lambda: U8FrontEnd(chains.fm_taps()[0], 8), FmDemod,
+                 StereoDecode, lambda: Iir([1, 0, 0, 1, 0, 0]),
+                 lambda: Scale(0.5)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make()
     # the CPU runs only when asked for
     Pipeline(ops, block_in=163_840, device="cpu")
 
@@ -95,6 +119,13 @@ def _wrapper_calls(device):
             torch.zeros((2, 5), **f32), 1, 250, 3),
         lambda: fir.fir_strided(torch.ones(64, **f32),
                                 torch.ones((2, 1000), **f32), 400, 2, 7),
+        lambda: u8_front.u8_front(
+            torch.as_tensor(tq, device=device), scale, 8,
+            torch.full((2, 1024), 0x80, **u8), torch.full((2, 86), 0x80, **u8)),
+        lambda: backhalf.resample_fir(
+            torch.ones((3, 11), **f32), 3, 10, torch.ones(64, **f32),
+            torch.ones((2, 1000), **f32), torch.zeros((2, 5), **f32), 1, 200,
+            3),
     ]
 
 
@@ -102,11 +133,14 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
     for k in KERNELS:
         k.launches = 0
     plain = [u8_front_demod.u8_front_demod_reference,
-             resample.resample_reference, fir.fir_strided_reference]
-    for call, ref in zip(_wrapper_calls("cpu"), plain):
+             resample.resample_reference, fir.fir_strided_reference,
+             u8_front.u8_front_reference, backhalf.resample_fir_reference]
+    calls = _wrapper_calls("cpu")
+    assert len(calls) == len(plain) == len(KERNELS) == 5
+    for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0] * 5
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
