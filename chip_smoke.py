@@ -11,26 +11,34 @@ per source, all at once), then:
 2. the mono path, ``fm_chain()`` (K1, K2, K3): holds each kernel against
    its plain PyTorch version on the card at the path's shapes (32 rows of
    10,485,760 u8 bytes -> 655,360 demod samples -> 196,671 resampled ->
-   196,608 audio samples per row, plus nonzero offset/start/stride
-   geometries) and times the kernel, the plain version and, where one
+   196,608 audio samples per row) and at extra geometries (K1 and K3
+   bitwise: row bases off 16-byte alignment, histories of 86, 2 and 30
+   bytes, f in {1, 4, 8} and K in {16, 51, 63} with s8 and s16 taps for
+   K1; f in {1, 2, 3}, K in {1, 64, 65, 200} and starts 0 to 7 for K3;
+   the most outputs a stream holds and 1) and times the kernel (device
+   time of back-to-back launches), the plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``,
-   timed only); runs the block-parallel chain (``run_time_batched``) on a
-   synthetic 1 kHz broadcast with every launch counter set to 0 just
-   before one call, checks the tone, the launch counts and agreement with
-   the plain CPU run on a small input, times 20 more calls by CUDA events
-   (median, min and max), and checks that the streamed ``Pipeline.run``
-   at 1,310,720-byte blocks gives the same samples; runs the CLI;
+   timed only; for K1's decimation and K4 a grouped ``conv1d`` over the
+   (u8 - 128) planes); each row carries ``bound_fraction`` (bound / time)
+   and K3's its no-FMA instruction floor; runs the block-parallel chain
+   (``run_time_batched``) on a synthetic 1 kHz broadcast with every
+   launch counter set to 0 just before one call, checks the tone, the
+   launch counts and agreement with the plain CPU run on a small input,
+   times 20 more calls by CUDA events (median, min and max), and checks
+   that the streamed ``Pipeline.run`` at 1,310,720-byte blocks gives the
+   same samples; runs the CLI;
 3. the stereo path, ``fm_chain(front='quantized', stereo=True,
    deemphasis=75e-6)`` (K4, FmDemod, StereoDecode on K3, K2 -> K3 over
    the L/R planes, the de-emphasis IIR, the volume) on a synthetic stereo
    broadcast (L = 1 kHz, R = 400 Hz, a 10 % pilot, 75 kHz deviation) at
-   the same 32 x 10,485,760 bytes: K4 and K5 against their plain versions
-   at the path's shapes and at extra geometries, K3 at StereoDecode's
-   65-tap shape; the block-parallel chain with the counters read around
-   one call, its L/R separation, the pilot lock of every row, 20 timed
-   calls and peak memory; the same chain with ``ResampleFirScale(
-   fused=True)`` (K5) against it; the streamed run against the
-   block-parallel one and the plain CPU chain; and the stereo CLI;
+   the same 32 x 10,485,760 bytes: K4 (bitwise, K1's geometries plus byte
+   offsets 0, 1 and 10 and leading dims [B, C]) and K5 against their
+   plain versions, K3 at StereoDecode's 65-tap shape (bitwise); the
+   block-parallel chain with the counters read around one call, its L/R
+   separation, the pilot lock of every row, 20 timed calls and peak
+   memory; the same chain with ``ResampleFirScale(fused=True)`` (K5)
+   against it; the streamed run against the block-parallel one and the
+   plain CPU chain; and the stereo CLI;
 4. prints ``{"kernels": [...]}`` (every kernel with its launches on each
    path), the card line again, and last ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 ROWS, ROW_BYTES = 32, 10_485_760      # block-parallel batch (bench.py's)
 STREAM_BLOCK = 1_310_720              # the CLI's default block
 CHAIN_REPS = 20                       # timed block-parallel chain calls
+SLEEP_CYCLES = 20_000_000             # ~10 ms: time_ms's queue head start
 FS_IN = 1_280_000                     # complex S/s
 F_L, F_R = 1_000.0, 400.0             # the stereo broadcast's L and R tones
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
@@ -76,10 +85,14 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call by CUDA events over ``reps`` calls after warm-up."""
+    """Mean ms per call by CUDA events over ``reps`` calls after warm-up.
+    The calls queue up behind a device-side sleep, so the events time the
+    device's work back to back, not the host's enqueue (a wrapper's host
+    time can exceed a short kernel's)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -207,6 +220,103 @@ def library_resample(table, taps, I: int, D: int, offset: int, hist, x,
     return call
 
 
+def misaligned(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts ``offset`` elements
+    into its buffer (a row base off 16-byte alignment)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[offset: offset + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def front_geometries(raw, taps):
+    """K1's and K4's extra geometries over 4 rows of ``raw``: K in {16,
+    51, 63} x f in {1, 4, 8} x s8 and s16 taps, each at a row base 1, 6 or
+    15 bytes off 16-byte alignment, a history of 86, 2 or 30 bytes, the
+    most outputs the stream holds (not a multiple of the tiles) and 1
+    output (the halo launch), and for K4 byte offsets 0, 1 and 10.
+    Yields ``(args, kwargs)`` for the wrapper, ``start`` among kwargs."""
+    from sdr_tpu_torch.kernels.u8_front import tap_words
+    from sdr_tpu_torch.ops.quantized import u8_front_plan
+    rng = np.random.default_rng(7)
+    n = 100_006
+    x0 = raw[:4 * n].view(4, n)
+    i = 0
+    for K in (16, 51, 63):
+        src = taps if K == 51 else rng.uniform(-1, 1, K).astype(np.float32)
+        for f in (1, 4, 8):
+            for precision in ("s8", "s16"):
+                tq, scale = u8_front_plan(src, precision)
+                tq = torch.as_tensor(tq, device=raw.device)
+                tw = tap_words(tq.tolist(), raw.device)
+                H = (86, 2, 30)[i % 3]
+                hist = torch.as_tensor(rng.integers(0, 256, (4, H)),
+                                       dtype=torch.uint8, device=raw.device)
+                x = misaligned(x0, (1, 6, 15)[i % 3])
+                start = (0, 1, 10)[i % 3]
+                full = (H + n - start - 2 * K) // (2 * f) + 1
+                for num in (full, 1):
+                    yield ((tq, scale, f, x, hist, num),
+                           dict(start=start, packed=tw))
+                i += 1
+
+
+def fir_geometries(x0, taps):
+    """K3's extra geometries over the rows of ``x0``: f in {1, 2, 3} x K in
+    {1, 64, 65, 200} x starts 0 to 7, each at a row base 0 to 3 floats off
+    16-byte alignment, with the most outputs the row holds (not a multiple
+    of the tile) and, at start 0, 1 output.  Yields the wrapper's args."""
+    rng = np.random.default_rng(8)
+    n = x0.shape[-1]
+    for f in (1, 2, 3):
+        for K in (1, 64, 65, 200):
+            t = (taps if K == taps.numel() else torch.as_tensor(
+                rng.uniform(-1, 1, K).astype(np.float32), device=x0.device))
+            for start in range(8):
+                x = misaligned(x0, (start + f) % 4)
+                full = (n - start - K) // f + 1
+                for num in ((full, 1) if start == 0 else (full,)):
+                    yield (t, x, num, f, start)
+
+
+def max_err(a, b) -> float:
+    return (a - b).abs().max().item()
+
+
+def no_fma_floor_ms(n_taps: int, outputs: int) -> float:
+    """K3's floor under the order it keeps: a rounded multiply and a
+    rounded add per tap and output, separate f32 instructions, at 128 f32
+    lanes per SM and the H100 SXM's 1.98 GHz boost clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * n_taps * outputs / (sms * 128 * 1.98e9) * 1e3
+
+
+def library_front(front, x, hist, num: int):
+    """One PyTorch call for the u8 front's exact decimation: conv1d with
+    groups=2 at stride f over the (u8 - 128) f32 planes of concat(hist,
+    x), the integer taps as its [2, 1, K] weight.  Every product and
+    partial sum is an integer under 2^24 (51 * 128 * 128 for s8 taps), so
+    any summation order is exact.  Returns the call (the planes are made
+    here, outside it) and its max abs difference, after the plan's scale,
+    from K4 over the same input and taps."""
+    from sdr_tpu_torch.kernels.u8_front import u8_front
+    v = torch.cat([hist, x], dim=-1)
+    planes = torch.stack([v[..., 0::2], v[..., 1::2]], dim=-2).to(
+        torch.float32).sub_(128)
+    del v
+    w = front.tq.to(torch.float32).view(1, 1, -1).expand(2, 1, -1)
+    w = w.contiguous()
+
+    def call():
+        return torch.nn.functional.conv1d(planes, w, stride=front.factor,
+                                          groups=2)[..., :num]
+
+    got = u8_front(front.tq, front.scale, front.factor, x, hist, num,
+                   packed=front.tw)
+    diff = max_err(call() * float(np.float32(front.scale)), got)
+    return call, diff
+
+
 def check_kernels(raw, ops):
     """Each kernel vs its plain version at the main path's shapes."""
     from sdr_tpu_torch.kernels import fir, resample, u8_front_demod
@@ -219,23 +329,43 @@ def check_kernels(raw, ops):
     hist, liq = front.shard_carry(x)
     n1 = front.out_len(ROW_BYTES)
     args = (front.tq, front.scale, front.factor, x, hist, liq, n1)
-    y1, iq1 = u8_front_demod.u8_front_demod(*args)
+    kw = dict(packed=front.tw)
+    y1, iq1 = u8_front_demod.u8_front_demod(*args, **kw)
     r1, riq1 = u8_front_demod.u8_front_demod_reference(*args)
+    err1 = max(max_err(y1, r1), max_err(iq1, riq1))
+    # the extra geometries, bitwise too
+    g1 = 0
+    liq4 = torch.randn(4, 2, device=x.device)
+    for (tq, scale, f, xg, hg, num), gkw in front_geometries(raw,
+                                                             front.taps):
+        if num > 1:       # K1 has no byte offset: the most it holds
+            num = (hg.shape[-1] + xg.shape[-1] - 2 * tq.numel()) // (2 * f) + 1
+        a = (tq, scale, f, xg, hg, liq4, num)
+        got = u8_front_demod.u8_front_demod(*a, packed=gkw["packed"])
+        want = u8_front_demod.u8_front_demod_reference(*a)
+        err1 = max(err1, max_err(got[0], want[0]), max_err(got[1], want[1]))
+        g1 += 1
     torch.cuda.synchronize()
-    err1 = max((y1 - r1).abs().max().item(), (iq1 - riq1).abs().max().item())
     require(torch.isfinite(y1).all().item(), "K1 output finite")
-    require(err1 <= 2e-6, f"K1 vs plain {err1} rad > 2e-6")
+    require(err1 == 0, f"K1 vs plain {err1} != 0")
     ops1 = 2 * 2 * front.n_taps * n1 * ROWS
-    b1, by1 = bound(nbytes(x, hist, liq, front.tq, y1, iq1), ops1, "int8")
+    b1, by1 = bound(nbytes(x, hist, liq, front.tw, y1, iq1), ops1, "int8")
+    # the yardstick for its decimation: conv1d over the (u8 - 128) planes
+    lib1, lib_err1 = library_front(front, x, hist, n1)
+    ms1 = time_ms(lambda: u8_front_demod.u8_front_demod(*args, **kw), 20)
     rows.append(dict(
         name="K1 u8_front_demod", kernel="u8_front_demod", route="cuda",
         source="sdr_tpu_torch/csrc/u8_front_demod.cu",
         replaces="sdr_tpu/kernels/u8_front_demod_pallas.py:135",
-        max_abs_err=err1,
-        ms=time_ms(lambda: u8_front_demod.u8_front_demod(*args), 20),
+        max_abs_err=err1, geometries_checked=g1, ms=ms1,
         plain_ms=time_ms(
             lambda: u8_front_demod.u8_front_demod_reference(*args), 3, 1),
-        bound_ms=b1, bound_by=by1, library_ms=None))
+        bound_ms=b1, bound_by=by1, bound_fraction=b1 / ms1,
+        library_ms=time_ms(lib1, 20), library_max_abs_diff=lib_err1,
+        library_note="decimation only: conv1d(groups=2, stride=8) over "
+                     "the (u8 - 128) f32 planes, compared after the scale "
+                     "with K4 on the same input; no single call computes "
+                     "the demod"))
 
     # K2 at the chain's 3/10 stage, and at a rebased seam-like geometry
     I, D = back.spec.interpolation, back.spec.decimation
@@ -258,25 +388,27 @@ def check_kernels(raw, ops):
     lib_err2 = (lib2() - yr).abs().max().item()
     ops2 = 2 * back.spec.taps_per_phase * n2 * ROWS
     b2, by2 = bound(nbytes(y1, h2, back._table, yr), ops2, "f32")
+    ms2 = time_ms(lambda: resample.resample(*a2), 20)
     rows.append(dict(
         name="K2 resample", kernel="resample", route="cuda",
         source="sdr_tpu_torch/csrc/resample.cu",
         replaces="sdr_tpu/kernels/resample_pallas.py:187",
-        max_abs_err=err2, ms=time_ms(lambda: resample.resample(*a2), 20),
+        max_abs_err=err2, ms=ms2, bound_fraction=b2 / ms2,
         plain_ms=time_ms(lambda: resample.resample_reference(*a2), 3, 1),
         bound_ms=b2, bound_by=by2, library_ms=time_ms(lib2, 20),
         library_max_abs_diff=lib_err2))
 
-    # K3: the audio FIR on the resampled batch, and strided/offset cases
+    # K3: the audio FIR on the resampled batch, and the extra geometries
     n3 = back.out_len(n1)
-    err3 = 0.0
-    for f, start, num in [(1, 0, n3), (1, 5, n3 - 5), (2, 3, n3 // 2 - 40)]:
-        a3 = (back._taps, yr, num, f, start)
-        err3 = max(err3, (fir.fir_strided(*a3)
-                          - fir.fir_strided_reference(*a3)).abs().max().item())
-    require(err3 <= 1e-6, f"K3 vs plain {err3} > 1e-6")
     a3 = (back._taps, yr, n3, 1, 0)
     y3 = fir.fir_strided(*a3)
+    err3 = max_err(y3, fir.fir_strided_reference(*a3))
+    g3 = 0
+    for a in fir_geometries(yr[:4, :10_001], back._taps):
+        err3 = max(err3, max_err(fir.fir_strided(*a),
+                                 fir.fir_strided_reference(*a)))
+        g3 += 1
+    require(err3 == 0, f"K3 vs plain {err3} != 0")
     require(torch.isfinite(y3).all().item(), "K3 output finite")
     w3 = back._taps.view(1, 1, -1)
 
@@ -285,14 +417,16 @@ def check_kernels(raw, ops):
 
     lib_err3 = (lib3() - y3).abs().max().item()
     b3, by3 = bound(nbytes(yr, back._taps, y3), 2 * Kf * n3 * ROWS, "f32")
+    ms3 = time_ms(lambda: fir.fir_strided(*a3), 20)
     rows.append(dict(
         name="K3 fir", kernel="fir", route="cuda",
         source="sdr_tpu_torch/csrc/fir.cu",
         replaces="sdr_tpu/kernels/fir_pallas.py:145",
-        max_abs_err=err3, ms=time_ms(lambda: fir.fir_strided(*a3), 20),
+        max_abs_err=err3, geometries_checked=g3, ms=ms3,
         plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
-        bound_ms=b3, bound_by=by3, library_ms=time_ms(lib3, 20),
-        library_max_abs_diff=lib_err3))
+        bound_ms=b3, bound_by=by3, bound_fraction=b3 / ms3,
+        no_fma_floor_ms=no_fma_floor_ms(Kf, n3 * ROWS),
+        library_ms=time_ms(lib3, 20), library_max_abs_diff=lib_err3))
     return rows
 
 
@@ -410,33 +544,39 @@ def check_stereo_kernels(raw, ops):
     hist = front.shard_carry(x)
     n1 = front.out_len(ROW_BYTES)
     args = (front.tq, front.scale, front.factor, x, hist, n1)
-    y4 = u8_front.u8_front(*args)
-    err4 = (y4 - u8_front.u8_front_reference(*args)).abs().max().item()
-    # s16 taps, a byte offset, and leading dims [B] and [B, C]
+    kw = dict(packed=front.tw)
+    y4 = u8_front.u8_front(*args, **kw)
+    err4 = max_err(y4, u8_front.u8_front_reference(*args))
+    # s16 taps, a byte offset, leading dims [B] and [B, C], and the extra
+    # geometries
     tq16, sc16 = u8_front_plan(front.taps, "s16")
     tq16 = torch.as_tensor(tq16, device=x.device)
-    for a in [(tq16, sc16, 8, x[:4], hist[:4], n1),
-              (front.tq, front.scale, 8, x[:4], hist[:4], n1 - 2, 10),
-              (front.tq, front.scale, 8, x[:4].view(2, 2, ROW_BYTES),
-               hist[:4].view(2, 2, -1), n1)]:
-        err4 = max(err4, (u8_front.u8_front(*a)
-                          - u8_front.u8_front_reference(*a)).abs().max()
-                   .item())
+    cases = [((tq16, sc16, 8, x[:4], hist[:4], n1), {}),
+             ((front.tq, front.scale, 8, x[:4], hist[:4], n1 - 2, 10), kw),
+             ((front.tq, front.scale, 8, x[:4].view(2, 2, ROW_BYTES),
+               hist[:4].view(2, 2, -1), n1), kw),
+             *front_geometries(raw, front.taps)]
+    for a, akw in cases:
+        err4 = max(err4, max_err(u8_front.u8_front(*a, **akw),
+                                 u8_front.u8_front_reference(*a, **akw)))
     torch.cuda.synchronize()
     require(torch.isfinite(y4).all().item(), "K4 output finite")
     require(err4 == 0, f"K4 vs plain {err4} != 0")
-    b4, by4 = bound(nbytes(x, hist, front.tq, y4),
+    b4, by4 = bound(nbytes(x, hist, front.tw, y4),
                     2 * 2 * front.n_taps * n1 * ROWS, "int8")
+    lib4, lib_err4 = library_front(front, x, hist, n1)
+    require(lib_err4 == 0, f"K4 vs its conv1d yardstick {lib_err4} != 0")
+    ms4 = time_ms(lambda: u8_front.u8_front(*args, **kw), 20)
     rows.append(dict(
         name="K4 u8_front", kernel="u8_front", route="cuda",
         source="sdr_tpu_torch/csrc/u8_front.cu",
         replaces="sdr_tpu/kernels/u8_front_pallas.py:192",
-        max_abs_err=err4,
-        ms=time_ms(lambda: u8_front.u8_front(*args), 20),
+        max_abs_err=err4, geometries_checked=len(cases), ms=ms4,
         plain_ms=time_ms(lambda: u8_front.u8_front_reference(*args), 3, 1),
-        bound_ms=b4, bound_by=by4, library_ms=None,
-        library_note="no PyTorch call computes an exact-integer "
-                     "decimation of interleaved u8"))
+        bound_ms=b4, bound_by=by4, bound_fraction=b4 / ms4,
+        library_ms=time_ms(lib4, 20), library_max_abs_diff=lib_err4,
+        library_note="conv1d(groups=2, stride=8) over the (u8 - 128) f32 "
+                     "planes, the scale applied outside the timed call"))
 
     # K3 at StereoDecode's shape: 65 taps over concat(hist, composite)
     _, comp = demod.apply(demod.shard_carry(y4), y4)
@@ -446,9 +586,9 @@ def check_stereo_kernels(raw, ops):
     a3 = (stereo._lp15, xe, nc, 1, stereo.H - 64)      # the mono lowpass
     err3 = 0.0
     for a in (a3, (stereo._bp19, xe, xe.shape[-1] - 64, 1, 0)):
-        err3 = max(err3, (fir.fir_strided(*a) - fir.fir_strided_reference(*a))
-                   .abs().max().item())
-    require(err3 <= 1e-6, f"K3 (65 taps) vs plain {err3} > 1e-6")
+        err3 = max(err3, max_err(fir.fir_strided(*a),
+                                 fir.fir_strided_reference(*a)))
+    require(err3 == 0, f"K3 (65 taps) vs plain {err3} != 0")
     y3 = fir.fir_strided(*a3)
     w3 = stereo._lp15.view(1, 1, -1)
 
@@ -458,16 +598,18 @@ def check_stereo_kernels(raw, ops):
 
     lib_err3 = (lib3() - y3).abs().max().item()
     b3, by3 = bound(nbytes(xe, stereo._lp15, y3), 2 * 65 * nc * ROWS, "f32")
+    ms3 = time_ms(lambda: fir.fir_strided(*a3), 20)
     rows.append(dict(
-        name="K3 fir (StereoDecode, 65 taps, start 64)", kernel="fir",
+        name="K3 fir (StereoDecode, 65 taps, start 128)", kernel="fir",
         launches_note="the fir kernel's launches on the path at every "
                       "shape: 65 taps in StereoDecode, 64 in the back half",
         route="cuda", source="sdr_tpu_torch/csrc/fir.cu",
         replaces="sdr_tpu/kernels/fir_pallas.py:145",
-        max_abs_err=err3, ms=time_ms(lambda: fir.fir_strided(*a3), 20),
+        max_abs_err=err3, ms=ms3,
         plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
-        bound_ms=b3, bound_by=by3, library_ms=time_ms(lib3, 20),
-        library_max_abs_diff=lib_err3))
+        bound_ms=b3, bound_by=by3, bound_fraction=b3 / ms3,
+        no_fma_floor_ms=no_fma_floor_ms(65, nc * ROWS),
+        library_ms=time_ms(lib3, 20), library_max_abs_diff=lib_err3))
 
     # K5 over the L/R planes, history from the halo; and offsets 1 and 2,
     # starts 37 and 5, outputs not a multiple of the 256-output tile
@@ -477,6 +619,7 @@ def check_stereo_kernels(raw, ops):
     n5 = back.out_len(nc)
     a5 = (back._table, I, D, back._taps, lr, h5, back._offset_k, n5, 0)
     y5 = backhalf.resample_fir(*a5)
+    ms5 = time_ms(lambda: backhalf.resample_fir(*a5), 20)
     err5 = 0.0
     for off, start, num in [(back._offset_k, 0, n5), (1, 37, n5 - 21),
                             (2, 5, n5 - 3)]:
@@ -504,7 +647,7 @@ def check_stereo_kernels(raw, ops):
         name="K5 backhalf", kernel="backhalf", route="cuda",
         source="sdr_tpu_torch/csrc/backhalf.cu",
         replaces="sdr_tpu/kernels/backhalf_pallas.py:240",
-        max_abs_err=err5, ms=time_ms(lambda: backhalf.resample_fir(*a5), 20),
+        max_abs_err=err5, ms=ms5, bound_fraction=b5 / ms5,
         plain_ms=time_ms(lambda: backhalf.resample_fir_reference(*a5), 3, 1),
         bound_ms=b5, bound_by=by5, library_ms=time_ms(lib5, 20),
         library_max_abs_diff=lib_err5,
@@ -626,9 +769,12 @@ def run_stereo_chain(raw, ops, kernels):
 
 def print_rows(rows, card: str) -> None:
     for r in rows:
+        floor = (f", no-FMA floor {r['no_fma_floor_ms']} ms"
+                 if "no_fma_floor_ms" in r else "")
         print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
-              f"bound {r['bound_ms']} ms ({r['bound_by']}) on {card}")
+              f"bound {r['bound_ms']} ms ({r['bound_by']}), bound_fraction "
+              f"{r['bound_fraction']}{floor} on {card}")
 
 
 def main(argv=None) -> int:

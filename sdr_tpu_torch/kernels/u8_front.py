@@ -5,6 +5,10 @@ convert + exact-integer decimate without the demod.  A row's stream is
 ``concat(hist, x)``: output m, plane c reads the bytes
 ``start + 2(m*f + k) + c`` of it, so a streaming caller passes its history
 and block as they are, and a byte offset needs no sliced copy.
+
+The kernel sums four taps per ``__dp4a``: :func:`pack_taps` packs the
+integer taps into int32 words once, and the stream ops keep the words on
+the device (``packed=``), so a launch makes no host copy.
 """
 
 from __future__ import annotations
@@ -17,13 +21,38 @@ import torch
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 from sdr_tpu_torch.ops.quantized import front_acc
 
-__all__ = ["KERNEL", "u8_front", "u8_front_reference"]
+__all__ = ["KERNEL", "check_packed", "pack_taps", "tap_words", "u8_front",
+           "u8_front_reference"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("u8_front", {
-    "launch_u8_front": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _LL,
-                        ctypes.c_float],
+    "launch_u8_front": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _LL,
+                        _LL, ctypes.c_float],
 })
+
+
+def pack_taps(tq) -> np.ndarray:
+    """The integer taps as the kernels' ``__dp4a`` words: int32 ``[1, nw]``
+    for taps in int8 range (four s8 taps to a word, tap 4w + i in byte i),
+    ``[2, nw]`` otherwise (16-bit taps ``T = 256*Th + Tl``: a row of the
+    signed high bytes ``Th``, a row of the unsigned low bytes ``Tl``).
+    ``nw = 2*ceil(K/8)``: zero taps pad K to whole 8-byte reads."""
+    t = np.asarray(tq, dtype=np.int64).reshape(-1)
+    if t.size == 0 or t.min() < -32768 or t.max() > 32767:
+        raise ValueError("taps must be a non-empty sequence of int16 values")
+    nw = 2 * -(-t.size // 8)
+    pad = np.zeros(4 * nw, dtype=np.int64)
+    pad[:t.size] = t
+    rows = [pad] if -128 <= t.min() and t.max() <= 127 else \
+        [pad >> 8, pad & 0xFF]
+    return np.stack([(r & 0xFF).astype(np.uint8).view("<i4")
+                     for r in rows])
+
+
+def tap_words(tq, device) -> torch.Tensor:
+    """:func:`pack_taps` as a tensor on ``device``, to keep beside the
+    taps."""
+    return torch.as_tensor(pack_taps(tq), device=device)
 
 
 def _check(taps, factor, x, hist, num, start):
@@ -47,9 +76,10 @@ def _check(taps, factor, x, hist, num, start):
 
 
 def u8_front_reference(taps, scale: float, factor: int, x: torch.Tensor,
-                       hist: torch.Tensor, num: int,
-                       start: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of :func:`u8_front`."""
+                       hist: torch.Tensor, num: int, start: int = 0, *,
+                       packed=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`u8_front` (``packed`` is the
+    kernel's and unused here)."""
     _check(taps, factor, x, hist, num, start)
     acc = front_acc(taps.tolist(), factor, torch.cat([hist, x], dim=-1), num,
                     start)
@@ -58,12 +88,14 @@ def u8_front_reference(taps, scale: float, factor: int, x: torch.Tensor,
 
 def u8_front(taps, scale: float, factor: int, x: torch.Tensor,
              hist: torch.Tensor, num: int | None = None,
-             start: int = 0) -> torch.Tensor:
+             start: int = 0, *, packed: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """u8 IQ ``x[..., n]`` after history ``hist[..., H]`` -> planar
     ``y[..., 2, num]``, ``y[c, m] = scale * sum_k taps[k] (v[start +
     2(m f + k) + c] - 128)`` with ``v = concat(hist, x)``.  ``taps`` are
     the int32 quantized taps of ``ops.quantized.u8_front_plan`` (s8 or
-    s16).  Launches K4 for CUDA tensors; CPU tensors take the plain
+    s16); ``packed`` their :func:`tap_words` on the device, made here if
+    not given.  Launches K4 for CUDA tensors; CPU tensors take the plain
     version."""
     start = int(start)
     if num is None:
@@ -75,12 +107,29 @@ def u8_front(taps, scale: float, factor: int, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(taps, factor, x, hist, num, start)
-    rows = cuda_rows(x=x, hist=hist, taps=taps)
+    if packed is None:
+        packed = tap_words(taps.tolist(), x.device)
+    rows = cuda_rows(x=x, hist=hist, packed=packed)
+    check_packed(packed, taps, x.device)
     y = torch.empty(x.shape[:-1] + (2, num), dtype=torch.float32,
                     device=x.device)
     if num == 0 or rows == 0:
         return y
-    KERNEL.launch("launch_u8_front", x.device, ptr(x), ptr(hist), ptr(taps),
-                  ptr(y), rows, x.shape[-1], hist.shape[-1], taps.shape[0],
-                  int(factor), start, num, float(scale))
+    KERNEL.launch("launch_u8_front", x.device, ptr(x), ptr(hist),
+                  ptr(packed), ptr(y), rows, x.shape[-1], hist.shape[-1],
+                  taps.shape[0], int(factor), packed.shape[1],
+                  int(packed.shape[0] == 2), start, num, float(scale))
     return y
+
+
+def check_packed(packed: torch.Tensor, taps, device) -> None:
+    """Raise unless ``packed`` can be the tap words of ``taps``: int32
+    ``[1 or 2, 2*ceil(K/8)]`` on ``device``."""
+    K = taps.shape[0]
+    if (packed.dtype != torch.int32 or packed.ndim != 2
+            or packed.shape[0] not in (1, 2)
+            or packed.shape[1] != 2 * -(-K // 8)
+            or packed.device != device):
+        raise ValueError(f"packed must be the tap_words of {K} taps on "
+                         f"{device}, got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")

@@ -3,7 +3,9 @@
 Counterpart of sdr_tpu/kernels/u8_front_demod_pallas.py:
 u8_front_demod_pallas.  A row's stream is ``concat(hist, x)``: output m
 reads the bytes ``2(m*f + k) + c`` of it, so a streaming caller passes its
-history and block as they are and no seam split is needed.
+history and block as they are and no seam split is needed.  The taps
+reach the kernel as ``__dp4a`` words (``u8_front.pack_taps``), kept on
+the device by the stream op (``packed=``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
+from sdr_tpu_torch.kernels.u8_front import check_packed, tap_words
 from sdr_tpu_torch.ops.demod import fm_demod_planar
 from sdr_tpu_torch.ops.quantized import front_acc
 
@@ -22,7 +25,7 @@ __all__ = ["KERNEL", "u8_front_demod", "u8_front_demod_reference"]
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("u8_front_demod", {
     "launch_u8_front_demod": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
-                              _LL, ctypes.c_float],
+                              _I, _I, _LL, ctypes.c_float],
 })
 
 
@@ -49,8 +52,10 @@ def _check(taps, factor, x, hist, last_iq, num):
 
 def u8_front_demod_reference(taps, scale: float, factor: int,
                              x: torch.Tensor, hist: torch.Tensor,
-                             last_iq: torch.Tensor, num: int):
-    """Plain PyTorch version of :func:`u8_front_demod`."""
+                             last_iq: torch.Tensor, num: int, *,
+                             packed=None):
+    """Plain PyTorch version of :func:`u8_front_demod` (``packed`` is the
+    kernel's and unused here)."""
     _check(taps, factor, x, hist, last_iq, num)
     acc = front_acc(taps.tolist(), factor, torch.cat([hist, x], dim=-1), num)
     iq = acc.to(torch.float32) * float(np.float32(scale))
@@ -59,15 +64,17 @@ def u8_front_demod_reference(taps, scale: float, factor: int,
 
 def u8_front_demod(taps, scale: float, factor: int, x: torch.Tensor,
                    hist: torch.Tensor, last_iq: torch.Tensor,
-                   num: int | None = None):
+                   num: int | None = None, *,
+                   packed: torch.Tensor | None = None):
     """u8 IQ ``x[..., n]`` after history ``hist[..., H]`` -> FM demod
     ``y[..., num]`` and the last decimated ``(I, Q)`` sample ``[..., 2]``.
 
     ``y[m] = atan2(s[m] * conj(s[m-1]))`` with
     ``s[m] = scale * sum_k taps[k] (v[2(m f + k) + c] - 128)``,
     ``v = concat(hist, x)`` and ``s[-1] = last_iq``.  ``taps`` are the
-    int32 quantized taps of ``ops.quantized.u8_front_plan``.  Launches K1
-    for CUDA tensors; CPU tensors take the plain version."""
+    int32 quantized taps of ``ops.quantized.u8_front_plan``, ``packed``
+    their ``u8_front.tap_words`` on the device, made here if not given.
+    Launches K1 for CUDA tensors; CPU tensors take the plain version."""
     if num is None:
         num = (hist.shape[-1] + x.shape[-1] - 2 * taps.shape[0]) \
             // (2 * factor) + 1
@@ -78,7 +85,10 @@ def u8_front_demod(taps, scale: float, factor: int, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(taps, factor, x, hist, last_iq, num)
-    rows = cuda_rows(x=x, hist=hist, last_iq=last_iq, taps=taps)
+    if packed is None:
+        packed = tap_words(taps.tolist(), x.device)
+    rows = cuda_rows(x=x, hist=hist, last_iq=last_iq, packed=packed)
+    check_packed(packed, taps, x.device)
     y = torch.empty(x.shape[:-1] + (num,), dtype=torch.float32,
                     device=x.device)
     iq = torch.empty(x.shape[:-1] + (2,), dtype=torch.float32,
@@ -86,7 +96,8 @@ def u8_front_demod(taps, scale: float, factor: int, x: torch.Tensor,
     if rows == 0:
         return y, iq
     KERNEL.launch("launch_u8_front_demod", x.device, ptr(x), ptr(hist),
-                  ptr(last_iq), ptr(taps), ptr(y), ptr(iq), rows,
+                  ptr(last_iq), ptr(packed), ptr(y), ptr(iq), rows,
                   x.shape[-1], hist.shape[-1], taps.shape[0], int(factor),
-                  num, float(scale))
+                  packed.shape[1], int(packed.shape[0] == 2), num,
+                  float(scale))
     return y, iq
