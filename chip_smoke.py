@@ -20,11 +20,15 @@ per source, all at once), then:
    PyTorch call computes the same function, that call (``library_ms``,
    timed only; for K1's decimation and K4 a grouped ``conv1d`` over the
    (u8 - 128) planes); each row carries ``bound_fraction`` (bound / time)
-   and K3's its no-FMA instruction floor; runs the block-parallel chain
+   and K3's printout its no-FMA instruction floor (computed, not
+   measured); checks that K3 raises for taps that do not fit its shared
+   memory and runs at the most that do; runs the block-parallel chain
    (``run_time_batched``) on a synthetic 1 kHz broadcast with every
    launch counter set to 0 just before one call, checks the tone, the
    launch counts and agreement with the plain CPU run on a small input,
-   times 20 more calls by CUDA events (median, min and max), and checks
+   times 20 more calls by CUDA events (median, min and max) and 5 calls
+   each queued behind a device-side sleep (the device's time without host
+   gaps, and the host's time to enqueue a call), and checks
    that the streamed ``Pipeline.run`` at 1,310,720-byte blocks gives the
    same samples; runs the CLI;
 3. the stereo path, ``fm_chain(front='quantized', stereo=True,
@@ -236,7 +240,6 @@ def front_geometries(raw, taps):
     most outputs the stream holds (not a multiple of the tiles) and 1
     output (the halo launch), and for K4 byte offsets 0, 1 and 10.
     Yields ``(args, kwargs)`` for the wrapper, ``start`` among kwargs."""
-    from sdr_tpu_torch.kernels.u8_front import tap_words
     from sdr_tpu_torch.ops.quantized import u8_front_plan
     rng = np.random.default_rng(7)
     n = 100_006
@@ -248,7 +251,6 @@ def front_geometries(raw, taps):
             for precision in ("s8", "s16"):
                 tq, scale = u8_front_plan(src, precision)
                 tq = torch.as_tensor(tq, device=raw.device)
-                tw = tap_words(tq.tolist(), raw.device)
                 H = (86, 2, 30)[i % 3]
                 hist = torch.as_tensor(rng.integers(0, 256, (4, H)),
                                        dtype=torch.uint8, device=raw.device)
@@ -256,8 +258,7 @@ def front_geometries(raw, taps):
                 start = (0, 1, 10)[i % 3]
                 full = (H + n - start - 2 * K) // (2 * f) + 1
                 for num in (full, 1):
-                    yield ((tq, scale, f, x, hist, num),
-                           dict(start=start, packed=tw))
+                    yield (tq, scale, f, x, hist, num), dict(start=start)
                 i += 1
 
 
@@ -283,12 +284,42 @@ def max_err(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def no_fma_floor_ms(n_taps: int, outputs: int) -> float:
-    """K3's floor under the order it keeps: a rounded multiply and a
-    rounded add per tap and output, separate f32 instructions, at 128 f32
-    lanes per SM and the H100 SXM's 1.98 GHz boost clock."""
+def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> None:
+    """Print K3's floor under the order it keeps, computed, not measured:
+    a rounded multiply and a rounded add per tap and output, separate f32
+    instructions, at 128 f32 lanes per SM and the H100 SXM's 1.98 GHz
+    boost clock."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 2 * n_taps * outputs / (sms * 128 * 1.98e9) * 1e3
+    ms = 2 * n_taps * outputs / (sms * 128 * 1.98e9) * 1e3
+    print(f"{what}: no-FMA floor {ms} ms ({n_taps} taps x {outputs} outputs "
+          f"x 2 f32 instructions at {sms} SMs x 128 lanes x 1.98 GHz; "
+          "computed, not measured)")
+
+
+def check_fir_tap_limits(x) -> None:
+    """K3 at the most taps its shared memory holds (17,316 at factor 1,
+    58,112 above, on an H100) equals its plain version bitwise, and one
+    tap more raises."""
+    from sdr_tpu_torch.kernels import fir
+    rng = np.random.default_rng(9)
+    for f, most in ((1, 17_316), (2, 58_112)):
+        for K in (most, most + 1):
+            t = torch.as_tensor(rng.uniform(-1, 1, K).astype(np.float32),
+                                device=x.device)
+            a = (t, x[:2, :K + 5 * f].contiguous(), 6, f, 0)
+            if K == most:
+                err = max_err(fir.fir_strided(*a),
+                              fir.fir_strided_reference(*a))
+                require(err == 0, f"K3 at {K} taps, factor {f}: {err} != 0")
+            else:
+                try:
+                    fir.fir_strided(*a)
+                except RuntimeError as e:
+                    require("do not fit" in str(e), f"K3 raised {e}")
+                else:
+                    require(False, f"K3 took {K} taps at factor {f}")
+    print("K3 tap limits: 17,316 taps at factor 1 and 58,112 at factor 2 "
+          "equal the plain version; one more raises")
 
 
 def library_front(front, x, hist, num: int):
@@ -311,8 +342,7 @@ def library_front(front, x, hist, num: int):
         return torch.nn.functional.conv1d(planes, w, stride=front.factor,
                                           groups=2)[..., :num]
 
-    got = u8_front(front.tq, front.scale, front.factor, x, hist, num,
-                   packed=front.tw)
+    got = u8_front(front.tq, front.scale, front.factor, x, hist, num)
     diff = max_err(call() * float(np.float32(front.scale)), got)
     return call, diff
 
@@ -320,6 +350,7 @@ def library_front(front, x, hist, num: int):
 def check_kernels(raw, ops):
     """Each kernel vs its plain version at the main path's shapes."""
     from sdr_tpu_torch.kernels import fir, resample, u8_front_demod
+    from sdr_tpu_torch.kernels.u8_front import tap_words
 
     front, back = ops
     rows = []
@@ -329,8 +360,7 @@ def check_kernels(raw, ops):
     hist, liq = front.shard_carry(x)
     n1 = front.out_len(ROW_BYTES)
     args = (front.tq, front.scale, front.factor, x, hist, liq, n1)
-    kw = dict(packed=front.tw)
-    y1, iq1 = u8_front_demod.u8_front_demod(*args, **kw)
+    y1, iq1 = u8_front_demod.u8_front_demod(*args)
     r1, riq1 = u8_front_demod.u8_front_demod_reference(*args)
     err1 = max(max_err(y1, r1), max_err(iq1, riq1))
     # the extra geometries, bitwise too
@@ -341,7 +371,7 @@ def check_kernels(raw, ops):
         if num > 1:       # K1 has no byte offset: the most it holds
             num = (hg.shape[-1] + xg.shape[-1] - 2 * tq.numel()) // (2 * f) + 1
         a = (tq, scale, f, xg, hg, liq4, num)
-        got = u8_front_demod.u8_front_demod(*a, packed=gkw["packed"])
+        got = u8_front_demod.u8_front_demod(*a)
         want = u8_front_demod.u8_front_demod_reference(*a)
         err1 = max(err1, max_err(got[0], want[0]), max_err(got[1], want[1]))
         g1 += 1
@@ -349,10 +379,11 @@ def check_kernels(raw, ops):
     require(torch.isfinite(y1).all().item(), "K1 output finite")
     require(err1 == 0, f"K1 vs plain {err1} != 0")
     ops1 = 2 * 2 * front.n_taps * n1 * ROWS
-    b1, by1 = bound(nbytes(x, hist, liq, front.tw, y1, iq1), ops1, "int8")
+    b1, by1 = bound(nbytes(x, hist, liq, tap_words(front.tq), y1, iq1), ops1,
+                    "int8")
     # the yardstick for its decimation: conv1d over the (u8 - 128) planes
     lib1, lib_err1 = library_front(front, x, hist, n1)
-    ms1 = time_ms(lambda: u8_front_demod.u8_front_demod(*args, **kw), 20)
+    ms1 = time_ms(lambda: u8_front_demod.u8_front_demod(*args), 20)
     rows.append(dict(
         name="K1 u8_front_demod", kernel="u8_front_demod", route="cuda",
         source="sdr_tpu_torch/csrc/u8_front_demod.cu",
@@ -410,6 +441,7 @@ def check_kernels(raw, ops):
         g3 += 1
     require(err3 == 0, f"K3 vs plain {err3} != 0")
     require(torch.isfinite(y3).all().item(), "K3 output finite")
+    check_fir_tap_limits(yr)
     w3 = back._taps.view(1, 1, -1)
 
     def lib3():
@@ -425,8 +457,8 @@ def check_kernels(raw, ops):
         max_abs_err=err3, geometries_checked=g3, ms=ms3,
         plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
         bound_ms=b3, bound_by=by3, bound_fraction=b3 / ms3,
-        no_fma_floor_ms=no_fma_floor_ms(Kf, n3 * ROWS),
         library_ms=time_ms(lib3, 20), library_max_abs_diff=lib_err3))
+    print_no_fma_floor("K3 fir", Kf, n3 * ROWS)
     return rows
 
 
@@ -533,6 +565,7 @@ def check_stereo_kernels(raw, ops):
     """K4, K3 at StereoDecode's 65-tap shape, and K5, each vs its plain
     version at the stereo path's shapes and at extra geometries."""
     from sdr_tpu_torch.kernels import backhalf, fir, resample, u8_front
+    from sdr_tpu_torch.kernels.u8_front import tap_words
     from sdr_tpu_torch.ops.quantized import u8_front_plan
 
     front, demod, stereo, back = ops[:4]
@@ -544,17 +577,16 @@ def check_stereo_kernels(raw, ops):
     hist = front.shard_carry(x)
     n1 = front.out_len(ROW_BYTES)
     args = (front.tq, front.scale, front.factor, x, hist, n1)
-    kw = dict(packed=front.tw)
-    y4 = u8_front.u8_front(*args, **kw)
+    y4 = u8_front.u8_front(*args)
     err4 = max_err(y4, u8_front.u8_front_reference(*args))
     # s16 taps, a byte offset, leading dims [B] and [B, C], and the extra
     # geometries
     tq16, sc16 = u8_front_plan(front.taps, "s16")
     tq16 = torch.as_tensor(tq16, device=x.device)
     cases = [((tq16, sc16, 8, x[:4], hist[:4], n1), {}),
-             ((front.tq, front.scale, 8, x[:4], hist[:4], n1 - 2, 10), kw),
+             ((front.tq, front.scale, 8, x[:4], hist[:4], n1 - 2, 10), {}),
              ((front.tq, front.scale, 8, x[:4].view(2, 2, ROW_BYTES),
-               hist[:4].view(2, 2, -1), n1), kw),
+               hist[:4].view(2, 2, -1), n1), {}),
              *front_geometries(raw, front.taps)]
     for a, akw in cases:
         err4 = max(err4, max_err(u8_front.u8_front(*a, **akw),
@@ -562,11 +594,11 @@ def check_stereo_kernels(raw, ops):
     torch.cuda.synchronize()
     require(torch.isfinite(y4).all().item(), "K4 output finite")
     require(err4 == 0, f"K4 vs plain {err4} != 0")
-    b4, by4 = bound(nbytes(x, hist, front.tw, y4),
+    b4, by4 = bound(nbytes(x, hist, tap_words(front.tq), y4),
                     2 * 2 * front.n_taps * n1 * ROWS, "int8")
     lib4, lib_err4 = library_front(front, x, hist, n1)
     require(lib_err4 == 0, f"K4 vs its conv1d yardstick {lib_err4} != 0")
-    ms4 = time_ms(lambda: u8_front.u8_front(*args, **kw), 20)
+    ms4 = time_ms(lambda: u8_front.u8_front(*args), 20)
     rows.append(dict(
         name="K4 u8_front", kernel="u8_front", route="cuda",
         source="sdr_tpu_torch/csrc/u8_front.cu",
@@ -608,8 +640,8 @@ def check_stereo_kernels(raw, ops):
         max_abs_err=err3, ms=ms3,
         plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
         bound_ms=b3, bound_by=by3, bound_fraction=b3 / ms3,
-        no_fma_floor_ms=no_fma_floor_ms(65, nc * ROWS),
         library_ms=time_ms(lib3, 20), library_max_abs_diff=lib_err3))
+    print_no_fma_floor("K3 fir (StereoDecode, 65 taps)", 65, nc * ROWS)
 
     # K5 over the L/R planes, history from the halo; and offsets 1 and 2,
     # starts 37 and 5, outputs not a multiple of the 256-output tile
@@ -661,8 +693,12 @@ def check_stereo_kernels(raw, ops):
 def time_chain(ops, raw, what: str) -> float:
     """Median ms of CHAIN_REPS back-to-back block-parallel calls, each
     between CUDA events: the span on the device's clock from the call's
-    first enqueue to its last kernel's end, host gaps included."""
+    first enqueue to its last kernel's end, host gaps included.  Then the
+    split of a call into the device's time and the host's enqueue
+    (``profile_fm.queued_split``): where the span exceeds the device's
+    time, the host's enqueue is what holds the card back."""
     from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.profile_fm import queued_split
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(CHAIN_REPS)]
     for a, b in ev:
@@ -676,6 +712,10 @@ def time_chain(ops, raw, what: str) -> float:
           f"(min {times[0]}, max {times[-1]}); "
           f"{raw.numel() // 2 / (ms * 1e-3):.6e} complex input samples/s "
           "(median)")
+    split = queued_split(lambda: run_time_batched(ops, raw, ROWS))
+    print(f"{what}, each call queued behind a device-side sleep: device "
+          f"{split['device_ms']} ms, host enqueue {split['enqueue_ms']} ms "
+          f"(max {split['enqueue_max_ms']}) (medians of 5 calls)")
     return ms
 
 
@@ -769,12 +809,10 @@ def run_stereo_chain(raw, ops, kernels):
 
 def print_rows(rows, card: str) -> None:
     for r in rows:
-        floor = (f", no-FMA floor {r['no_fma_floor_ms']} ms"
-                 if "no_fma_floor_ms" in r else "")
         print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
               f"plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound_ms']} ms ({r['bound_by']}), bound_fraction "
-              f"{r['bound_fraction']}{floor} on {card}")
+              f"{r['bound_fraction']} on {card}")
 
 
 def main(argv=None) -> int:

@@ -43,6 +43,13 @@
 //   PyTorch version bitwise.  No atomics.
 // f > 1 (the AM and channelizer decimators): one thread per output reads
 // its window through the read-only cache, the taps in shared memory.
+//
+// Shared memory (`plan`): f == 1 takes the taps padded to a multiple of 4
+// (kp floats) and two staging buffers of buf_floats(K) = TILE + kp + 8
+// floats (up to 3 floats of alignment, the TILE + K - 1 of the span, and
+// the last float4s the register ring reads past it); f > 1 takes the K
+// taps.  At an H100 block's 232,448 bytes that is K <= 17,316 at f == 1
+// and K <= 58,112 above; more taps return kTooManyTaps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,10 +152,12 @@ __device__ __forceinline__ void sums_at(float (&acc)[G][R], const float* xs,
   }
 }
 
+constexpr int TILE = G * R * NT;      // outputs of a tile at f == 1
+
 // floats of one staging buffer: alignment slack, the span, and the ring's
-// read past it (kernels/fir.py:fir_plan)
+// read past it
 __host__ __device__ constexpr int buf_floats(int K) {
-  return G * R * NT + ((K + 3) & ~3) + 8;
+  return TILE + ((K + 3) & ~3) + 8;
 }
 
 // row and first output of tile it (32-bit division where the counts
@@ -276,20 +285,40 @@ fir_kernel(const float* __restrict__ x, const float* __restrict__ taps,
   y[row * num + m] = acc;
 }
 
+constexpr int kTooManyTaps = -1;      // launch_fir's code for taps that
+                                      // do not fit
+
+// (outputs of a block, shared-memory bytes) of a launch, or kTooManyTaps
+// (or a CUDA error) when the taps do not fit the device's block
+int plan(int K, int f, int* tile, int* smem) {
+  const long long kp = (K + 3) & ~3;
+  const long long bytes = f == 1 ? 4 * (kp + 2LL * buf_floats(K)) : 4LL * K;
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (bytes > most) return kTooManyTaps;
+  *tile = f == 1 ? TILE : NT;
+  *smem = static_cast<int>(bytes);
+  return 0;
+}
+
 }  // namespace
 
-// x [rows, n] f32, taps [K] f32 -> y [rows, num] f32.  `tile` outputs per
-// block and `smem` bytes of shared memory come from the wrapper's plan
-// (kernels/fir.py:fir_plan).  The caller checks start + (num - 1) * f + K
-// <= n.
+// x [rows, n] f32, taps [K] f32 -> y [rows, num] f32.  The caller checks
+// start + (num - 1) * f + K <= n.
 extern "C" int launch_fir(const void* x, const void* taps, void* y,
                           long long rows, long long n, long long num, int K,
-                          int f, long long start, int tile, int smem,
-                          void* stream) {
+                          int f, long long start, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);
   const float* tp = static_cast<const float*>(taps);
   float* yp = static_cast<float*>(y);
+  int tile = 0, smem = 0;
+  const int p = plan(K, f, &tile, &smem);
+  if (p != 0) return p;
   if (f == 1) {
     int blocks = 0;
     const int e = persistent::resident_blocks(fir1_kernel, NT, smem, &blocks);
@@ -313,6 +342,9 @@ extern "C" int launch_fir(const void* x, const void* taps, void* y,
 }
 
 extern "C" const char* kernel_error_string(int e) {
+  if (e == kTooManyTaps)
+    return "the taps do not fit a block's shared memory (at most 17,316 "
+           "taps at factor 1 and 58,112 above on an H100)";
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 

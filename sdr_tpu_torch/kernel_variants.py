@@ -4,6 +4,7 @@ variants of itself, timed in turns in one process.
     python -m sdr_tpu_torch.kernel_variants
 
 Each variant is the kernels' sources (``csrc/``) with a few lines replaced,
+each snippet found exactly once or the tool raises (:func:`variant`),
 built like the kernels themselves into ``build/variants/<name>/``.  A
 variant that drops work (``no_sums``: the windows are staged but not
 summed; ``no_demod``: K1 writes a sum of the products instead of the
@@ -29,7 +30,6 @@ import subprocess
 import torch
 
 from sdr_tpu_torch.kernels import _build, fir, u8_front, u8_front_demod
-from sdr_tpu_torch.kernels.u8_front import tap_words
 from sdr_tpu_torch.ops.design import hamming, windowed_sinc
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 
@@ -63,18 +63,28 @@ EXACT = {"ns512", "fir_runtime_taps"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
-    """``kernel`` built from a patched copy of csrc."""
+    """``kernel`` built from a patched copy of csrc.  Each ``old`` snippet
+    must occur exactly once in the kernel's source and the shared headers
+    together, or this raises: a snippet that an edit of csrc no longer
+    matches would otherwise leave the committed kernel timed as the
+    variant."""
+    texts = {f.name: f.read_text() for f in sorted(_build.CSRC.iterdir())}
+    patched = [n for n in texts
+               if n == kernel.source.name or n.endswith(".cuh")]
+    for old, new in patches:
+        hits = {n: texts[n].count(old) for n in patched}
+        if sum(hits.values()) != 1:
+            raise ValueError(f"variant {name} of {kernel.name}: {old!r} "
+                             f"occurs {hits}, not once")
+        n = next(n for n, c in hits.items() if c)
+        texts[n] = texts[n].replace(old, new)
     d = OUT / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    for f in _build.CSRC.iterdir():
-        text = f.read_text()
-        for old, new in patches:
-            if f.name == kernel.source.name or f.suffix == ".cuh":
-                text = text.replace(old, new)
-        if f.suffix == ".cu":   # the library's name digests the patches
+    for n, text in texts.items():
+        if n.endswith(".cu"):   # the library's name digests the patches
             text += f"\n// variant {name}: {patches!r}\n"
-        (d / f.name).write_text(text)
+        (d / n).write_text(text)
     k = _build.Kernel(kernel.name, kernel.functions)
     k.source = d / kernel.source.name
     return k
@@ -117,7 +127,6 @@ def main() -> int:
     liq = torch.zeros(ROWS, 2, device=dev)
     tq, scale = u8_front_plan(windowed_sinc(51, 0.125, hamming), "s8")
     tq = torch.as_tensor(tq, device=dev)
-    tw = tap_words(tq.tolist(), dev)
     num = ROW_BYTES // 16
     xm = torch.randn(ROWS, 196_671, generator=g, device=dev)
     xs = torch.randn(ROWS, 655_552, generator=g, device=dev)
@@ -125,9 +134,8 @@ def main() -> int:
     t65 = torch.randn(65, generator=g, device=dev)
     calls = {
         "u8_front_demod": lambda: u8_front_demod.u8_front_demod(
-            tq, scale, 8, x, hist, liq, num, packed=tw)[0],
-        "u8_front": lambda: u8_front.u8_front(tq, scale, 8, x, hist, num,
-                                              packed=tw),
+            tq, scale, 8, x, hist, liq, num)[0],
+        "u8_front": lambda: u8_front.u8_front(tq, scale, 8, x, hist, num),
         "fir": lambda: fir.fir_strided(t64, xm, 196_608),
         "fir65": lambda: fir.fir_strided(t65, xs, 655_360, 1, 128),
     }

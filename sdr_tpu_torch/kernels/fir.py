@@ -1,8 +1,9 @@
 """K3: strided FIR (csrc/fir.cu).
 
 Counterpart of sdr_tpu/kernels/fir_pallas.py:fir_strided, for any
-``start >= 0`` and ``factor >= 1``.  :func:`fir_plan` is the kernel's
-shared-memory plan, computed here and passed to the launch.
+``start >= 0`` and ``factor >= 1``.  The kernel plans its own tiles and
+shared memory; a launch whose taps do not fit a block's shared memory
+(more than 17,316 taps at factor 1, 58,112 above, on an H100) raises.
 """
 
 from __future__ import annotations
@@ -13,38 +14,12 @@ import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 
-__all__ = ["KERNEL", "fir_plan", "fir_strided", "fir_strided_reference"]
+__all__ = ["KERNEL", "fir_strided", "fir_strided_reference"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("fir", {
-    "launch_fir": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _LL, _I, _I],
+    "launch_fir": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _LL],
 })
-THREADS, PER_THREAD = 256, 12         # csrc/fir.cu's NT and G * R
-SMEM_LIMIT = 232_448                  # an H100 block's shared memory
-
-
-def fir_plan(n_taps: int, factor: int):
-    """(outputs per CUDA block, shared-memory bytes) of the kernel.
-
-    ``factor == 1``: a block computes tiles of ``THREADS * PER_THREAD``
-    outputs, each from its input span staged in shared memory, two tiles
-    at a time (double-buffered): the taps padded to ``kp``, a multiple of
-    4, then two buffers of ``tile + kp + 8`` floats (up to 3 floats of
-    alignment, ``tile + K - 1`` of span, and the last float4s the register
-    ring reads past it), so ``K <= 17,316`` taps.  ``factor
-    > 1``: one output per thread, only the taps in shared memory, so
-    ``K <= 58,112``.  Raises for taps that do not fit."""
-    K = int(n_taps)
-    kp = -(-K // 4) * 4
-    if factor == 1:
-        tile = THREADS * PER_THREAD
-        smem = 4 * (kp + 2 * (tile + kp + 8))
-    else:
-        tile, smem = THREADS, 4 * K
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{K} taps at factor {factor} need {smem} bytes of "
-                         f"shared memory, more than a block's {SMEM_LIMIT}")
-    return tile, smem
 
 
 def _check(taps, x, num, factor, start):
@@ -87,11 +62,10 @@ def fir_strided(taps, x: torch.Tensor, num: int, factor: int = 1,
         raise ValueError(f"unsupported device {x.device}")
     _check(taps, x, num, factor, start)
     rows = cuda_rows(x=x, taps=taps)
-    tile, smem = fir_plan(taps.shape[0], factor)
     y = torch.empty(x.shape[:-1] + (num,), dtype=torch.float32,
                     device=x.device)
     if num == 0 or rows == 0:
         return y
     KERNEL.launch("launch_fir", x.device, ptr(x), ptr(taps), ptr(y), rows,
-                  x.shape[-1], num, taps.shape[0], factor, start, tile, smem)
+                  x.shape[-1], num, taps.shape[0], factor, start)
     return y

@@ -7,13 +7,15 @@ convert + exact-integer decimate without the demod.  A row's stream is
 and block as they are, and a byte offset needs no sliced copy.
 
 The kernel sums four taps per ``__dp4a``: :func:`pack_taps` packs the
-integer taps into int32 words once, and the stream ops keep the words on
-the device (``packed=``), so a launch makes no host copy.
+integer taps into int32 words, and :func:`tap_words` keeps the words of
+each taps tensor on its device, so only the first launch with a taps
+tensor copies to the host and back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -21,7 +23,7 @@ import torch
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 from sdr_tpu_torch.ops.quantized import front_acc
 
-__all__ = ["KERNEL", "check_packed", "pack_taps", "tap_words", "u8_front",
+__all__ = ["KERNEL", "pack_taps", "tap_words", "u8_front",
            "u8_front_reference"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -49,10 +51,22 @@ def pack_taps(tq) -> np.ndarray:
                      for r in rows])
 
 
-def tap_words(tq, device) -> torch.Tensor:
-    """:func:`pack_taps` as a tensor on ``device``, to keep beside the
-    taps."""
-    return torch.as_tensor(pack_taps(tq), device=device)
+_WORDS: dict = {}                      # id(taps) -> (ref, version, words)
+_WORDS_KEPT = 16
+
+
+def tap_words(taps: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_taps` of the int32 taps tensor ``taps``, on its device.
+    The words are kept for the tensor as long as it lives and is not
+    modified in place, so a stream op's launches reuse them."""
+    hit = _WORDS.get(id(taps))
+    if hit is not None and hit[0]() is taps and hit[1] == taps._version:
+        return hit[2]
+    words = torch.as_tensor(pack_taps(taps.tolist()), device=taps.device)
+    if len(_WORDS) >= _WORDS_KEPT:
+        _WORDS.pop(next(iter(_WORDS)))
+    _WORDS[id(taps)] = (weakref.ref(taps), taps._version, words)
+    return words
 
 
 def _check(taps, factor, x, hist, num, start):
@@ -76,10 +90,9 @@ def _check(taps, factor, x, hist, num, start):
 
 
 def u8_front_reference(taps, scale: float, factor: int, x: torch.Tensor,
-                       hist: torch.Tensor, num: int, start: int = 0, *,
-                       packed=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`u8_front` (``packed`` is the
-    kernel's and unused here)."""
+                       hist: torch.Tensor, num: int,
+                       start: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`u8_front`."""
     _check(taps, factor, x, hist, num, start)
     acc = front_acc(taps.tolist(), factor, torch.cat([hist, x], dim=-1), num,
                     start)
@@ -88,14 +101,12 @@ def u8_front_reference(taps, scale: float, factor: int, x: torch.Tensor,
 
 def u8_front(taps, scale: float, factor: int, x: torch.Tensor,
              hist: torch.Tensor, num: int | None = None,
-             start: int = 0, *, packed: torch.Tensor | None = None
-             ) -> torch.Tensor:
+             start: int = 0) -> torch.Tensor:
     """u8 IQ ``x[..., n]`` after history ``hist[..., H]`` -> planar
     ``y[..., 2, num]``, ``y[c, m] = scale * sum_k taps[k] (v[start +
     2(m f + k) + c] - 128)`` with ``v = concat(hist, x)``.  ``taps`` are
     the int32 quantized taps of ``ops.quantized.u8_front_plan`` (s8 or
-    s16); ``packed`` their :func:`tap_words` on the device, made here if
-    not given.  Launches K4 for CUDA tensors; CPU tensors take the plain
+    s16).  Launches K4 for CUDA tensors; CPU tensors take the plain
     version."""
     start = int(start)
     if num is None:
@@ -107,10 +118,8 @@ def u8_front(taps, scale: float, factor: int, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(taps, factor, x, hist, num, start)
-    if packed is None:
-        packed = tap_words(taps.tolist(), x.device)
-    rows = cuda_rows(x=x, hist=hist, packed=packed)
-    check_packed(packed, taps, x.device)
+    rows = cuda_rows(x=x, hist=hist, taps=taps)
+    packed = tap_words(taps)
     y = torch.empty(x.shape[:-1] + (2, num), dtype=torch.float32,
                     device=x.device)
     if num == 0 or rows == 0:
@@ -121,15 +130,3 @@ def u8_front(taps, scale: float, factor: int, x: torch.Tensor,
                   int(packed.shape[0] == 2), start, num, float(scale))
     return y
 
-
-def check_packed(packed: torch.Tensor, taps, device) -> None:
-    """Raise unless ``packed`` can be the tap words of ``taps``: int32
-    ``[1 or 2, 2*ceil(K/8)]`` on ``device``."""
-    K = taps.shape[0]
-    if (packed.dtype != torch.int32 or packed.ndim != 2
-            or packed.shape[0] not in (1, 2)
-            or packed.shape[1] != 2 * -(-K // 8)
-            or packed.device != device):
-        raise ValueError(f"packed must be the tap_words of {K} taps on "
-                         f"{device}, got {packed.dtype} "
-                         f"{tuple(packed.shape)} on {packed.device}")

@@ -4,8 +4,8 @@ Counterpart of sdr_tpu/kernels/u8_front_demod_pallas.py:
 u8_front_demod_pallas.  A row's stream is ``concat(hist, x)``: output m
 reads the bytes ``2(m*f + k) + c`` of it, so a streaming caller passes its
 history and block as they are and no seam split is needed.  The taps
-reach the kernel as ``__dp4a`` words (``u8_front.pack_taps``), kept on
-the device by the stream op (``packed=``).
+reach the kernel as ``__dp4a`` words (``u8_front.tap_words``), kept on
+the device for each taps tensor.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
-from sdr_tpu_torch.kernels.u8_front import check_packed, tap_words
+from sdr_tpu_torch.kernels.u8_front import tap_words
 from sdr_tpu_torch.ops.demod import fm_demod_planar
 from sdr_tpu_torch.ops.quantized import front_acc
 
@@ -52,10 +52,8 @@ def _check(taps, factor, x, hist, last_iq, num):
 
 def u8_front_demod_reference(taps, scale: float, factor: int,
                              x: torch.Tensor, hist: torch.Tensor,
-                             last_iq: torch.Tensor, num: int, *,
-                             packed=None):
-    """Plain PyTorch version of :func:`u8_front_demod` (``packed`` is the
-    kernel's and unused here)."""
+                             last_iq: torch.Tensor, num: int):
+    """Plain PyTorch version of :func:`u8_front_demod`."""
     _check(taps, factor, x, hist, last_iq, num)
     acc = front_acc(taps.tolist(), factor, torch.cat([hist, x], dim=-1), num)
     iq = acc.to(torch.float32) * float(np.float32(scale))
@@ -64,17 +62,15 @@ def u8_front_demod_reference(taps, scale: float, factor: int,
 
 def u8_front_demod(taps, scale: float, factor: int, x: torch.Tensor,
                    hist: torch.Tensor, last_iq: torch.Tensor,
-                   num: int | None = None, *,
-                   packed: torch.Tensor | None = None):
+                   num: int | None = None):
     """u8 IQ ``x[..., n]`` after history ``hist[..., H]`` -> FM demod
     ``y[..., num]`` and the last decimated ``(I, Q)`` sample ``[..., 2]``.
 
     ``y[m] = atan2(s[m] * conj(s[m-1]))`` with
     ``s[m] = scale * sum_k taps[k] (v[2(m f + k) + c] - 128)``,
     ``v = concat(hist, x)`` and ``s[-1] = last_iq``.  ``taps`` are the
-    int32 quantized taps of ``ops.quantized.u8_front_plan``, ``packed``
-    their ``u8_front.tap_words`` on the device, made here if not given.
-    Launches K1 for CUDA tensors; CPU tensors take the plain version."""
+    int32 quantized taps of ``ops.quantized.u8_front_plan``.  Launches
+    K1 for CUDA tensors; CPU tensors take the plain version."""
     if num is None:
         num = (hist.shape[-1] + x.shape[-1] - 2 * taps.shape[0]) \
             // (2 * factor) + 1
@@ -85,10 +81,8 @@ def u8_front_demod(taps, scale: float, factor: int, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(taps, factor, x, hist, last_iq, num)
-    if packed is None:
-        packed = tap_words(taps.tolist(), x.device)
-    rows = cuda_rows(x=x, hist=hist, last_iq=last_iq, packed=packed)
-    check_packed(packed, taps, x.device)
+    rows = cuda_rows(x=x, hist=hist, last_iq=last_iq, taps=taps)
+    packed = tap_words(taps)
     y = torch.empty(x.shape[:-1] + (num,), dtype=torch.float32,
                     device=x.device)
     iq = torch.empty(x.shape[:-1] + (2,), dtype=torch.float32,

@@ -6,7 +6,9 @@ Runs ``run_time_batched`` over the main path's 32 blocks of 10,485,760
 bytes of random u8 IQ once to warm up, then in one process:
 
 1. ``REPS`` calls unprofiled, each between CUDA events: the call's span on
-   the device's clock, host gaps included;
+   the device's clock, host gaps included; then ``SPLIT_REPS`` calls each
+   queued behind a device-side sleep (:func:`queued_split`): the device's
+   time for a call without host gaps, and the host's time to enqueue it;
 2. ``REPS`` calls under ``torch.profiler``: the device time of each kernel
    by name and their sum (busy), the device time of the PyTorch ops each
    stream op's ``shard_carry`` and ``apply`` launch (a ``record_function``
@@ -46,6 +48,36 @@ from sdr_tpu_torch.parallel.sharded import run_time_batched
 
 ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
 REPS = 20
+SPLIT_REPS, SPLIT_SLEEP_CYCLES = 5, 200_000_000     # ~0.1 s head start
+
+
+def queued_split(fn, reps: int = SPLIT_REPS) -> dict:
+    """Medians over ``reps`` calls of ``fn``, each enqueued behind a
+    device-side sleep: ``device_ms``, CUDA events around the call (the
+    card's time for the call's work, back to back, with no host gap),
+    ``enqueue_ms``, the host's clock around the call (its Python and
+    launch overhead alone), and ``sleep_ms``, the sleep's own span, which
+    must exceed ``enqueue_ms`` for ``device_ms`` to hold no host gap."""
+    dev, host, head = [], [], []
+    for _ in range(reps):
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        e0.record()
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b))
+        head.append(e0.elapsed_time(a))
+    out = {"device_ms": float(np.median(dev)),
+           "enqueue_ms": float(np.median(host)),
+           "enqueue_max_ms": max(host), "sleep_ms": min(head)}
+    if out["enqueue_max_ms"] >= out["sleep_ms"]:
+        raise RuntimeError(f"enqueue outlasted the sleep: {out}")
+    return out
 
 
 def _ranged(label, fn, *args):
@@ -93,6 +125,7 @@ def main(argv=None) -> int:
         b.record()
     torch.cuda.synchronize()
     span = float(np.median([a.elapsed_time(b) for a, b in ev]))
+    split = queued_split(lambda: run_time_batched(ops, raw, ROWS))
 
     labels = label_ops(ops)
     with profile(activities=[ProfilerActivity.CPU,
@@ -135,7 +168,7 @@ def main(argv=None) -> int:
     print(json.dumps({"chain": "stereo" if args.stereo else "mono",
                       "rows": ROWS, "row_bytes": ROW_BYTES, "reps": REPS,
                       "span_ms": span, "device_busy_ms": busy,
-                      "idle_share": 1 - busy / span,
+                      "idle_share": 1 - busy / span, "queued": split,
                       "profiled_wall_ms": wall, "ops_ms": by_op,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
                       "card": card}))

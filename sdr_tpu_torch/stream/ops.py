@@ -27,7 +27,7 @@ import torch
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.resample import resample
-from sdr_tpu_torch.kernels.u8_front import tap_words, u8_front
+from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
 from sdr_tpu_torch.ops import design
 from sdr_tpu_torch.ops.demod import fm_demod_planar
@@ -88,7 +88,6 @@ class _U8Front(StreamOp):
         self.device = resolve_device(device)
         tq, self.scale = u8_front_plan(self.taps, precision)
         self.tq = torch.as_tensor(tq, device=self.device)
-        self.tw = tap_words(tq, self.device)      # the kernels' dp4a words
 
     def out_len(self, n_in):
         if n_in % 2:
@@ -124,7 +123,7 @@ class U8FrontEnd(_U8Front):
 
     def apply(self, carry, x):
         y = u8_front(self.tq, self.scale, self.factor, x, carry,
-                     self.out_len(x.shape[-1]), packed=self.tw)
+                     self.out_len(x.shape[-1]))
         return _tail(carry, x, self.hist_len()), y
 
     def shard_carry(self, xb, initial=None):
@@ -147,8 +146,7 @@ class U8FrontDemod(_U8Front):
     def apply(self, carry, x):
         hist, liq = carry
         y, liq_new = u8_front_demod(self.tq, self.scale, self.factor, x,
-                                    hist, liq, self.out_len(x.shape[-1]),
-                                    packed=self.tw)
+                                    hist, liq, self.out_len(x.shape[-1]))
         return (_tail(hist, x, self.hist_len()), liq_new), y
 
     def shard_carry(self, xb, initial=None):
@@ -160,8 +158,7 @@ class U8FrontDemod(_U8Front):
                             device=xb.device)
         _, liq = u8_front_demod(self.tq, self.scale, self.factor,
                                 halo[..., H:].contiguous(),
-                                halo[..., :H].contiguous(), zeros, 1,
-                                packed=self.tw)
+                                halo[..., :H].contiguous(), zeros, 1)
         return substitute_first((halo[..., f2:].contiguous(), liq), initial)
 
 

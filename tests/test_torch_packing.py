@@ -7,9 +7,10 @@
   ``dp4a`` signed x signed and unsigned x signed) over those words equals
   ``ops/quantized.py:front_acc`` bit for bit: tolerance 0, every step is
   integer.
-* K3 (csrc/fir.cu) stages each tile's input span in shared memory as
-  ``kernels/fir.py:fir_plan`` sizes it; the spans cover exactly the
-  inputs the plain version reads and fit the plan's shared memory.
+* ``u8_front.tap_words`` keeps the words of each taps tensor and makes
+  them anew when the tensor changes in place.
+* ``kernel_variants`` (what binds K1, K4 and K3 on the card) patches each
+  snippet of each variant exactly once, and raises otherwise.
 
 Inputs come from a numpy seed; no JAX here.
 """
@@ -18,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from sdr_tpu_torch.kernels.fir import PER_THREAD, THREADS, fir_plan
-from sdr_tpu_torch.kernels.u8_front import pack_taps
+from sdr_tpu_torch import kernel_variants
+from sdr_tpu_torch.kernels import fir, u8_front, u8_front_demod
+from sdr_tpu_torch.kernels.u8_front import pack_taps, tap_words
 from sdr_tpu_torch.ops.quantized import front_acc, u8_front_plan
 
 M32 = 0xFFFFFFFF
@@ -114,46 +116,54 @@ def test_pack_taps_layout():
         pack_taps([40_000])
 
 
-def tile_spans(num, n_taps, factor, start, tile):
-    """The input span ``[lo, hi)`` of each of a row's tiles, as csrc/fir.cu
-    cuts them: what a block stages (``factor == 1``) or reads."""
-    for m0 in range(0, num, tile):
-        nb = min(tile, num - m0)
-        yield start + m0 * factor, start + (m0 + nb - 1) * factor + n_taps
+def test_tap_words_kept_per_taps_tensor():
+    """One tensor's words are made once; an in-place change or another
+    tensor gets words of its own, equal to pack_taps'."""
+    t = torch.tensor([1, -2, 3, 300], dtype=torch.int32)
+    w = tap_words(t)
+    assert tap_words(t) is w
+    np.testing.assert_array_equal(w.numpy(), pack_taps([1, -2, 3, 300]))
+    t[3] = 4                                    # now s8 taps
+    w8 = tap_words(t)
+    assert w8 is not w
+    np.testing.assert_array_equal(w8.numpy(), pack_taps([1, -2, 3, 4]))
+    u = t.clone()
+    assert tap_words(u) is not w8
+    assert torch.equal(tap_words(u), w8)
 
 
-@pytest.mark.parametrize("f", [1, 2, 3])
-@pytest.mark.parametrize("K", [1, 64, 65, 200])
-def test_fir_plan_covers_exactly_the_plain_reads(K, f):
-    """Each tile's span lies in the input, the spans of a row cover what
-    fir_strided_reference reads (for f == 1: exactly), and the staged span
-    with its alignment slack and the register ring's read past it fits
-    one of the plan's two staging buffers; num = 1 (the halo launch) and
-    num not a multiple of the tile."""
-    tile, smem = fir_plan(K, f)
-    assert tile == (THREADS * PER_THREAD if f == 1 else THREADS)
-    kp = -(-K // 4) * 4
-    for start in range(8):
-        for num in (1, 2500):
-            n = start + (num - 1) * f + K
-            reads = np.zeros(n, dtype=bool)
-            reads[start + f * np.arange(num)[:, None] + np.arange(K)] = True
-            covered = np.zeros(n, dtype=bool)
-            for lo, hi in tile_spans(num, K, f, start, tile):
-                assert 0 <= lo < hi <= n
-                covered[lo:hi] = True
-                if f == 1:
-                    ring = THREADS * PER_THREAD + 4 * (K // 4 + 2)
-                    assert 3 + hi - lo <= ring <= (smem // 4 - kp) // 2
-            assert not (reads & ~covered).any()
-            if f == 1:
-                assert (covered == reads).all()
+def test_tap_words_cache_is_bounded():
+    """Many taps tensors: the cache keeps a few, and a tensor that fell
+    out gets its words again."""
+    first = torch.tensor([7, 8], dtype=torch.int32)
+    w = tap_words(first)
+    for k in range(40):
+        tap_words(torch.tensor([k, 1], dtype=torch.int32))
+    assert len(u8_front._WORDS) <= u8_front._WORDS_KEPT
+    assert torch.equal(tap_words(first), w)
 
 
-def test_fir_plan_tap_limits():
-    """The taps that fit: 17,316 at factor 1, 58,112 above; more raise."""
-    assert fir_plan(17_316, 1)[1] <= 232_448
-    assert fir_plan(58_112, 2)[1] <= 232_448
-    for K, f in ((17_317, 1), (58_113, 3)):
-        with pytest.raises(ValueError):
-            fir_plan(K, f)
+MODS = {"u8_front_demod": u8_front_demod, "u8_front": u8_front, "fir": fir}
+
+
+@pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
+def test_kernel_variants_patch_each_snippet_once(tmp_path, monkeypatch,
+                                                  name):
+    """Every variant's snippets are found in today's csrc, once each."""
+    monkeypatch.setattr(kernel_variants, "OUT", tmp_path)
+    targets, patches = kernel_variants.VARIANTS[name]
+    for m in targets:
+        k = kernel_variants.variant(MODS[m].KERNEL, name, patches)
+        text = "".join(p.read_text() for p in k.source.parent.iterdir()
+                       if p.name == k.source.name or p.suffix == ".cuh")
+        for _, new in patches:
+            assert new in text
+
+
+@pytest.mark.parametrize("old", ["no such line;", "#include"])
+def test_kernel_variants_raise_for_a_snippet_not_found_once(
+        tmp_path, monkeypatch, old):
+    """A snippet found nowhere, or more than once, raises."""
+    monkeypatch.setattr(kernel_variants, "OUT", tmp_path)
+    with pytest.raises(ValueError, match="not once"):
+        kernel_variants.variant(fir.KERNEL, "bad", [(old, "x")])
