@@ -11,18 +11,22 @@ per source, all at once), then:
 2. the mono path, ``fm_chain()`` (K1, K2, K3): holds each kernel against
    its plain PyTorch version on the card at the path's shapes (32 rows of
    10,485,760 u8 bytes -> 655,360 demod samples -> 196,671 resampled ->
-   196,608 audio samples per row) and at extra geometries (K1 and K3
+   196,608 audio samples per row) and at extra geometries (all three
    bitwise: row bases off 16-byte alignment, histories of 86, 2 and 30
    bytes, f in {1, 4, 8} and K in {16, 51, 63} with s8 and s16 taps for
-   K1; f in {1, 2, 3}, K in {1, 64, 65, 200} and starts 0 to 7 for K3;
-   the most outputs a stream holds and 1) and times the kernel (device
+   K1; I/D in {3/10, 2/3, 5/4} with every offset, starts 0, 37 and 5 and
+   histories of 5, 86 and 12,000 floats for K2; f in {1, 2, 3}, K in {1,
+   64, 65, 200} and starts 0 to 7 for K3; the most outputs a stream holds,
+   reads past its end, outputs not a multiple of the tiles, and 1) and
+   times the kernel (device
    time of back-to-back launches), the plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``,
    timed only; for K1's decimation and K4 a grouped ``conv1d`` over the
    (u8 - 128) planes); each row carries ``bound_fraction`` (bound / time)
-   and K3's printout its no-FMA instruction floor (computed, not
-   measured); checks that K3 raises for taps that do not fit its shared
-   memory and runs at the most that do; runs the block-parallel chain
+   and K2's, K3's and K5's printouts their no-FMA instruction floors
+   (computed, not measured); checks that K2, K3 and K5 raise for tables
+   or taps that do not fit their shared memory and run at the most that
+   do; runs the block-parallel chain
    (``run_time_batched``) on a synthetic 1 kHz broadcast with every
    launch counter set to 0 just before one call, checks the tone, the
    launch counts and agreement with the plain CPU run on a small input,
@@ -36,8 +40,10 @@ per source, all at once), then:
    the L/R planes, the de-emphasis IIR, the volume) on a synthetic stereo
    broadcast (L = 1 kHz, R = 400 Hz, a 10 % pilot, 75 kHz deviation) at
    the same 32 x 10,485,760 bytes: K4 (bitwise, K1's geometries plus byte
-   offsets 0, 1 and 10 and leading dims [B, C]) and K5 against their
-   plain versions, K3 at StereoDecode's 65-tap shape (bitwise); the
+   offsets 0, 1 and 10 and leading dims [B, C]) and K5 (bitwise, K2's
+   geometries with 64 and 33 FIR taps) against their plain versions, K3
+   at StereoDecode's 65-tap shape and K2 over the [32, 2] L/R planes
+   (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); the
    block-parallel chain with the counters read around one call, its L/R
    separation, the pilot lock of every row, 20 timed calls and peak
    memory; the same chain with ``ResampleFirScale(fused=True)`` (K5)
@@ -280,15 +286,45 @@ def fir_geometries(x0, taps):
                     yield (t, x, num, f, start)
 
 
+def resample_geometries(x0, taps):
+    """K2's and K5's extra geometries over the 3 rows of ``x0``: I/D in
+    {3/10, 2/3, 5/4} with every phase offset, each at a row base 0 to 3
+    floats off 16-byte alignment, a history of 5 (shorter than a phase's
+    taps), 86 or 12,000 floats (longer than a tile's span), a start of 0,
+    37 or 5, and 1 output, 3073 (one past a tile) and the most the stream
+    holds plus 25 (reads past its end).  Yields the K2 wrapper's args and
+    the FIR taps for K5: ``taps`` or 33 others, in turns."""
+    from sdr_tpu_torch.ops.fir import prepare_phase_table
+    rng = np.random.default_rng(10)
+    dev = x0.device
+    t33 = torch.as_tensor(rng.uniform(-1, 1, 33).astype(np.float32),
+                          device=dev)
+    i = 0
+    for I, D, K in ((3, 10, 31), (2, 3, 17), (5, 4, 40)):
+        table = torch.as_tensor(prepare_phase_table(
+            rng.uniform(-1, 1, K).astype(np.float32), I), device=dev)
+        for offset in range(I):
+            H = (5, 86, 12_000)[i % 3]
+            hist = torch.as_tensor(rng.uniform(-1, 1, (3, H)).astype(
+                np.float32), device=dev)
+            x = misaligned(x0, i % 4)
+            start = (0, 37, 5)[i % 3]
+            most = (H + x0.shape[-1] - start) * I // D + 25
+            for num in (1, 3073, most):
+                yield ((table, I, D, x, hist, offset, num, start),
+                       taps if i % 2 else t33)
+            i += 1
+
+
 def max_err(a, b) -> float:
     return (a - b).abs().max().item()
 
 
 def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> None:
-    """Print K3's floor under the order it keeps, computed, not measured:
-    a rounded multiply and a rounded add per tap and output, separate f32
-    instructions, at 128 f32 lanes per SM and the H100 SXM's 1.98 GHz
-    boost clock."""
+    """Print a kernel's floor under the order it keeps (K2, K3, K5),
+    computed, not measured: a rounded multiply and a rounded add per tap
+    and output, separate f32 instructions, at 128 f32 lanes per SM and the
+    H100 SXM's 1.98 GHz boost clock."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ms = 2 * n_taps * outputs / (sms * 128 * 1.98e9) * 1e3
     print(f"{what}: no-FMA floor {ms} ms ({n_taps} taps x {outputs} outputs "
@@ -320,6 +356,44 @@ def check_fir_tap_limits(x) -> None:
                     require(False, f"K3 took {K} taps at factor {f}")
     print("K3 tap limits: 17,316 taps at factor 1 and 58,112 at factor 2 "
           "equal the plain version; one more raises")
+
+
+def check_resample_limits(x, back) -> None:
+    """K2 at the most taps a phase its shared memory holds (19,364 at 1/1)
+    and K5 at the most FIR taps beside the paths' 3/10 table (6,340), on
+    an H100, equal their plain versions bitwise, and one tap more
+    raises."""
+    from sdr_tpu_torch.kernels import backhalf, resample
+    rng = np.random.default_rng(11)
+    I, D = back.spec.interpolation, back.spec.decimation
+
+    def rand(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32),
+                               device=x.device)
+
+    hist = x[:2, :0]
+    fits = {"K2": 19_364, "K5": 6_340}
+    cases = [("K2", Kp, resample.resample, resample.resample_reference,
+              (rand(1, Kp), 1, 1, x[:2, :Kp + 5].contiguous(), hist, 0, 6))
+             for Kp in (19_364, 19_365)]
+    cases += [("K5", Kf, backhalf.resample_fir,
+               backhalf.resample_fir_reference,
+               (back._table, I, D, rand(Kf),
+                x[:2, :(Kf + 9) * D // I + 20].contiguous(), hist, 0, 6))
+              for Kf in (6_340, 6_341)]
+    for what, K, fn, ref, a in cases:
+        if K == fits[what]:
+            err = max_err(fn(*a), ref(*a))
+            require(err == 0, f"{what} at {K} taps: {err} != 0")
+        else:
+            try:
+                fn(*a)
+            except RuntimeError as e:
+                require("do not fit" in str(e), f"{what} raised {e}")
+            else:
+                require(False, f"{what} took {K} taps")
+    print("K2 and K5 limits: 19,364 taps a phase at 1/1 (K2) and 6,340 FIR "
+          "taps at 3/10 (K5) equal the plain versions; one more raises")
 
 
 def library_front(front, x, hist, num: int):
@@ -398,36 +472,42 @@ def check_kernels(raw, ops):
                      "with K4 on the same input; no single call computes "
                      "the demod"))
 
-    # K2 at the chain's 3/10 stage, and at a rebased seam-like geometry
+    # K2 at the chain's 3/10 stage, at rebased phases and starts of the
+    # same batch, and at the extra geometries: bitwise
     I, D = back.spec.interpolation, back.spec.decimation
     Kf = back.taps_f.shape[0]
+    Kp = back.spec.taps_per_phase
     h2 = back.shard_carry(y1)
     n2 = back.out_len(n1) + Kf - 1
-    geoms = [(back._offset_k, 0, n2), (1, 37, n2 - 20), (2, 5, n2 - 3)]
-    err2 = 0.0
-    for off, start, num in geoms:
-        a2 = (back._table, I, D, y1, h2, off, num, start)
-        g = resample.resample(*a2)
-        r = resample.resample_reference(*a2)
-        err2 = max(err2, (g - r).abs().max().item())
-    require(err2 <= 1e-6, f"K2 vs plain {err2} > 1e-6")
     a2 = (back._table, I, D, y1, h2, back._offset_k, n2, 0)
+    cases = [a2, (back._table, I, D, y1, h2, 1, n2 - 20, 37),
+             (back._table, I, D, y1, h2, 2, n2 - 3, 5),
+             *(a for a, _ in resample_geometries(y1[:3, :20_001],
+                                                 back._taps))]
+    err2 = 0.0
+    for a in cases:
+        err2 = max(err2, max_err(resample.resample(*a),
+                                 resample.resample_reference(*a)))
+    require(err2 == 0, f"K2 vs plain {err2} != 0")
     yr = resample.resample(*a2)
     require(torch.isfinite(yr).all().item(), "K2 output finite")
+    check_resample_limits(y1, back)
     lib2 = library_resample(back.spec.phase_table, [1.0], I, D,
                             back._offset_k, h2, y1, n2)
     lib_err2 = (lib2() - yr).abs().max().item()
-    ops2 = 2 * back.spec.taps_per_phase * n2 * ROWS
-    b2, by2 = bound(nbytes(y1, h2, back._table, yr), ops2, "f32")
+    b2, by2 = bound(nbytes(y1, h2, back._table, yr), 2 * Kp * n2 * ROWS,
+                    "f32")
     ms2 = time_ms(lambda: resample.resample(*a2), 20)
     rows.append(dict(
         name="K2 resample", kernel="resample", route="cuda",
         source="sdr_tpu_torch/csrc/resample.cu",
         replaces="sdr_tpu/kernels/resample_pallas.py:187",
-        max_abs_err=err2, ms=ms2, bound_fraction=b2 / ms2,
+        max_abs_err=err2, geometries_checked=len(cases) - 1, ms=ms2,
+        bound_fraction=b2 / ms2,
         plain_ms=time_ms(lambda: resample.resample_reference(*a2), 3, 1),
         bound_ms=b2, bound_by=by2, library_ms=time_ms(lib2, 20),
         library_max_abs_diff=lib_err2))
+    print_no_fma_floor("K2 resample", Kp, n2 * ROWS)
 
     # K3: the audio FIR on the resampled batch, and the extra geometries
     n3 = back.out_len(n1)
@@ -643,43 +723,69 @@ def check_stereo_kernels(raw, ops):
         library_ms=time_ms(lib3, 20), library_max_abs_diff=lib_err3))
     print_no_fma_floor("K3 fir (StereoDecode, 65 taps)", 65, nc * ROWS)
 
-    # K5 over the L/R planes, history from the halo; and offsets 1 and 2,
-    # starts 37 and 5, outputs not a multiple of the 256-output tile
+    # K2 over the L/R planes [32, 2], history from the halo, as the
+    # unfused back half runs it: bitwise
     _, lr = stereo.apply(sc, comp)
     h5 = back.shard_carry(lr)
     I, D = back.spec.interpolation, back.spec.decimation
+    Kf = back.taps_f.shape[0]
+    Kp = back.spec.taps_per_phase
     n5 = back.out_len(nc)
+    a2 = (back._table, I, D, lr, h5, back._offset_k, n5 + Kf - 1, 0)
+    yr = resample.resample(*a2)
+    err2 = max_err(yr, resample.resample_reference(*a2))
+    require(err2 == 0, f"K2 over the L/R planes vs plain {err2} != 0")
+    lib2 = library_resample(back.spec.phase_table, [1.0], I, D,
+                            back._offset_k, h5, lr, n5 + Kf - 1)
+    lib_err2 = max_err(lib2(), yr)
+    b2, by2 = bound(nbytes(lr, h5, back._table, yr), 2 * Kp * yr.numel(),
+                    "f32")
+    ms2 = time_ms(lambda: resample.resample(*a2), 20)
+    rows.append(dict(
+        name="K2 resample (stereo L/R planes [32, 2])", kernel="resample",
+        route="cuda", source="sdr_tpu_torch/csrc/resample.cu",
+        replaces="sdr_tpu/kernels/resample_pallas.py:187",
+        max_abs_err=err2, ms=ms2,
+        plain_ms=time_ms(lambda: resample.resample_reference(*a2), 3, 1),
+        bound_ms=b2, bound_by=by2, bound_fraction=b2 / ms2,
+        library_ms=time_ms(lib2, 20), library_max_abs_diff=lib_err2))
+    print_no_fma_floor("K2 resample (stereo, [32, 2])", Kp, yr.numel())
+
+    # K5 over the same planes; rebased offsets and starts of the same
+    # batch, and K2's extra geometries: bitwise
     a5 = (back._table, I, D, back._taps, lr, h5, back._offset_k, n5, 0)
     y5 = backhalf.resample_fir(*a5)
-    ms5 = time_ms(lambda: backhalf.resample_fir(*a5), 20)
+    cases = [a5, (back._table, I, D, back._taps, lr, h5, 1, n5 - 21, 37),
+             (back._table, I, D, back._taps, lr, h5, 2, n5 - 3, 5)]
+    cases += [(t, I2, D2, taps, x2, h2, off, num, start)
+              for (t, I2, D2, x2, h2, off, num, start), taps
+              in resample_geometries(lr.view(-1, nc)[:3, :20_001],
+                                     back._taps)]
     err5 = 0.0
-    for off, start, num in [(back._offset_k, 0, n5), (1, 37, n5 - 21),
-                            (2, 5, n5 - 3)]:
-        a = (back._table, I, D, back._taps, lr, h5, off, num, start)
-        err5 = max(err5, (backhalf.resample_fir(*a)
-                          - backhalf.resample_fir_reference(*a)).abs().max()
-                   .item())
+    for a in cases:
+        err5 = max(err5, max_err(backhalf.resample_fir(*a),
+                                 backhalf.resample_fir_reference(*a)))
     require(torch.isfinite(y5).all().item(), "K5 output finite")
-    require(err5 <= 2e-5, f"K5 vs plain {err5} > 2e-5")
-    Kf = back.taps_f.shape[0]
+    require(err5 == 0, f"K5 vs plain {err5} != 0")
+    ms5 = time_ms(lambda: backhalf.resample_fir(*a5), 20)
 
     def pair():
-        yr = resample.resample(back._table, I, D, lr, h5, back._offset_k,
-                               n5 + Kf - 1)
-        return fir.fir_strided(back._taps, yr, n5)
+        return fir.fir_strided(back._taps, resample.resample(*a2), n5)
 
-    pair_err = (pair() - y5).abs().max().item()
+    pair_err = max_err(pair(), y5)
+    require(pair_err == 0, f"K5 vs the K2 -> K3 pair {pair_err} != 0")
     lib5 = library_resample(back.spec.phase_table, back._taps_scaled, I, D,
                             back._offset_k, h5, lr, n5)
     lib_err5 = (lib5() - y5).abs().max().item()
     require(lib_err5 <= 2e-5, f"K5 vs its conv1d yardstick {lib_err5}")
     b5, by5 = bound(nbytes(lr, h5, back._table, back._taps, y5),
-                    2 * (back.spec.taps_per_phase + Kf) * y5.numel(), "f32")
+                    2 * (Kp + Kf) * y5.numel(), "f32")
     rows.append(dict(
         name="K5 backhalf", kernel="backhalf", route="cuda",
         source="sdr_tpu_torch/csrc/backhalf.cu",
         replaces="sdr_tpu/kernels/backhalf_pallas.py:240",
-        max_abs_err=err5, ms=ms5, bound_fraction=b5 / ms5,
+        max_abs_err=err5, geometries_checked=len(cases) - 1, ms=ms5,
+        bound_fraction=b5 / ms5,
         plain_ms=time_ms(lambda: backhalf.resample_fir_reference(*a5), 3, 1),
         bound_ms=b5, bound_by=by5, library_ms=time_ms(lib5, 20),
         library_max_abs_diff=lib_err5,
@@ -687,6 +793,7 @@ def check_stereo_kernels(raw, ops):
                      "phases, one filter per output phase; the port's "
                      "K2 -> K3 pair on the same input is pair_ms",
         pair_ms=time_ms(pair, 20), pair_max_abs_diff=pair_err))
+    print_no_fma_floor("K5 backhalf", Kp + Kf, y5.numel())
     return rows
 
 

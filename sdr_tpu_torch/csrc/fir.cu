@@ -27,16 +27,11 @@
 //   computes the current one, so every block keeps a tile's bytes in
 //   flight while it computes.  The taps go to shared memory once per
 //   block.
-// * Register tiling: thread t computes G = 3 groups of R = 4 consecutive
-//   outputs, 4(t + g NT) .. 4(t + g NT) + 3.  Per 4 taps it reads one
-//   float4 of taps (the same address for every thread: a broadcast) and
-//   one new float4 of input per group, and keeps a ring of three input
-//   float4s per group in registers, so each of the 48 products of a step
-//   costs 4/48 shared-memory reads instead of 2, and twelve independent
-//   sums hide the add latency.  Neighbouring threads read neighbouring
-//   16-byte words: a quarter-warp's 8 threads cover 128 contiguous bytes,
-//   one pass, no bank conflict.  The paths' tap counts (64, 65) are
-//   compiled with the tap loop unrolled.
+// * Register tiling (fir_tile.cuh, shared with K5's second stage): thread
+//   t computes G = 3 groups of R = 4 consecutive outputs from a ring of
+//   float4s in registers, 4/48 shared-memory reads a product, no bank
+//   conflict.  The paths' tap counts (64, 65) are compiled with the tap
+//   loop unrolled.
 // * Each output's sum runs in tap order, each product and sum one rounded
 //   operation (__fmul_rn, __fadd_rn: no FMA contraction), from +0, so an
 //   output does not depend on the tile or grid and equals the plain
@@ -56,125 +51,15 @@
 
 #include <algorithm>
 
+#include "fir_tile.cuh"
 #include "persistent.cuh"
 
 namespace {
 
+using namespace fir_tile;
 using persistent::cp_async16;
-
-constexpr int NT = 256;
-constexpr int R = 4;                  // consecutive outputs per group
-constexpr int G = 3;                  // groups per thread, NT * R apart
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// one 4-tap step of the 4 outputs: taps tp (the first nj of them) over the
-// 12 staged inputs a, b, c, of which output r, tap jj reads OFF + jj + r
-template <int OFF>
-__device__ __forceinline__ void step(float (&acc)[R], float4 tp, float4 a,
-                                     float4 b, float4 c, int nj) {
-  const float w[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
-                       b.z, b.w, c.x, c.y, c.z, c.w};
-  const float tj[4] = {tp.x, tp.y, tp.z, tp.w};
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-    if (jj < nj) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));
-    }
-}
-
-// outputs 4(t + g NT) .. 4(t + g NT) + 3 of the tile, g < G, the span
-// staged from xs[OFF] on; KC > 0 fixes the tap count at compile time
-template <int OFF, int KC>
-__device__ __forceinline__ void tile_sums(float (&acc)[G][R],
-                                          const float* xs,
-                                          const float* s_taps, int K_rt) {
-  const int K = KC > 0 ? KC : K_rt;
-  const float4* x4 = reinterpret_cast<const float4*>(xs) + threadIdx.x;
-  const float4* t4 = reinterpret_cast<const float4*>(s_taps);
-  const int full = K / 4;
-  float4 c0[G], c1[G], c2[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    c0[g] = x4[g * NT];
-    c1[g] = x4[g * NT + 1];
-  }
-  int s = 0;
-  // a ring of three chunks, so the unrolled group moves no registers
-#pragma unroll
-  for (; s + 3 <= full; s += 3) {
-    const float4 ta = t4[s], tb = t4[s + 1], tc = t4[s + 2];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      c2[g] = x4[g * NT + s + 2];
-      step<OFF>(acc[g], ta, c0[g], c1[g], c2[g], 4);
-      c0[g] = x4[g * NT + s + 3];
-      step<OFF>(acc[g], tb, c1[g], c2[g], c0[g], 4);
-      c1[g] = x4[g * NT + s + 4];
-      step<OFF>(acc[g], tc, c2[g], c0[g], c1[g], 4);
-    }
-  }
-#pragma unroll
-  for (; s < full; ++s) {
-    const float4 ta = t4[s];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      c2[g] = x4[g * NT + s + 2];
-      step<OFF>(acc[g], ta, c0[g], c1[g], c2[g], 4);
-      c0[g] = c1[g];
-      c1[g] = c2[g];
-    }
-  }
-  if (K % 4) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      step<OFF>(acc[g], t4[s], c0[g], c1[g], x4[g * NT + s + 2], K % 4);
-  }
-}
-
-// the tile's sums for the staging offset off: the paths' tap counts (64,
-// 65) compiled with their loops unrolled, others with a loop
-template <int KC>
-__device__ __forceinline__ void sums_at(float (&acc)[G][R], const float* xs,
-                                        const float* s_taps, int K,
-                                        int off) {
-  switch (off) {
-    case 0: tile_sums<0, KC>(acc, xs, s_taps, K); break;
-    case 1: tile_sums<1, KC>(acc, xs, s_taps, K); break;
-    case 2: tile_sums<2, KC>(acc, xs, s_taps, K); break;
-    default: tile_sums<3, KC>(acc, xs, s_taps, K); break;
-  }
-}
-
-constexpr int TILE = G * R * NT;      // outputs of a tile at f == 1
-
-// floats of one staging buffer: alignment slack, the span, and the ring's
-// read past it
-__host__ __device__ constexpr int buf_floats(int K) {
-  return TILE + ((K + 3) & ~3) + 8;
-}
-
-// row and first output of tile it (32-bit division where the counts
-// allow)
-__device__ __forceinline__ void tile_origin(long long it, long long per_row,
-                                            int tile, long long* row,
-                                            long long* m0) {
-  if (it < (1LL << 32) && per_row < (1LL << 32)) {
-    const unsigned q = static_cast<unsigned>(it) /
-                       static_cast<unsigned>(per_row);
-    *row = q;
-    *m0 = (it - static_cast<long long>(q) * per_row) * tile;
-  } else {
-    *row = it / per_row;
-    *m0 = (it % per_row) * tile;
-  }
-}
+using persistent::cp_async4;
+using persistent::tile_origin;
 
 // Issue the copies of tile `it`'s span into xs (staged from xs[off] on);
 // returns off.  [xb, xe) is the whole tensor x.
@@ -249,19 +134,7 @@ fir1_kernel(const float* __restrict__ x, const float* __restrict__ taps,
         sums_at<65>(acc, xs, s_taps, K, off);
       else
         sums_at<0>(acc, xs, s_taps, K, off);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int u0 = R * (threadIdx.x + g * NT);
-        float* yr = y + row * num + m0 + u0;
-        if (u0 + R <= nb && (reinterpret_cast<uintptr_t>(yr) & 15) == 0) {
-          *reinterpret_cast<float4*>(yr) =
-              make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-        } else {
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (u0 + r < nb) yr[r] = acc[g][r];
-        }
-      }
+      store_sums(acc, y + row * num + m0, nb);
     }
     off = off_next;
     __syncthreads();                  // buffer b is refilled next

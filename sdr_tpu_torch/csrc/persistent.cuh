@@ -1,6 +1,7 @@
 // What the persistent, double-buffered kernels share (K1 and K4 through
-// u8_window.cuh, and K3): asynchronous copies into shared memory, and the
-// number of blocks that fit on the card at once.
+// u8_window.cuh, K3, and K2 and K5 through resample_tile.cuh): asynchronous
+// copies into shared memory, a tile's row and origin, and the number of
+// blocks that fit on the card at once.
 
 #pragma once
 
@@ -14,6 +15,20 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// 4 zero bytes, in the same group as the copies (src-size 0: gmem, a
+// valid address, is not read)
+__device__ __forceinline__ void cp_async4_zero(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(0));
+}
+
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -21,6 +36,22 @@ __device__ __forceinline__ void commit() {
 // wait for all but the newest committed group: the current tile's copies
 __device__ __forceinline__ void wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// row and first output of tile it (32-bit division where the counts
+// allow)
+__device__ __forceinline__ void tile_origin(long long it, long long per_row,
+                                            int tile, long long* row,
+                                            long long* m0) {
+  if (it < (1LL << 32) && per_row < (1LL << 32)) {
+    const unsigned q = static_cast<unsigned>(it) /
+                       static_cast<unsigned>(per_row);
+    *row = q;
+    *m0 = (it - static_cast<long long>(q) * per_row) * tile;
+  } else {
+    *row = it / per_row;
+    *m0 = (it % per_row) * tile;
+  }
 }
 
 // Blocks of `kernel` (`threads` each, `smem` bytes of dynamic shared

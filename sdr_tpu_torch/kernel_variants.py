@@ -1,5 +1,5 @@
-"""What binds K1, K4 and K3 on the card: each kernel beside source
-variants of itself, timed in turns in one process.
+"""What binds K1, K4, K3, K2 and K5 on the card: each kernel beside
+source variants of itself, timed in turns in one process.
 
     python -m sdr_tpu_torch.kernel_variants
 
@@ -8,12 +8,17 @@ each snippet found exactly once or the tool raises (:func:`variant`),
 built like the kernels themselves into ``build/variants/<name>/``.  A
 variant that drops work (``no_sums``: the windows are staged but not
 summed; ``no_demod``: K1 writes a sum of the products instead of the
-atan2) shows what the rest costs; ``fma`` contracts K3's multiply and add
-(not the plain version's rounding) and shows what the no-FMA order costs;
-the others change a design choice and must equal the committed kernels
-bitwise.  Shapes are the main path's: 32 rows of 10,485,760 random u8
-bytes with an 86-byte history (K1, K4: 51 s8 taps, decimation 8), f32
-rows of 196,671 (K3, 64 taps) and 655,552 (K3, 65 taps from 128).  Times
+atan2; ``resample_no_stores``: K2 sums but stores (almost) nothing;
+``backhalf_no_stage1`` / ``no_stage2``: K5 without its resample or its
+FIR sums) shows what the rest costs; ``fma`` contracts K3's (and K5's
+second stage's) multiply and add (not the plain version's rounding) and
+shows what the no-FMA order costs; the others change a design choice and
+must equal the committed kernels bitwise.  Shapes are the main path's: 32
+rows of 10,485,760 random u8 bytes with an 86-byte history (K1, K4: 51 s8
+taps, decimation 8), f32 rows of 196,671 (K3, 64 taps) and 655,552 (K3,
+65 taps from 128), and rows of 655,360 with an 82-float history, 3/10
+with 11 taps a phase (K2 over [32] and [32, 2] rows to 196,671 outputs,
+K5 over [32, 2] to 196,608 through 64 FIR taps).  Times
 are the mean of 20 launches by CUDA events, queued behind a device-side
 sleep (device time, not the host's enqueue), in the order committed,
 variants, committed.  A ``clone`` of each input is the copy yardstick.
@@ -29,8 +34,10 @@ import subprocess
 
 import torch
 
-from sdr_tpu_torch.kernels import _build, fir, u8_front, u8_front_demod
+from sdr_tpu_torch.kernels import (_build, backhalf, fir, resample, u8_front,
+                                   u8_front_demod)
 from sdr_tpu_torch.ops.design import hamming, windowed_sinc
+from sdr_tpu_torch.ops.fir import prepare_phase_table
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 
 ROWS, ROW_BYTES, HIST = 32, 10_485_760, 86
@@ -58,8 +65,36 @@ VARIANTS = {
     "fir_fma": (("fir",), [(
         "acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));",
         "acc[r] = __fmaf_rn(tj[jj], w[OFF + jj + r], acc[r]);")]),
+    "resample_no_sums": (("resample",), [(
+        "    tile_periods(buf0 + b * bf, off,",
+        "    if (nb < 0) tile_periods(buf0 + b * bf, off,")]),
+    "resample_no_stores": (("resample",), [(
+        "if (u < nb) yr[u] = acc;",
+        "if (u < nb && acc == 1e38f) yr[u] = acc;")]),
+    "resample_runtime_geometry": (("resample", "backhalf"), [(
+        "  if (I == 3 && D == 10 && Kp == 11) {",
+        "  if (I == -3 && D == 10 && Kp == 11) {")]),
+    "resample_tile1536": (("resample",), [(
+        "std::max(1, 3072 / I)", "std::max(1, 1536 / I)")]),
+    "resample_unroll2": (("resample", "backhalf"), [(
+        "  for (int p = threadIdx.x; p < np; p += NT) {\n    const float2*",
+        "#pragma unroll 2\n  for (int p = threadIdx.x; p < np; p += NT) {\n"
+        "    const float2*")]),
+    "backhalf_no_stage1": (("backhalf",), [(
+        "    resample_tile::tile_periods(",
+        "    if (ng < 0) resample_tile::tile_periods(")]),
+    "backhalf_no_stage2": (("backhalf",), [(
+        "      if (Kf == 64)\n        fir_tile::tile_sums<0, 64>",
+        "      if (Kf < 0)\n        fir_tile::tile_sums<0, 64>"), (
+        "      else\n        fir_tile::tile_sums<0, 0>",
+        "      else if (Kf < 0)\n        fir_tile::tile_sums<0, 0>")]),
+    "backhalf_fma": (("backhalf",), [(
+        "acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));",
+        "acc[r] = __fmaf_rn(tj[jj], w[OFF + jj + r], acc[r]);")]),
 }
-EXACT = {"ns512", "fir_runtime_taps"}
+EXACT = {"ns512", "fir_runtime_taps", "resample_runtime_geometry",
+         "resample_tile1536", "resample_unroll2"}
+CALL_KERNEL = {"fir65": "fir", "resample_stereo": "resample"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
@@ -111,7 +146,7 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
     mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
-            "fir": fir}
+            "fir": fir, "resample": resample, "backhalf": backhalf}
     builds = {(m, "committed"): mod.KERNEL for m, mod in mods.items()}
     for name, (targets, patches) in VARIANTS.items():
         for m in targets:
@@ -132,22 +167,36 @@ def main() -> int:
     xs = torch.randn(ROWS, 655_552, generator=g, device=dev)
     t64 = torch.randn(64, generator=g, device=dev)
     t65 = torch.randn(65, generator=g, device=dev)
+    table = torch.as_tensor(prepare_phase_table(
+        windowed_sinc(31, 0.25, hamming), 3), device=dev)
+    xr = torch.randn(ROWS, 655_360, generator=g, device=dev)
+    hr = torch.randn(ROWS, 82, generator=g, device=dev)
+    xr2 = torch.randn(ROWS, 2, 655_360, generator=g, device=dev)
+    hr2 = torch.randn(ROWS, 2, 82, generator=g, device=dev)
     calls = {
         "u8_front_demod": lambda: u8_front_demod.u8_front_demod(
             tq, scale, 8, x, hist, liq, num)[0],
         "u8_front": lambda: u8_front.u8_front(tq, scale, 8, x, hist, num),
         "fir": lambda: fir.fir_strided(t64, xm, 196_608),
         "fir65": lambda: fir.fir_strided(t65, xs, 655_360, 1, 128),
+        "resample": lambda: resample.resample(table, 3, 10, xr, hr, 0,
+                                              196_671),
+        "resample_stereo": lambda: resample.resample(table, 3, 10, xr2, hr2,
+                                                     0, 196_671),
+        "backhalf": lambda: backhalf.resample_fir(table, 3, 10, t64, xr2, hr2,
+                                                  0, 196_608),
     }
     out = {"card": card, "clone_ms": {
         "u8 [32, 10485760]": time_ms(x.clone),
         "f32 [32, 196671]": time_ms(xm.clone),
-        "f32 [32, 655552]": time_ms(xs.clone)}, "ms": {}}
+        "f32 [32, 655552]": time_ms(xs.clone),
+        "f32 [32, 655360]": time_ms(xr.clone),
+        "f32 [32, 2, 655360]": time_ms(xr2.clone)}, "ms": {}}
     names = ["committed", *VARIANTS, "committed again"]
     want = {}
     for name in names:
         for call, fn in calls.items():
-            m = "fir" if call == "fir65" else call
+            m = CALL_KERNEL.get(call, call)
             key = (m, name.replace(" again", ""))
             if key not in builds:
                 continue

@@ -1,9 +1,11 @@
 """K5: fused polyphase resample -> FIR (csrc/backhalf.cu).
 
 Counterpart of sdr_tpu/kernels/backhalf_pallas.py:resample_fir_gain, for
-every geometry: the resampled intermediate (K2's output) stays in shared
-memory and feeds the FIR (K3's) directly.  The caller folds the gain into
-the FIR taps, as ``ResampleFirScale`` does for the unfused pair.
+every geometry with ``I <= 3072``: the resampled intermediate (K2's
+output) stays in shared memory and feeds the FIR (K3's) directly.  The
+caller folds the gain into the FIR taps, as ``ResampleFirScale`` does for
+the unfused pair.  The kernel plans its own tiles and shared memory; a
+launch whose tables and taps do not fit a block's shared memory raises.
 """
 
 from __future__ import annotations
@@ -15,14 +17,14 @@ import torch
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 from sdr_tpu_torch.kernels.fir import fir_strided_reference
 from sdr_tpu_torch.kernels.resample import _check as _check_resample
-from sdr_tpu_torch.kernels.resample import resample_reference
+from sdr_tpu_torch.kernels.resample import period_words, resample_reference
 
 __all__ = ["KERNEL", "resample_fir", "resample_fir_reference"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("backhalf", {
-    "launch_backhalf": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                        _I, _LL, _LL],
+    "launch_backhalf": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I,
+                        _I, _I, _LL, _LL],
 })
 
 
@@ -54,23 +56,20 @@ def resample_fir(table, I: int, D: int, taps, x: torch.Tensor,
     Launches K5 for CUDA tensors; CPU tensors take the plain version."""
     I, D, offset, num, start = int(I), int(D), int(offset), int(num), \
         int(start)
+    _check(table, I, D, taps, x, hist, offset, num, start)
     if x.device.type == "cpu":
         return resample_fir_reference(table, I, D, taps, x, hist, offset,
                                       num, start)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(table, I, D, taps, x, hist, offset, num, start)
     rows = cuda_rows(x=x, hist=hist, table=table, taps=taps)
-    smem = 4 * (table.numel() + 2 * taps.numel() + 255)
-    if smem > 227 * 1024:
-        raise ValueError(f"{table.numel()} phase-table and {taps.numel()} "
-                         "FIR taps exceed the kernel's 227 KB of shared "
-                         "memory")
     y = torch.empty(x.shape[:-1] + (num,), dtype=torch.float32,
                     device=x.device)
     if num == 0 or rows == 0:
         return y
+    period = period_words(I, D, offset, x.device)
     KERNEL.launch("launch_backhalf", x.device, ptr(x), ptr(hist), ptr(table),
-                  ptr(taps), ptr(y), rows, x.shape[-1], hist.shape[-1], I, D,
-                  table.shape[1], taps.shape[0], offset, start, num)
+                  ptr(period), ptr(taps), ptr(y), rows, x.shape[-1],
+                  hist.shape[-1], I, D, table.shape[1], taps.shape[0],
+                  offset, start, num)
     return y

@@ -2,24 +2,62 @@
 
 Counterpart of sdr_tpu/kernels/resample_pallas.py:resample_band, for every
 geometry: output m of a row reads ``v[start + i_m + k]``, ``v = concat(hist,
-x)``, with the closed form of ops/fir.py.
+x)``, with the closed form of ops/fir.py.  The kernel plans its own tiles
+and shared memory; a phase table too large for a block's shared memory
+raises from the launch.
+
+The kernel's tiles hold whole periods of ``I`` outputs, so within a tile
+output ``u`` has the phase ``o_u`` and the input step ``di_u`` of output
+``u mod I`` of the stream's first period (:func:`period_table`);
+:func:`period_words` keeps that table on the card for each geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 
-__all__ = ["KERNEL", "resample", "resample_reference"]
+__all__ = ["KERNEL", "period_table", "period_words", "resample",
+           "resample_reference"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("resample", {
-    "launch_resample": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _LL,
-                        _LL],
+    "launch_resample": [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                        _LL, _LL],
 })
+
+
+def period_table(I: int, D: int, offset: int) -> np.ndarray:
+    """int32 ``[2, I]``: the phase ``o_u`` and the input step ``di_u = i_u``
+    of outputs ``u < I`` (``t_u = u*D - offset``, ``o_u = (-t_u) mod I``,
+    ``i_u = (t_u + o_u) / I``).  Output ``m0 + u`` with ``m0`` a multiple
+    of ``I`` reads from ``start + (m0 / I + u // I) * D + di[u % I]`` at
+    phase ``o[u % I]``."""
+    t = np.arange(I, dtype=np.int64) * D - offset
+    o = (-t) % I
+    return np.stack([o, (t + o) // I]).astype(np.int32)
+
+
+_PERIODS: dict = {}                    # (I, D, offset, device) -> tensor
+_PERIODS_KEPT = 16
+
+
+def period_words(I: int, D: int, offset: int,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`period_table` on ``device``, made once per geometry and
+    device (a few are kept), so a stream op's launches reuse it."""
+    key = (I, D, offset, str(device))
+    words = _PERIODS.get(key)
+    if words is None:
+        words = torch.as_tensor(period_table(I, D, offset), device=device)
+        if len(_PERIODS) >= _PERIODS_KEPT:
+            _PERIODS.pop(next(iter(_PERIODS)))
+        _PERIODS[key] = words
+    return words
 
 
 def _check(table, I, D, x, hist, offset, num, start):
@@ -67,20 +105,18 @@ def resample(table, I: int, D: int, x: torch.Tensor, hist: torch.Tensor,
     CUDA tensors; CPU tensors take the plain version."""
     I, D, offset, num, start = int(I), int(D), int(offset), int(num), \
         int(start)
+    _check(table, I, D, x, hist, offset, num, start)
     if x.device.type == "cpu":
         return resample_reference(table, I, D, x, hist, offset, num, start)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(table, I, D, x, hist, offset, num, start)
     rows = cuda_rows(x=x, hist=hist, table=table)
-    if table.numel() * 4 > 48 * 1024:
-        raise ValueError(f"phase table of {table.numel()} taps exceeds the "
-                         "kernel's 48 KB of shared memory")
     y = torch.empty(x.shape[:-1] + (num,), dtype=torch.float32,
                     device=x.device)
     if num == 0 or rows == 0:
         return y
+    period = period_words(I, D, offset, x.device)
     KERNEL.launch("launch_resample", x.device, ptr(x), ptr(hist), ptr(table),
-                  ptr(y), rows, x.shape[-1], hist.shape[-1], I, D,
-                  table.shape[1], offset, start, num)
+                  ptr(period), ptr(y), rows, x.shape[-1], hist.shape[-1], I,
+                  D, table.shape[1], offset, start, num)
     return y

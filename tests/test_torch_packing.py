@@ -9,8 +9,8 @@
   integer.
 * ``u8_front.tap_words`` keeps the words of each taps tensor and makes
   them anew when the tensor changes in place.
-* ``kernel_variants`` (what binds K1, K4 and K3 on the card) patches each
-  snippet of each variant exactly once, and raises otherwise.
+* ``kernel_variants`` (what binds K1, K4, K3, K2 and K5 on the card)
+  patches each snippet of each variant exactly once, and raises otherwise.
 
 Inputs come from a numpy seed; no JAX here.
 """
@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from sdr_tpu_torch import kernel_variants
-from sdr_tpu_torch.kernels import fir, u8_front, u8_front_demod
+from sdr_tpu_torch.kernels import (backhalf, fir, resample, u8_front,
+                                   u8_front_demod)
 from sdr_tpu_torch.kernels.u8_front import pack_taps, tap_words
 from sdr_tpu_torch.ops.quantized import front_acc, u8_front_plan
 
@@ -143,7 +144,8 @@ def test_tap_words_cache_is_bounded():
     assert torch.equal(tap_words(first), w)
 
 
-MODS = {"u8_front_demod": u8_front_demod, "u8_front": u8_front, "fir": fir}
+MODS = {"u8_front_demod": u8_front_demod, "u8_front": u8_front, "fir": fir,
+        "resample": resample, "backhalf": backhalf}
 
 
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
