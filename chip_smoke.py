@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive sdr_tpu_torch's broadcast-FM receive paths on one NVIDIA GPU.
+"""Drive sdr_tpu_torch's FM and AM receive paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -49,7 +49,24 @@ per source, all at once), then:
    memory; the same chain with ``ResampleFirScale(fused=True)`` (K5)
    against it; the streamed run against the block-parallel one and the
    plain CPU chain; and the stereo CLI;
-4. prints ``{"kernels": [...]}`` (every kernel with its launches on each
+4. the exact mono path, ``fm_chain(front='exact')`` (the complex f32
+   front the JAX package runs off a TPU: IqConvertU8, the 51-tap
+   decimate-by-8 ``Fir`` on K3 over the [32, 2] real planes of the
+   complex batch, split at the seam, the complex demod, K2 -> K3) on the
+   mono broadcast: K3 at f = 8 (seam and main launches, bitwise) with its
+   ``conv1d`` yardstick; the block-parallel chain (launches {fir: 3,
+   resample: 1}, the tone, peak memory, 20 timed calls), the streamed run
+   (equal), the plain CPU chain and the fused mono chain; ``planar=True``,
+   ``fuse_back=False`` and the FIR de-emphasis at 4 blocks against the
+   plain CPU chain; and the CLI with ``--front exact``;
+5. the AM path, ``am_chain()`` (planar: convert, Mix, the 64-tap
+   decimate-by-16 channel ``Fir`` on K3, Agc, AmDemod, DcBlocker, volume)
+   on a synthetic AM carrier at 0.25 cycles/sample carrying a 500 Hz
+   tone: K3 at f = 16 (bitwise) with its ``conv1d`` yardstick; the
+   block-parallel chain (launches {fir: 2}, the tone at 80 kS/s, peak
+   memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
+   (within 1e-4) and the plain CPU chain; and ``apps.am``;
+6. prints ``{"kernels": [...]}`` (every kernel with its launches on each
    path), the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Every failed check raises, so any failure exits nonzero.  Without a CUDA
@@ -78,6 +95,9 @@ CHAIN_REPS = 20                       # timed block-parallel chain calls
 SLEEP_CYCLES = 20_000_000             # ~10 ms: time_ms's queue head start
 FS_IN = 1_280_000                     # complex S/s
 F_L, F_R = 1_000.0, 400.0             # the stereo broadcast's L and R tones
+F_AM, AM_IF = 500.0, 0.25             # the AM tone; carrier, cycles/sample
+AM_BLOCK = 1_048_576                  # the AM CLI's default block
+AM_RATE = FS_IN // 16                 # AM audio, S/s
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
 
@@ -169,6 +189,33 @@ def synth_stereo_broadcast(n_bytes: int, seed: int, device) -> torch.Tensor:
         raw[c::2] = torch.clamp(torch.round(v * 128 + 128), 0, 255).to(
             torch.uint8)
     return raw
+
+
+def synth_am(n_bytes: int, seed: int, device) -> torch.Tensor:
+    """u8 interleaved IQ of an AM carrier at AM_IF cycles/sample (the
+    am_chain default), 80 % modulated by a 500 Hz tone, sampled at
+    1.28 MS/s, with seeded Gaussian noise (tests/test_io_apps.py's AM
+    capture, with noise)."""
+    n = n_bytes // 2
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    msg = 0.5 * (1 + 0.8 * torch.sin(2 * np.pi * F_AM / FS_IN * k))
+    ang = k.mul_(2 * np.pi * AM_IF)
+    raw = torch.empty(2 * n, dtype=torch.uint8, device=device)
+    for c, fn in ((0, torch.cos), (1, torch.sin)):
+        v = msg * fn(ang) + 0.01 * torch.randn(
+            n, generator=g, dtype=torch.float64, device=device)
+        raw[c::2] = torch.clamp(torch.round(v * 128 + 128), 0, 255).to(
+            torch.uint8)
+    return raw
+
+
+def am_tone_hz(y: np.ndarray, rate: int = AM_RATE) -> float:
+    """The AM audio's tone: the Hann-windowed spectrum's peak past the AGC
+    and DC blocker's settling."""
+    seg = np.asarray(y[10_000:10_000 + (1 << 20)], dtype=np.float64)
+    spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+    return float((np.argmax(spec[5:]) + 5) * rate / len(seg))
 
 
 def tone_power(x: np.ndarray, f: float, rate: int = 48_000) -> float:
@@ -269,13 +316,14 @@ def front_geometries(raw, taps):
 
 
 def fir_geometries(x0, taps):
-    """K3's extra geometries over the rows of ``x0``: f in {1, 2, 3} x K in
-    {1, 64, 65, 200} x starts 0 to 7, each at a row base 0 to 3 floats off
-    16-byte alignment, with the most outputs the row holds (not a multiple
-    of the tile) and, at start 0, 1 output.  Yields the wrapper's args."""
+    """K3's extra geometries over the rows of ``x0``: f in {1, 2, 3, 8, 16}
+    x K in {1, 64, 65, 200} x starts 0 to 7, each at a row base 0 to 3
+    floats off 16-byte alignment, with the most outputs the row holds (not
+    a multiple of the tile) and, at start 0, 1 output.  Yields the
+    wrapper's args."""
     rng = np.random.default_rng(8)
     n = x0.shape[-1]
-    for f in (1, 2, 3):
+    for f in (1, 2, 3, 8, 16):
         for K in (1, 64, 65, 200):
             t = (taps if K == taps.numel() else torch.as_tensor(
                 rng.uniform(-1, 1, K).astype(np.float32), device=x0.device))
@@ -592,12 +640,12 @@ def run_chain(raw, ops, kernels):
     return launches
 
 
-def run_cli(raw, stereo: bool):
+def run_cli(raw, stereo: bool, front: str = "auto"):
     """The CLI on a temporary recording of 16 blocks, streamed and with
-    ``--batched 4``: the mono chain, or the stereo + de-emphasis chain on
-    the quantized front."""
+    ``--batched 4``: the mono chain on ``front``, or the stereo +
+    de-emphasis chain on the quantized front."""
     chain = (["--front", "quantized", "--stereo", "--deemphasis", "75e-6"]
-             if stereo else [])
+             if stereo else ["--front", front])
     wavs = []
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "capture.u8")
@@ -914,6 +962,207 @@ def run_stereo_chain(raw, ops, kernels):
     return launches, launches_f
 
 
+def check_decimator_kernel(name: str, fir_op, x):
+    """K3 as a decimating ``Fir`` launches it over the block-parallel batch
+    ``x`` (complex, or planar f32): the seam launch and the main launch,
+    each bitwise against the plain version over the same real planes;
+    the main launch timed beside one strided ``conv1d`` over the same
+    planes (timed only), with its bound from the bytes the seam split
+    moves (the planes read once, the outputs written once)."""
+    from sdr_tpu_torch.kernels import fir
+    from sdr_tpu_torch.ops.fir import as_real_batch
+    n_in = x.shape[-1]
+    hist = fir_op.shard_carry(x)
+    mb, seam_x, start = fir_op._seam_plan(hist.shape[-1], n_in,
+                                          fir_op.out_len(n_in))
+    f, taps = fir_op.spec.decimation, fir_op._taps
+    K = taps.numel()
+    xr = as_real_batch(x)[0]
+    num = fir_op.out_len(n_in) - mb
+    a = (taps, xr, num, f, start)
+    y = fir.fir_strided(*a)
+    err = max_err(y, fir.fir_strided_reference(*a))
+    seam = as_real_batch(torch.cat([hist, x[..., :seam_x]], dim=-1))[0]
+    sa = (taps, seam.contiguous(), mb, f, 0)
+    err = max(err, max_err(fir.fir_strided(*sa),
+                           fir.fir_strided_reference(*sa)))
+    torch.cuda.synchronize()
+    require(torch.isfinite(y).all().item(), f"{name} output finite")
+    require(err == 0, f"{name} vs plain {err} != 0")
+    xv, w = xr.view(-1, 1, n_in), taps.view(1, 1, -1)
+
+    def lib():
+        return torch.nn.functional.conv1d(xv[..., start:], w,
+                                          stride=f)[:, 0, :num]
+
+    lib_err = max_err(lib().view_as(y), y)
+    b, by = bound(nbytes(xr, taps, y), 2 * K * y.numel(), "f32")
+    ms = time_ms(lambda: fir.fir_strided(*a), 20)
+    row = dict(
+        name=name, kernel="fir", route="cuda",
+        source="sdr_tpu_torch/csrc/fir.cu",
+        replaces="sdr_tpu/kernels/fir_pallas.py:145",
+        shape=f"{list(xr.shape)} -> {list(y.shape)}, {K} taps, factor {f}, "
+              f"start {start}; seam launch {list(seam.shape)} -> {mb}",
+        max_abs_err=err, ms=ms,
+        plain_ms=time_ms(lambda: fir.fir_strided_reference(*a), 3, 1),
+        bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        library_ms=time_ms(lib, 20), library_max_abs_diff=lib_err,
+        library_note=f"conv1d over the {xv.shape[0]} plane rows, stride {f}")
+    print_no_fma_floor(name, K, y.numel())
+    return row
+
+
+def require_launches(launches: dict, want: dict, what: str) -> None:
+    """Each kernel of ``want`` launched exactly so often in one call, and
+    every other kernel never."""
+    for name, n in launches.items():
+        require(n == want.get(name, 0),
+                f"{what}: {name} launched {n} times, expected "
+                f"{want.get(name, 0)} ({launches})")
+
+
+def run_exact_chain(raw, ops, kernels):
+    """The exact mono path (complex f32 front) block-parallel (launches,
+    tone, peak memory, 20 timed calls), streamed, against the plain CPU
+    chain and the fused mono chain, and its planar, unfused and FIR
+    de-emphasis variants at 4 blocks against the plain CPU chain."""
+    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.stream import Pipeline
+
+    counted_call(ops, raw, kernels)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, raw, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    # the decimator's seam and main launches, the audio FIR; the resampler
+    require_launches(launches, {"fir": 3, "resample": 1}, "exact mono path")
+    out = y.cpu().numpy()
+    require(out.shape == (ROWS * ROW_BYTES // 160 * 3,),
+            f"output shape {out.shape}")
+    require(np.isfinite(out).all(), "exact chain output finite")
+    hz = tone_hz(out)
+    require(abs(hz - 1000) < 5, f"exact chain tone at {hz} Hz")
+    print(f"exact mono block-parallel chain: {ROWS} x {ROW_BYTES} bytes; "
+          f"peak memory {peak} bytes; tone {hz:.2f} Hz; launches in one "
+          f"call {launches}")
+    time_chain(ops, raw, "exact mono block-parallel chain")
+
+    pipe = Pipeline(ops, block_in=STREAM_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = torch.cat(list(pipe.run(raw[i:i + STREAM_BLOCK] for i in
+                                       range(0, raw.numel(), STREAM_BLOCK))))
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    # every kernel's sums and every elementwise op are per sample, so the
+    # two agree but for the elementwise ops' rounding where a block edge
+    # changes the code path that computes a sample (1 ulp on the CPU)
+    dstream = max_err(streamed, y)
+    require(dstream <= 1e-6,
+            f"exact streamed Pipeline.run vs block-parallel {dstream} > 1e-6")
+    print(f"exact streamed Pipeline.run at {STREAM_BLOCK}-byte blocks: max "
+          f"abs diff to block-parallel {dstream} (bitwise equal: "
+          f"{torch.equal(streamed, y)}); "
+          f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+
+    device = ops[0].device
+    fused = run_time_batched(fm_chain(device=device), raw, ROWS)
+    dfused = max_err(fused, y)
+    require(dfused <= 1e-4, f"exact vs fused mono chain {dfused} > 1e-4")
+    print(f"exact vs fused mono chain (s8 front, polynomial demod): max abs "
+          f"diff {dfused}")
+
+    small = raw[:4 * STREAM_BLOCK]
+    for kw in ({}, {"planar": True}, {"fuse_back": False},
+               {"deemphasis": 75e-6, "deemphasis_mode": "fir"}):
+        _, ref = Pipeline(fm_chain(front="exact", device="cpu", **kw),
+                          block_in=STREAM_BLOCK, device="cpu").process(
+                              small.cpu())
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        _, got = Pipeline(fm_chain(front="exact", device=device, **kw),
+                          block_in=STREAM_BLOCK).process(small)
+        torch.cuda.synchronize()
+        diff = max_err(got.cpu(), ref)
+        require(diff <= 1e-5, f"exact chain {kw}: card vs CPU plain chain "
+                              f"{diff} > 1e-5")
+        print(f"exact chain {kw or '(complex)'} streamed on 4 blocks: card "
+              f"vs CPU plain chain max abs diff {diff}; launches "
+              f"{ {k.name: k.launches for k in kernels} }")
+    return launches
+
+
+def run_am_chain(raw, ops, kernels):
+    """The AM path block-parallel (launches, tone, peak memory, 20 timed
+    calls), streamed at the CLI's blocks, and against the plain CPU
+    chain."""
+    from sdr_tpu_torch.apps.chains import am_chain
+    from sdr_tpu_torch.stream import Pipeline
+
+    counted_call(ops, raw, kernels)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, raw, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    # the channel decimator's seam and main launches
+    require_launches(launches, {"fir": 2}, "AM path")
+    out = y.cpu().numpy()
+    require(out.shape == (ROWS * ROW_BYTES // 32,), f"AM output {out.shape}")
+    require(np.isfinite(out).all(), "AM output finite")
+    hz = am_tone_hz(out)
+    require(abs(hz - F_AM) < 10, f"AM tone at {hz} Hz")
+    print(f"AM block-parallel chain: {ROWS} x {ROW_BYTES} bytes; peak "
+          f"memory {peak} bytes; tone {hz:.2f} Hz at {AM_RATE} S/s; "
+          f"launches in one call {launches}")
+    time_chain(ops, raw, "AM block-parallel chain")
+
+    pipe = Pipeline(ops, block_in=AM_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = torch.cat(list(pipe.run(raw[i:i + AM_BLOCK] for i in
+                                       range(0, raw.numel(), AM_BLOCK))))
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    dstream = max_err(streamed, y)
+    require(dstream <= 1e-4, f"AM streamed vs block-parallel {dstream}")
+    print(f"AM streamed Pipeline.run at {AM_BLOCK}-byte blocks: max abs diff "
+          f"to block-parallel {dstream}; "
+          f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+
+    _, ref = Pipeline(am_chain(device="cpu"), block_in=AM_BLOCK,
+                      device="cpu").process(raw[:4 * AM_BLOCK].cpu())
+    diff = max_err(streamed[:ref.shape[-1]].cpu(), ref)
+    require(diff <= 1e-4, f"AM card vs CPU plain chain {diff} > 1e-4")
+    print(f"AM card vs CPU plain chain on 4 blocks: max abs diff {diff}")
+    return launches
+
+
+def run_am_cli(raw):
+    """``python -m sdr_tpu_torch.apps.am`` on a temporary recording of 16
+    blocks of the AM capture: the tone at rate // decim."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "am.u8"), os.path.join(tmp, "am.wav")
+        capture = raw[:16 * AM_BLOCK]
+        capture.cpu().numpy().tofile(src)
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run(
+            [sys.executable, "-m", "sdr_tpu_torch.apps.am", "--in", src,
+             "--out", out], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        print(f"am cli: rc {proc.returncode} {proc.stdout.strip()}")
+        require(proc.returncode == 0, f"am cli failed: {proc.stderr}")
+        with wave.open(out, "rb") as wf:
+            rate = wf.getframerate()
+            pcm = np.frombuffer(wf.readframes(wf.getnframes()), "<i2")
+    require(rate == AM_RATE, f"AM WAV rate {rate}")
+    require(len(pcm) == capture.numel() // 32, f"AM WAV samples {len(pcm)}")
+    hz = am_tone_hz(pcm.astype(np.float64), rate)
+    require(abs(hz - F_AM) < 10, f"am cli tone at {hz} Hz")
+    print(f"am cli: {len(pcm)} samples at {rate} Hz, tone {hz:.2f} Hz")
+
+
 def print_rows(rows, card: str) -> None:
     for r in rows:
         print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
@@ -930,7 +1179,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
 
-    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.apps.chains import am_chain, fm_chain
     from sdr_tpu_torch.kernels import KERNELS
     from sdr_tpu_torch.kernels._build import _nvcc, build_all
     from sdr_tpu_torch.utils.device import strict_fp32
@@ -969,16 +1218,49 @@ def main(argv=None) -> int:
     print_rows(srows, card)
     stereo, fused = run_stereo_chain(raw, ops, KERNELS)
     run_cli(raw, stereo=True)
+    del raw, ops
+
+    # the exact mono path, the complex f32 front: K3 at f = 8, K2 -> K3
+    raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
+    ops = fm_chain(front="exact", device=device)
+    _, xc = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
+    erows = [check_decimator_kernel(
+        "K3 fir (exact front decimator, complex as [32, 2] planes, f = 8, "
+        "51 taps)", ops[1], xc)]
+    del xc
+    print_rows(erows, card)
+    exact = run_exact_chain(raw, ops, KERNELS)
+    run_cli(raw, stereo=False, front="exact")
+    del raw, ops
+
+    # the AM path: K3 at f = 16 over the mixed planes
+    raw = synth_am(ROWS * ROW_BYTES, args.seed, device)
+    ops = am_chain(device=device)
+    _, xp = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
+    _, mixed = ops[1].apply(ops[1].shard_carry(xp), xp)
+    del xp
+    arows = [check_decimator_kernel(
+        "K3 fir (AM channel filter, planar [32, 2], f = 16, 64 taps)",
+        ops[2], mixed)]
+    del mixed
+    print_rows(arows, card)
+    am = run_am_chain(raw, ops, KERNELS)
+    run_am_cli(raw)
 
     # launches: each row's on the path its shapes come from, and on every
     # path, each path's counts taken around one call of its own
-    paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused}
+    paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused,
+             "mono_exact": exact, "am": am}
     for r in rows:
         r["launches"] = mono[r["kernel"]]
     for r in srows:
         r["launches"] = (fused if r["kernel"] == "backhalf"
                          else stereo)[r["kernel"]]
-    rows += srows
+    for r in erows:
+        r["launches"] = exact[r["kernel"]]
+    for r in arows:
+        r["launches"] = am[r["kernel"]]
+    rows += srows + erows + arows
     for r in rows:
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(json.dumps({"kernels": rows}))

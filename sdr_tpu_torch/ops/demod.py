@@ -1,10 +1,11 @@
-"""FM demodulation (counterpart of sdr_tpu/ops/demod.py).
+"""FM and AM demodulation (counterpart of sdr_tpu/ops/demod.py).
 
-``y[n] = atan2(x[n] * conj(x[n-1]))`` on planar-complex input, with the
-previous block's last sample carried.  Each product, sum and polynomial
-step below is one rounded f32 operation, in the order the CUDA kernel
-(csrc/u8_front_demod.cu) performs them, so the two agree bitwise on the
-card.
+FM: ``y[n] = angle(x[n] * conj(x[n-1]))``, with the previous block's last
+sample carried, on complex64 input (``fm_demod``, exact ``torch.angle``)
+or planar-complex input (``fm_demod_planar``).  In the planar form each
+product, sum and polynomial step is one rounded f32 operation, in the
+order the CUDA kernel (csrc/u8_front_demod.cu) performs them, so the two
+agree bitwise on the card.  AM: the envelope ``|x|``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fast_atan2", "fm_demod_planar"]
+__all__ = ["fast_atan2", "fm_demod", "fm_demod_planar", "am_demod"]
 
 # atan(z) = z * P(z^2) on [0, 1]: degree-6 fit, max error 5.8e-7 rad
 # (the same coefficients as the JAX package and the CUDA kernel).
@@ -55,3 +56,21 @@ def fm_demod_planar(x: torch.Tensor, last: torch.Tensor | None = None,
     pim = torch.cat([last[..., 1:2], im[..., :-1]], dim=-1)
     y = at2(im * pre - re * pim, re * pre + im * pim)
     return y, x[..., :, -1].clone()
+
+
+def fm_demod(x: torch.Tensor, last: torch.Tensor | None = None):
+    """Complex ``x[..., n]`` -> ``(y[..., n], new_last[...])``, ``y[n] =
+    angle(x[n] * conj(x[n-1]))``.  ``last`` is the previous block's final
+    sample, 0 at stream start (the first output is then the angle of
+    ``x[0] * conj(0)``, a signed zero: 0, or pi where both parts of
+    ``x[0]`` are negative, as in the JAX package)."""
+    if last is None:
+        last = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    y0 = torch.angle(x[..., :1] * last[..., None].conj())
+    y = torch.angle(x[..., 1:] * x[..., :-1].conj())
+    return torch.cat([y0, y], dim=-1), x[..., -1].clone()
+
+
+def am_demod(x: torch.Tensor) -> torch.Tensor:
+    """AM envelope ``|x|`` of complex ``x``; stateless."""
+    return x.abs()

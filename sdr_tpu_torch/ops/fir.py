@@ -14,7 +14,10 @@ The closed form makes every output's read position and phase a static
 function of m, so no sequential recurrence is needed and a block's phase
 is block-invariant.  ``fir_filter`` / ``fir_decimate`` run kernel K3
 (kernels/fir.py) and ``fir_resample`` kernel K2 (kernels/resample.py) on
-CUDA tensors, and their plain PyTorch versions on CPU tensors.
+CUDA tensors, and their plain PyTorch versions on CPU tensors.  Complex
+input runs as a real batch: ``[..., N]`` complex64 becomes ``[..., 2, N]``
+f32 planes (one copy), the kernels run over the planes as rows, and the
+output is rebuilt complex.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from sdr_tpu_torch.kernels import fir as fir_kernel
 from sdr_tpu_torch.kernels import resample as resample_kernel
 
 __all__ = ["FirSpec", "prepare_phase_table", "resample_output_count",
-           "resample_end_offset", "fir_filter", "fir_decimate",
-           "fir_resample"]
+           "resample_end_offset", "as_real_batch", "fir_filter",
+           "fir_decimate", "fir_resample"]
 
 
 def prepare_phase_table(taps, interpolation: int) -> np.ndarray:
@@ -70,10 +73,14 @@ def resample_end_offset(count: int, interpolation: int, decimation: int,
 class FirSpec:
     """Static plan for a rational-rate FIR: ``interpolation == decimation
     == 1`` is a plain filter, ``interpolation == 1`` a decimator,
-    otherwise a rational resampler."""
+    otherwise a rational resampler.  ``symmetric=True`` takes the first
+    half of a linear-phase filter and mirrors it."""
 
-    def __init__(self, taps, interpolation: int = 1, decimation: int = 1):
+    def __init__(self, taps, interpolation: int = 1, decimation: int = 1,
+                 symmetric: bool = False):
         taps = np.asarray(taps, dtype=np.float32)
+        if symmetric:
+            taps = np.concatenate([taps, taps[::-1]])
         if taps.ndim != 1:
             raise ValueError("taps must be 1-D")
         if interpolation < 1 or decimation < 1:
@@ -95,6 +102,16 @@ def _on(x: torch.Tensor, a) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=x.device)
 
 
+def as_real_batch(x: torch.Tensor):
+    """Complex ``[..., N]`` as real planes ``[..., 2, N]`` (a copy) and the
+    function rebuilding a complex ``[..., M]`` from ``[..., 2, M]``; real
+    ``x`` as itself and the identity."""
+    if x.is_complex():
+        return (torch.stack([x.real, x.imag], dim=-2),
+                lambda y: torch.complex(y[..., 0, :], y[..., 1, :]))
+    return x, lambda y: y
+
+
 def fir_filter(taps, x: torch.Tensor, num: int | None = None,
                start: int = 0) -> torch.Tensor:
     """``y[i] = sum_j taps[j] * x[..., start + i + j]``; ``num`` defaults
@@ -110,15 +127,17 @@ def fir_decimate(taps, factor: int, x: torch.Tensor, num: int | None = None,
         num = (x.shape[-1] - start - taps.shape[0]) // factor + 1
     if num < 0:
         raise ValueError("input shorter than filter")
-    return fir_kernel.fir_strided(taps, x, int(num), int(factor), int(start))
+    xr, rebuild = as_real_batch(x)
+    return rebuild(fir_kernel.fir_strided(taps, xr, int(num), int(factor),
+                                          int(start)))
 
 
 def fir_resample(taps, interpolation: int, decimation: int,
                  x: torch.Tensor, offset: int = 0, num: int | None = None,
                  start: int = 0, hist: torch.Tensor | None = None):
     """Polyphase rational resampler over ``concat(hist, x)`` (``hist``
-    optional): returns ``(y, end_offset)``, ``end_offset`` being the phase
-    carry for the next block."""
+    optional, read in place): returns ``(y, end_offset)``, ``end_offset``
+    being the phase carry for the next block."""
     taps = np.asarray(taps, dtype=np.float32)
     I, D = int(interpolation), int(decimation)
     offset, start = int(offset), int(start)
@@ -131,5 +150,7 @@ def fir_resample(taps, interpolation: int, decimation: int,
                                     taps.shape[0], I, D, offset)
     num = int(num)
     table = _on(x, prepare_phase_table(taps, I))
-    y = resample_kernel.resample(table, I, D, x, hist, offset, num, start)
-    return y, resample_end_offset(num, I, D, offset)
+    xr, rebuild = as_real_batch(x)
+    hr, _ = as_real_batch(hist)
+    y = resample_kernel.resample(table, I, D, xr, hr, offset, num, start)
+    return rebuild(y), resample_end_offset(num, I, D, offset)

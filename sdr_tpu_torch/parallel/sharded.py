@@ -74,7 +74,7 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     n = x.shape[-1]
     if n % nblocks:
         raise ValueError(f"signal length {n} not divisible by {nblocks}")
-    Pipeline(ops, block_in=n // nblocks, device=device)
+    Pipeline(ops, block_in=n // nblocks, in_dtype=x.dtype, device=device)
     xb = x.reshape(nblocks, n // nblocks)
     out = time_sharded_fn(ops, initials=carries,
                           return_carries=return_carries)(xb)

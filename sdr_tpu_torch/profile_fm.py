@@ -1,6 +1,6 @@
 """Where the time of the block-parallel FM chain goes on the card.
 
-    python -m sdr_tpu_torch.profile_fm [--stereo]
+    python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|exact|am]
 
 Runs ``run_time_batched`` over the main path's 32 blocks of 10,485,760
 bytes of random u8 IQ once to warm up, then in one process:
@@ -20,10 +20,11 @@ bytes of random u8 IQ once to warm up, then in one process:
    time.
 
 The idle share is ``1 - busy / span``, busy from 2 and the unprofiled
-median span from 1.  The chain is ``fm_chain()`` (mono, the fused front),
-or with ``--stereo`` ``fm_chain(front='quantized', stereo=True,
-deemphasis=75e-6)``.  The mono chain's work does not depend on the data;
-the stereo chain's does only through the pilot lock, which gates no
+median span from 1.  The chain (``--chain``) is ``fm_chain()`` (mono,
+the fused front, the default), ``stereo``: ``fm_chain(front='quantized',
+stereo=True, deemphasis=75e-6)``, ``exact``: ``fm_chain(front='exact')``
+(the complex f32 front), or ``am``: ``am_chain()``.  No chain's work
+depends on the data but through the stereo pilot lock, which gates no
 kernel.  Needs a CUDA GPU.
 """
 
@@ -43,12 +44,19 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from sdr_tpu_torch.apps.chains import fm_chain
+from sdr_tpu_torch.apps.chains import am_chain, fm_chain
 from sdr_tpu_torch.parallel.sharded import run_time_batched
 
 ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
 REPS = 20
 SPLIT_REPS, SPLIT_SLEEP_CYCLES = 5, 200_000_000     # ~0.1 s head start
+CHAINS = {
+    "mono": fm_chain,
+    "stereo": lambda: fm_chain(front="quantized", stereo=True,
+                               deemphasis=75e-6),
+    "exact": lambda: fm_chain(front="exact"),
+    "am": am_chain,
+}
 
 
 def queued_split(fn, reps: int = SPLIT_REPS) -> dict:
@@ -100,18 +108,14 @@ def label_ops(ops) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stereo", action="store_true",
-                    help="profile the stereo + de-emphasis chain on the "
-                         "quantized front")
+    ap.add_argument("--chain", default="mono", choices=sorted(CHAINS),
+                    help="the chain to profile (default: mono)")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    if args.stereo:
-        ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6)
-    else:
-        ops = fm_chain()
+    ops = CHAINS[args.chain]()
     raw = torch.randint(0, 256, (ROWS * ROW_BYTES,), dtype=torch.uint8,
                         device="cuda")
     run_time_batched(ops, raw, ROWS)
@@ -165,7 +169,7 @@ def main(argv=None) -> int:
     for label in labels:
         print(f"  {by_op.get(label, 0.0):10.4f} ms  {label}")
     print(s.getvalue())
-    print(json.dumps({"chain": "stereo" if args.stereo else "mono",
+    print(json.dumps({"chain": args.chain,
                       "rows": ROWS, "row_bytes": ROW_BYTES, "reps": REPS,
                       "span_ms": span, "device_busy_ms": busy,
                       "idle_share": 1 - busy / span, "queued": split,

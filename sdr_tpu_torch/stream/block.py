@@ -28,22 +28,29 @@ class StreamOp:
     """Base class for stream operators.
 
     Subclasses define ``out_len(n_in)`` (may raise on an incompatible
-    block), ``init_carry(n_in, batch_shape)``, ``apply(carry, x)`` and
-    ``shard_carry(xb, initial)``, and hold ``device``.  An op that emits
-    or consumes a plane axis (the planar I/Q pair, the stereo L/R pair)
-    says so in ``map_batch_shape``."""
+    block), ``out_dtype(in_dtype)``, ``init_carry(n_in, batch_shape,
+    in_dtype)``, ``apply(carry, x)`` and ``shard_carry(xb, initial)``,
+    and hold ``device``.  An op that emits or consumes a plane axis (the
+    planar I/Q pair, the stereo L/R pair) says so in
+    ``map_batch_shape``."""
 
     device: torch.device
 
     def out_len(self, n_in: int) -> int:
         return n_in
 
+    def out_dtype(self, in_dtype: torch.dtype) -> torch.dtype:
+        """This op's output dtype given its input's: the ops after it
+        make their carries in it (``Pipeline.init``), e.g. a complex64
+        filter history after a complex convert."""
+        return in_dtype
+
     def map_batch_shape(self, batch_shape: tuple) -> tuple:
         """Leading dims of this op's output given its input's: the ops
         after it shape their carries by them (``Pipeline.init``)."""
         return batch_shape
 
-    def init_carry(self, n_in: int, batch_shape=()) -> Any:
+    def init_carry(self, n_in: int, batch_shape=(), in_dtype=None) -> Any:
         return ()
 
     def apply(self, carry, x):

@@ -1,22 +1,33 @@
-"""Stream operators of the broadcast-FM receive paths (counterpart of
-sdr_tpu/stream/ops.py).
+"""Stream operators (counterpart of sdr_tpu/stream/ops.py).
 
   ====================  ====================================================
+  ``IqConvertU8``       u8 IQ -> complex64, or planar f32 I/Q
+  ``IqConvertI16``      i16 IQ -> complex64, or planar f32 I/Q
   ``U8FrontDemod``      u8 IQ -> convert -> decimate -> FM demod (kernel K1)
   ``U8FrontEnd``        u8 IQ -> convert -> decimate, planar I/Q (K4)
-  ``FmDemod``           planar I/Q -> FM demod
+  ``Fir``               FIR filter / decimator (K3) / rational resampler
+                        (K2), real, planar or complex
+  ``FmDemod``           complex or planar I/Q -> FM demod
   ``StereoDecode``      FM composite -> L/R planes (five FIRs on K3)
   ``ResampleFirScale``  rational resample (K2) -> FIR with the gain folded
                         into its taps (K3); ``fused=True``: both in K5
   ``Iir``               cascaded biquads (ops/iir.py), e.g. de-emphasis
+  ``Mix``               multiply by a local oscillator, phase carried
+  ``Agc``               automatic gain control (the linear form)
+  ``AmDemod``           AM envelope
+  ``DcBlocker``         DC blocking IIR
   ``Scale``             y = k * x
+  ``Map``               any elementwise function
   ====================  ====================================================
 
 The ops with a u8 or resampler history read it and their block through
-two pointers, so none makes a concatenated copy of a block, and none
-needs the JAX package's seam split.  ``U8FrontEnd`` and ``StereoDecode``
-add a plane axis ([2] I/Q, [2] L/R) and ``FmDemod`` consumes one
-(``map_batch_shape``); the ops after them batch over it.
+two pointers, so none makes a concatenated copy of a block.  K3 takes
+one pointer, so ``Fir``'s filter and decimator split their outputs at
+the seam as the JAX package does: the few that read history come from a
+small ``cat(hist, x[:seam])``, the rest straight from the block.
+``IqConvertU8(planar=True)``, ``U8FrontEnd`` and ``StereoDecode`` add a
+plane axis ([2] I/Q, [2] L/R), the planar ``FmDemod`` and ``AmDemod``
+consume one (``map_batch_shape``); the ops after them batch over it.
 """
 
 from __future__ import annotations
@@ -29,19 +40,23 @@ from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.resample import resample
 from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
-from sdr_tpu_torch.ops import design
-from sdr_tpu_torch.ops.demod import fm_demod_planar
-from sdr_tpu_torch.ops.fir import FirSpec, _resample_positions, fir_filter
+from sdr_tpu_torch.ops import convert, design, scans
+from sdr_tpu_torch.ops.demod import am_demod, fm_demod, fm_demod_planar
+from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
+                                   as_real_batch, fir_decimate, fir_filter)
 from sdr_tpu_torch.ops.iir import companion_power, linear_recurrence
 from sdr_tpu_torch.ops.quantized import u8_front_plan
+from sdr_tpu_torch.ops.shift import oscillator, oscillator_planar
 from sdr_tpu_torch.parallel.halo import (exclusive_affine_prefix,
                                          exclusive_matrix_affine_prefix,
                                          left_halo, substitute_first)
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["U8FrontDemod", "U8FrontEnd", "FmDemod", "StereoDecode",
-           "ResampleFirScale", "Iir", "Scale", "resampler_hist_len"]
+__all__ = ["IqConvertU8", "IqConvertI16", "U8FrontDemod", "U8FrontEnd",
+           "Fir", "FmDemod", "StereoDecode", "ResampleFirScale", "Iir",
+           "Mix", "Agc", "AmDemod", "DcBlocker", "Scale", "Map",
+           "resampler_hist_len"]
 
 _F32 = torch.float32
 
@@ -74,6 +89,45 @@ def resampler_hist_len(spec: FirSpec, offset: int, n_in: int) -> int:
     return max(0, max_read - n_in + 1)
 
 
+class _IqConvert(StreamOp):
+    """Interleaved I/Q ``[..., 2n]`` -> complex64 ``[..., n]``, or planar
+    f32 ``[..., 2, n]`` with ``planar=True`` (a [2] plane axis the ops
+    after it batch over).  Stateless."""
+
+    _convert = {}               # planar -> conversion (ops/convert.py)
+
+    def __init__(self, planar: bool = False, device="cuda"):
+        self.planar = bool(planar)
+        self.device = resolve_device(device)
+
+    def out_len(self, n_in):
+        if n_in % 2:
+            raise ValueError("interleaved IQ needs even block")
+        return n_in // 2
+
+    def out_dtype(self, in_dtype):
+        return _F32 if self.planar else torch.complex64
+
+    def map_batch_shape(self, batch_shape):
+        return tuple(batch_shape) + ((2,) if self.planar else ())
+
+    def apply(self, carry, x):
+        return carry, self._convert[self.planar](x)
+
+
+class IqConvertU8(_IqConvert):
+    """RTL-SDR u8 I/Q: ``(v - 128) / 128`` per component."""
+
+    _convert = {False: convert.iq_u8_to_cfloat, True: convert.iq_u8_to_planar}
+
+
+class IqConvertI16(_IqConvert):
+    """BladeRF i16 I/Q: ``v / 2048`` per component."""
+
+    _convert = {False: convert.iq_i16_to_cfloat,
+                True: convert.iq_i16_to_planar}
+
+
 class _U8Front(StreamOp):
     """What the two u8 front ends share: the quantized plan, the block
     geometry and the raw-byte history (``2*(K - f)`` bytes, 0x80 at
@@ -98,6 +152,9 @@ class _U8Front(StreamOp):
                 f"complex block {n} not divisible by factor {self.factor}")
         return n // self.factor
 
+    def out_dtype(self, in_dtype):
+        return _F32
+
     def hist_len(self) -> int:
         return 2 * max(0, self.n_taps - self.factor)
 
@@ -118,7 +175,7 @@ class U8FrontEnd(_U8Front):
     def map_batch_shape(self, batch_shape):
         return tuple(batch_shape) + (2,)
 
-    def init_carry(self, n_in, batch_shape=()):
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
         return self._hist(batch_shape)
 
     def apply(self, carry, x):
@@ -138,7 +195,7 @@ class U8FrontDemod(_U8Front):
     Carry: (trailing ``2*(K - f)`` raw bytes, 0x80 at warmup; the last
     decimated ``(I, Q)`` sample, zeros at warmup)."""
 
-    def init_carry(self, n_in, batch_shape=()):
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
         return (self._hist(batch_shape),
                 torch.zeros(tuple(batch_shape) + (2,), dtype=_F32,
                             device=self.device))
@@ -162,31 +219,147 @@ class U8FrontDemod(_U8Front):
         return substitute_first((halo[..., f2:].contiguous(), liq), initial)
 
 
+class Fir(StreamOp):
+    """Streaming FIR filter / decimator / rational resampler over real,
+    planar (any leading plane axes batch) or complex64 blocks (run as a
+    real batch of planes, ops/fir.py).
+
+    Overlap-save: the carry holds the last ``hist_len`` input samples,
+    zeros at warmup, and each block is filtered as if it followed them.
+    The resampler's phase is block-invariant (``n_in * I / D`` outputs a
+    block), so the carry is the history alone.
+
+    The resampler reads history and block through K2's two pointers.  K3
+    takes one, so the filter and decimator split a block's outputs at the
+    seam (``_seam_plan``, the JAX package's): the ``mb`` outputs that read
+    history come from ``cat(hist, x[..., :seam_x])``, a few samples, and
+    the rest straight from ``x`` at a rebased start.  Every output's sum is
+    the one the unsplit ``cat(hist, x)`` form computes, bit for bit."""
+
+    def __init__(self, spec: FirSpec, offset: int = 0, device="cuda"):
+        self.spec = spec
+        self.offset = int(offset)
+        self.device = resolve_device(device)
+        self._taps = torch.as_tensor(spec.taps, device=self.device)
+        self._table = torch.as_tensor(spec.phase_table, device=self.device)
+
+    @classmethod
+    def filter(cls, taps, symmetric: bool = False, device="cuda"):
+        return cls(FirSpec(taps, symmetric=symmetric), device=device)
+
+    @classmethod
+    def decimator(cls, taps, factor: int, symmetric: bool = False,
+                  device="cuda"):
+        return cls(FirSpec(taps, decimation=factor, symmetric=symmetric),
+                   device=device)
+
+    @classmethod
+    def resampler(cls, taps, interpolation: int, decimation: int,
+                  offset: int = 0, device="cuda"):
+        return cls(FirSpec(taps, interpolation, decimation), offset=offset,
+                   device=device)
+
+    def out_len(self, n_in):
+        I, D = self.spec.interpolation, self.spec.decimation
+        if (n_in * I) % D:
+            raise ValueError(f"block {n_in} incompatible with rate {I}/{D}: "
+                             "n_in*I must be divisible by D")
+        return n_in * I // D
+
+    def hist_len(self, n_in: int) -> int:
+        self.out_len(n_in)
+        if self.spec.interpolation == 1:
+            return max(0, self.spec.n_taps - self.spec.decimation)
+        return resampler_hist_len(self.spec, self.offset, n_in)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        complex_in = in_dtype is not None and in_dtype.is_complex
+        return torch.zeros(
+            tuple(batch_shape) + (self.hist_len(n_in),), device=self.device,
+            dtype=torch.complex64 if complex_in else _F32)
+
+    def _seam_plan(self, H: int, n_in: int, n_out: int):
+        """``(mb, seam_x, main_start)`` of the seam split of a filter or
+        decimator, or None where it does not apply (no history, or taps
+        longer than the block)."""
+        D, K = self.spec.decimation, self.spec.n_taps
+        if H == 0:
+            return None
+        mb = -(-H // D)                  # outputs whose window reads hist
+        seam_x = (mb - 1) * D + K - H    # block samples those windows read
+        main_start = mb * D - H          # output mb's window start in x
+        if not 0 < seam_x <= n_in or mb >= n_out or H > n_in:
+            return None
+        return mb, seam_x, main_start
+
+    def apply(self, carry, x):
+        n_in = x.shape[-1]
+        n_out = self.out_len(n_in)
+        H = carry.shape[-1]
+        I, D = self.spec.interpolation, self.spec.decimation
+        if I > 1:
+            xr, rebuild = as_real_batch(x)
+            y = rebuild(resample(self._table, I, D, xr,
+                                 as_real_batch(carry)[0], self.offset,
+                                 n_out))
+            return _tail(carry, x, H), y
+        plan = self._seam_plan(H, n_in, n_out)
+        if plan is None:
+            y = fir_decimate(self._taps, D, torch.cat([carry, x], dim=-1),
+                             n_out)
+        else:
+            mb, seam_x, main_start = plan
+            yb = fir_decimate(self._taps, D,
+                              torch.cat([carry, x[..., :seam_x]], dim=-1),
+                              mb)
+            ym = fir_decimate(self._taps, D, x, n_out - mb, main_start)
+            y = torch.cat([yb, ym], dim=-1)
+        return _tail(carry, x, H), y
+
+    def shard_carry(self, xb, initial=None):
+        return substitute_first(left_halo(xb, self.hist_len(xb.shape[-1])),
+                                initial)
+
+
 class FmDemod(StreamOp):
-    """FM demodulation of planar I/Q ``[..., 2, n]`` -> ``[..., n]``,
-    ``y[n] = atan2(x[n] * conj(x[n-1]))``; consumes the plane axis.
-    ``atan2``: 'poly' (the polynomial of ops/demod.py, 5.8e-7 rad) or
-    'exact' (``torch.atan2``).  The JAX package's complex-input form waits
-    for the exact front's slice of the port.
+    """FM demodulation, ``y[n] = angle(x[n] * conj(x[n-1]))``, of complex64
+    ``[..., n]`` (``torch.angle``) or, with ``planar=True``, of planar
+    I/Q ``[..., 2, n]``, whose plane axis it consumes.  ``atan2`` (planar
+    only): 'poly' (the polynomial of ops/demod.py, 5.8e-7 rad) or 'exact'
+    (``torch.atan2``).
 
-    Carry: the last ``(I, Q)`` sample, zeros at warmup."""
+    Carry: the last sample (complex64, or the ``(I, Q)`` pair), zeros at
+    warmup."""
 
-    def __init__(self, atan2: str = "exact", device="cuda"):
+    def __init__(self, planar: bool = False, atan2: str = "exact",
+                 device="cuda"):
         if atan2 not in ("poly", "exact"):
             raise ValueError(f"atan2 must be 'poly' or 'exact', got "
                              f"{atan2!r}")
+        if atan2 == "poly" and not planar:
+            raise ValueError("atan2='poly' is the planar demod's; the "
+                             "complex demod is exact")
+        self.planar = bool(planar)
         self.atan2 = atan2
         self.device = resolve_device(device)
 
-    def map_batch_shape(self, batch_shape):
-        return tuple(batch_shape)[:-1]
+    def out_dtype(self, in_dtype):
+        return _F32
 
-    def init_carry(self, n_in, batch_shape=()):
-        # batch_shape ends with the [2] plane axis: the (I, Q) carry's shape
-        return torch.zeros(tuple(batch_shape), dtype=_F32, device=self.device)
+    def map_batch_shape(self, batch_shape):
+        return tuple(batch_shape)[:-1] if self.planar else tuple(batch_shape)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        # planar: batch_shape ends with the [2] plane axis, the (I, Q)
+        # carry's shape
+        return torch.zeros(tuple(batch_shape), device=self.device,
+                           dtype=_F32 if self.planar else torch.complex64)
 
     def apply(self, carry, x):
-        y, last = fm_demod_planar(x, carry, atan2=self.atan2)
+        if self.planar:
+            y, last = fm_demod_planar(x, carry, atan2=self.atan2)
+        else:
+            y, last = fm_demod(x, carry)
         return last, y
 
     def shard_carry(self, xb, initial=None):
@@ -251,7 +424,7 @@ class StereoDecode(StreamOp):
     def map_batch_shape(self, batch_shape):
         return tuple(batch_shape) + (2,)
 
-    def init_carry(self, n_in, batch_shape=()):
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
         bs = tuple(batch_shape)
         return (torch.zeros(bs + (self.H,), dtype=_F32, device=self.device),
                 torch.zeros(bs, dtype=_F32, device=self.device))
@@ -352,7 +525,7 @@ class ResampleFirScale(StreamOp):
     def hist_len(self, n_in: int) -> int:
         return resampler_hist_len(self.spec, self.offset, n_in) + self._q
 
-    def init_carry(self, n_in, batch_shape=()):
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
         return torch.zeros(tuple(batch_shape) + (self.hist_len(n_in),),
                            dtype=torch.float32, device=self.device)
 
@@ -398,7 +571,7 @@ class Iir(StreamOp):
         self.sos = sos / sos[:, 3:4]  # normalise a0
         self.device = resolve_device(device)
 
-    def init_carry(self, n_in, batch_shape=()):
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
         shape = tuple(batch_shape) + (self.sos.shape[0], 2)
         return (torch.zeros(shape, dtype=_F32, device=self.device),
                 torch.zeros(shape, dtype=_F32, device=self.device))
@@ -465,3 +638,247 @@ class Scale(StreamOp):
 
     def apply(self, carry, x):
         return carry, x * self.factor
+
+
+def _rot(ar, ai, br, bi):
+    """``(ar + j*ai) * (br + j*bi)`` as planar pairs."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _envelope(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` of planar I/Q ``[..., 2, n]``, all-real."""
+    return torch.sqrt(x[..., 0, :] ** 2 + x[..., 1, :] ** 2)
+
+
+class Mix(StreamOp):
+    """Multiply by the local oscillator ``exp(2*pi*j*freq*n)`` (``freq`` in
+    cycles/sample), phase continuous across blocks: complex64 blocks, or
+    planar I/Q ``[..., 2, n]`` with ``planar=True`` (the oscillator, the
+    carry and the rotation all (cos, sin) pairs).
+
+    Each block multiplies by the oscillator's table and the carried unit
+    phasor, then advances the phasor by the block's whole turn and
+    renormalises it, so f32 rounding cannot drift its magnitude.  The
+    table is made on the host in float64 once per block length and kept
+    on the device.  Block-parallel runs give row b the closed-form phasor
+    ``exp(2*pi*j*freq*n*b)``, reduced mod 1 in float64 before the f32
+    cast.
+
+    Carry: the unit phasor (complex64, or its (re, im) pair), 1 at
+    warmup."""
+
+    _TABLES_KEPT = 4
+
+    def __init__(self, freq: float, planar: bool = False, device="cuda"):
+        self.freq = float(freq)
+        self.planar = bool(planar)
+        self.device = resolve_device(device)
+        self._tables = {}   # (kind, n[, rows]) -> a table on the device
+
+    def out_dtype(self, in_dtype):
+        return _F32 if self.planar else torch.complex64
+
+    def _cached(self, key, make) -> torch.Tensor:
+        """The table ``make()`` made once for ``key`` and kept on the
+        device (a few are kept), so a call copies nothing from the host."""
+        t = self._tables.get(key)
+        if t is None:
+            t = torch.as_tensor(make(), device=self.device)
+            if len(self._tables) >= self._TABLES_KEPT:
+                self._tables.pop(next(iter(self._tables)))
+            self._tables[key] = t
+        return t
+
+    def _table(self, n: int) -> torch.Tensor:
+        make = oscillator_planar if self.planar else oscillator
+        return self._cached(("lo", n),
+                            lambda: make(n, self.freq, device="cpu"))
+
+    def _turn(self, n: int, rows: int = 1) -> np.ndarray:
+        """float64 angles of ``n * r`` samples for r in [0, rows), reduced
+        mod 1 turn before the cast."""
+        return 2.0 * np.pi * np.mod(
+            np.float64(self.freq) * np.float64(n)
+            * np.arange(rows, dtype=np.float64), 1.0)
+
+    def _row_phasors(self, n: int, rows: int) -> torch.Tensor:
+        """f32 ``[rows, 2]``: (cos, sin) of the phase entering each row of
+        a block-parallel batch."""
+        def make():
+            ang = self._turn(n, rows)
+            return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(
+                np.float32)
+        return self._cached(("rows", n, rows), make)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        if self.planar:
+            # batch_shape ends with the [2] plane axis: the phasor pair
+            z = torch.zeros(tuple(batch_shape), dtype=_F32,
+                            device=self.device)
+            z[..., 0] = 1.0
+            return z
+        return torch.ones(tuple(batch_shape), dtype=torch.complex64,
+                          device=self.device)
+
+    def apply(self, carry, x):
+        n = x.shape[-1]
+        lo = self._table(n)
+        ang = self._turn(n, 2)[1]                # the block's whole turn
+        if self.planar:
+            pr, pi = _rot(lo[0], lo[1], carry[..., 0, None],
+                          carry[..., 1, None])
+            xr, xi = x[..., 0, :], x[..., 1, :]
+            y = torch.empty_like(x)         # the planes written in place
+            torch.sub(xr * pr, xi * pi, out=y[..., 0, :])
+            torch.add(xr * pi, xi * pr, out=y[..., 1, :])
+            nr, ni = _rot(carry[..., 0], carry[..., 1],
+                          float(np.float32(np.cos(ang))),
+                          float(np.float32(np.sin(ang))))
+            norm = torch.rsqrt(nr * nr + ni * ni)
+            return torch.stack([nr * norm, ni * norm], dim=-1), y
+        y = x * lo * carry[..., None]
+        new = carry * complex(np.complex64(np.exp(1j * ang)))
+        return new / new.abs(), y
+
+    def shard_carry(self, xb, initial=None):
+        tab = self._row_phasors(xb.shape[-1], xb.shape[0])
+        lead = xb.shape[:-2] if self.planar else xb.shape[:-1]
+        tab = tab.view((xb.shape[0],) + (1,) * (len(lead) - 1) + (2,))
+        pr, pi = tab[..., 0], tab[..., 1]
+        if initial is not None:
+            init = torch.as_tensor(initial, device=xb.device)
+            if self.planar:
+                pr, pi = _rot(pr, pi, init[..., 0], init[..., 1])
+            else:
+                pr, pi = _rot(pr, pi, init.real, init.imag)
+        pr, pi = pr.expand(lead), pi.expand(lead)
+        if self.planar:
+            return torch.stack([pr, pi], dim=-1)
+        return torch.complex(pr.contiguous(), pi.contiguous())
+
+
+class AmDemod(StreamOp):
+    """AM envelope detector ``|x|`` (stateless): complex64 blocks, or
+    planar I/Q ``[..., 2, n]`` with ``planar=True`` (``sqrt(re^2 +
+    im^2)``, consuming the plane axis)."""
+
+    def __init__(self, planar: bool = False, device="cuda"):
+        self.planar = bool(planar)
+        self.device = resolve_device(device)
+
+    def out_dtype(self, in_dtype):
+        return _F32
+
+    def map_batch_shape(self, batch_shape):
+        return tuple(batch_shape)[:-1] if self.planar else tuple(batch_shape)
+
+    def apply(self, carry, x):
+        return carry, _envelope(x) if self.planar else am_demod(x)
+
+
+class Agc(StreamOp):
+    """Automatic gain control with the gain carried (ops/scans.py, the
+    linear form): complex64 blocks, or planar I/Q ``[..., 2, n]`` with
+    ``planar=True`` (the gains from the all-real envelope, both planes
+    scaled by them).
+
+    Block-parallel runs are exact: each row reduces to one affine map on
+    its entering gain (``scans.agc_affine``), composed over the rows by
+    ``exclusive_affine_prefix``.  ``method='scan'`` (the sequential
+    recurrence) and ``approx_time_sharding`` wait for a later slice.
+
+    Carry: the gain entering the next block (one per stream: the planar
+    form drops the plane axis), ``initial`` at warmup."""
+
+    def __init__(self, mu: float, reference: float, initial: float = 1.0,
+                 method: str = "linear", approx_time_sharding=None,
+                 planar: bool = False, device="cuda"):
+        if method not in ("linear", "scan"):
+            raise ValueError(f"unknown agc method {method!r}")
+        if planar and method != "linear":
+            raise ValueError("Agc(planar=True) supports only the linear "
+                             "method (the all-real gain scan)")
+        if method == "scan" or approx_time_sharding is not None:
+            raise NotImplementedError(
+                "Agc(method='scan') and approx_time_sharding (the "
+                "sequential AGC) wait for the sequential-AGC slice of the "
+                "port")
+        self.mu, self.reference = float(mu), float(reference)
+        self.initial = float(initial)
+        self.planar = bool(planar)
+        self.device = resolve_device(device)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        bs = tuple(batch_shape)[:-1] if self.planar else tuple(batch_shape)
+        return torch.full(bs, self.initial, dtype=_F32, device=self.device)
+
+    def apply(self, carry, x):
+        if self.planar:
+            g, final = scans.agc_gains(_envelope(x), self.mu,
+                                       self.reference, carry)
+            return final, x * g[..., None, :]
+        y, final = scans.agc(x, self.mu, self.reference, carry)
+        return final, y
+
+    def shard_carry(self, xb, initial=None):
+        m = _envelope(xb) if self.planar else xb
+        A, B = scans.agc_affine(m, self.mu, self.reference)
+        Ap, Bp = exclusive_affine_prefix(A, B)
+        g0 = self.initial if initial is None else torch.as_tensor(
+            initial, dtype=_F32, device=xb.device)
+        return Ap * g0 + Bp
+
+
+class DcBlocker(StreamOp):
+    """DC blocking filter ``y[n] = x[n] - x[n-1] + alpha * y[n-1]``
+    (ops/scans.py).  Block-parallel runs are exact up to f32 rounding:
+    each row reduces to ``y -> alpha^n * y + B`` (``B`` the row's last
+    output from a zero state), composed over the rows by
+    ``exclusive_affine_prefix``.
+
+    Carry: ``(last_sample, last_output)``, two distinct tensors, zeros at
+    warmup."""
+
+    def __init__(self, alpha: float = 0.997, device="cuda"):
+        self.alpha = float(alpha)
+        self.device = resolve_device(device)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        return (torch.zeros(tuple(batch_shape), dtype=_F32,
+                            device=self.device),
+                torch.zeros(tuple(batch_shape), dtype=_F32,
+                            device=self.device))
+
+    def apply(self, carry, x):
+        y, new = scans.dc_blocker(x, carry[0], carry[1], self.alpha)
+        return new, y
+
+    def shard_carry(self, xb, initial=None):
+        last = left_halo(xb, 1)[..., 0]
+        if initial is not None:
+            last = substitute_first(last, initial[0])
+        y_zero, _ = scans.dc_blocker(xb, last, 0.0, self.alpha)
+        b = y_zero[..., -1]
+        a = torch.full_like(b, float(np.float32(self.alpha))
+                            ** xb.shape[-1])
+        A, enter = exclusive_affine_prefix(a, b)
+        if initial is not None:
+            enter = enter + A * torch.as_tensor(initial[1], dtype=_F32,
+                                                device=xb.device)
+        return last, enter
+
+
+class Map(StreamOp):
+    """Stateless elementwise map ``y = fn(x)``; ``dtype`` is the output's
+    when ``fn`` changes it."""
+
+    def __init__(self, fn, dtype=None, device="cuda"):
+        self.fn = fn
+        self.dtype = dtype
+        self.device = resolve_device(device)
+
+    def out_dtype(self, in_dtype):
+        return self.dtype if self.dtype is not None else in_dtype
+
+    def apply(self, carry, x):
+        return carry, self.fn(x)

@@ -12,13 +12,15 @@ import pytest
 import torch
 
 import sdr_tpu_torch
-from sdr_tpu_torch.apps import chains, fm
+from sdr_tpu_torch.apps import am, chains, fm
 from sdr_tpu_torch.kernels import (KERNELS, backhalf, fir, resample,
                                    u8_front, u8_front_demod)
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.parallel.sharded import run_time_batched
-from sdr_tpu_torch.stream import (FmDemod, Iir, Pipeline, Scale,
-                                  StereoDecode, U8FrontEnd)
+from sdr_tpu_torch.ops import shift
+from sdr_tpu_torch.stream import (Agc, AmDemod, DcBlocker, Fir, FmDemod, Iir,
+                                  IqConvertI16, IqConvertU8, Map, Mix,
+                                  Pipeline, Scale, StereoDecode, U8FrontEnd)
 
 PKG = Path(sdr_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
@@ -46,6 +48,10 @@ def _imports(path):
 def test_no_jax_or_sdr_tpu_imports():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"sdr_tpu_torch/ops/convert.py", "sdr_tpu_torch/ops/shift.py",
+            "sdr_tpu_torch/ops/scans.py", "sdr_tpu_torch/apps/am.py",
+            "sdr_tpu_torch/stream/ops.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -89,9 +95,28 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
                  "75e-6"])
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         chains.fm_chain(front="quantized", stereo=True, deemphasis=75e-6)
+    for kw in ({"front": "exact"}, {"front": "exact", "planar": True},
+               {"fuse_back": False},
+               {"deemphasis": 75e-6, "deemphasis_mode": "fir"}):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            chains.fm_chain(**kw)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        chains.am_chain()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        fm.main(["--in", str(src), "--out", str(tmp_path / "a.wav"),
+                 "--front", "exact"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        am.main(["--in", str(src), "--out", str(tmp_path / "a.wav"),
+                 "--block", "16384"])
     for make in (lambda: U8FrontEnd(chains.fm_taps()[0], 8), FmDemod,
                  StereoDecode, lambda: Iir([1, 0, 0, 1, 0, 0]),
-                 lambda: Scale(0.5)):
+                 lambda: Scale(0.5), IqConvertU8, IqConvertI16,
+                 lambda: Fir.filter(np.ones(4)),
+                 lambda: Fir.decimator(np.ones(4), 2),
+                 lambda: Fir.resampler(np.ones(4), 3, 10),
+                 lambda: Mix(0.25), AmDemod, lambda: Agc(0.005, 1.0),
+                 DcBlocker, lambda: Map(abs),
+                 lambda: shift.oscillator(16, 0.25)):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             make()
     # the CPU runs only when asked for
