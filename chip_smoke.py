@@ -15,9 +15,10 @@ per source, all at once), then:
    bitwise: row bases off 16-byte alignment, histories of 86, 2 and 30
    bytes, f in {1, 4, 8} and K in {16, 51, 63} with s8 and s16 taps for
    K1; I/D in {3/10, 2/3, 5/4} with every offset, starts 0, 37 and 5 and
-   histories of 5, 86 and 12,000 floats for K2; f in {1, 2, 3}, K in {1,
-   64, 65, 200} and starts 0 to 7 for K3; the most outputs a stream holds,
-   reads past its end, outputs not a multiple of the tiles, and 1) and
+   histories of 5, 86 and 12,000 floats for K2; f in {1, 2, 3, 4, 5, 8,
+   16}, K in {1, 51, 64, 65, 200}, starts 0 to 7 and one output below and
+   above a tile multiple for K3; the most outputs a stream holds, reads
+   past its end, outputs not a multiple of the tiles, and 1) and
    times the kernel (device
    time of back-to-back launches), the plain version and, where one
    PyTorch call computes the same function, that call (``library_ms``,
@@ -26,7 +27,9 @@ per source, all at once), then:
    and K2's, K3's and K5's printouts their no-FMA instruction floors
    (computed, not measured); checks that K2, K3 and K5 raise for tables
    or taps that do not fit their shared memory and run at the most that
-   do; runs the block-parallel chain
+   do, and that K3 runs on both sides of its switch from the staged
+   f > 1 branch to one thread an output (found from the kernel's own
+   plan, printed); runs the block-parallel chain
    (``run_time_batched``) on a synthetic 1 kHz broadcast with every
    launch counter set to 0 just before one call, checks the tone, the
    launch counts and agreement with the plain CPU run on a small input,
@@ -316,21 +319,29 @@ def front_geometries(raw, taps):
 
 
 def fir_geometries(x0, taps):
-    """K3's extra geometries over the rows of ``x0``: f in {1, 2, 3, 8, 16}
-    x K in {1, 64, 65, 200} x starts 0 to 7, each at a row base 0 to 3
-    floats off 16-byte alignment, with the most outputs the row holds (not
-    a multiple of the tile) and, at start 0, 1 output.  Yields the
+    """K3's extra geometries over the rows of ``x0``: f in {1, 2, 3, 4, 5,
+    8, 16} x K in {1, 51, 64, 65, 200} x starts 0 to 7, each at a row base
+    0 to 3 floats off 16-byte alignment, with the most outputs the row
+    holds (not a multiple of the tile) and, at start 0, 1 output; at f > 1
+    also one output below and one above the largest multiple of the
+    kernel's tile (its own plan's) that the row holds.  Yields the
     wrapper's args."""
+    from sdr_tpu_torch.kernels import fir
     rng = np.random.default_rng(8)
     n = x0.shape[-1]
-    for f in (1, 2, 3, 8, 16):
-        for K in (1, 64, 65, 200):
+    for f in (1, 2, 3, 4, 5, 8, 16):
+        for K in (1, 51, 64, 65, 200):
             t = (taps if K == taps.numel() else torch.as_tensor(
                 rng.uniform(-1, 1, K).astype(np.float32), device=x0.device))
+            tile = fir.plan(K, f, x0.device)["tile"]
             for start in range(8):
                 x = misaligned(x0, (start + f) % 4)
                 full = (n - start - K) // f + 1
-                for num in ((full, 1) if start == 0 else (full,)):
+                nums = [full, 1] if start == 0 else [full]
+                if f > 1 and start < 2:
+                    m = (full - 1) // tile * tile
+                    nums += [m - 1, m + 1]
+                for num in nums:
                     yield (t, x, num, f, start)
 
 
@@ -380,30 +391,55 @@ def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> None:
           "computed, not measured)")
 
 
+def fir_switch(f: int, device) -> int:
+    """The most taps K3's staged branch takes at factor ``f`` (its own
+    plan's switch to the one-thread-an-output branch)."""
+    from sdr_tpu_torch.kernels import fir
+    lo, hi = 1, 58_112                # staged at lo, not at hi
+    require(fir.plan(lo, f, device)["branch"] == "staged", f"K3 at f = {f}")
+    require(fir.plan(hi, f, device)["branch"] == "per output",
+            f"K3 at {hi} taps, f = {f}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if fir.plan(mid, f, device)["branch"] == "staged":
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 def check_fir_tap_limits(x) -> None:
     """K3 at the most taps its shared memory holds (17,316 at factor 1,
     58,112 above, on an H100) equals its plain version bitwise, and one
-    tap more raises."""
+    tap more raises; at f in {2, 8, 16}, both sides of the switch between
+    the staged branch and the one-thread-an-output branch equal it too."""
     from sdr_tpu_torch.kernels import fir
     rng = np.random.default_rng(9)
-    for f, most in ((1, 17_316), (2, 58_112)):
-        for K in (most, most + 1):
-            t = torch.as_tensor(rng.uniform(-1, 1, K).astype(np.float32),
-                                device=x.device)
-            a = (t, x[:2, :K + 5 * f].contiguous(), 6, f, 0)
-            if K == most:
-                err = max_err(fir.fir_strided(*a),
-                              fir.fir_strided_reference(*a))
-                require(err == 0, f"K3 at {K} taps, factor {f}: {err} != 0")
+    switch = {f: fir_switch(f, x.device) for f in (2, 8, 16)}
+    cases = [(1, 17_316, True), (1, 17_317, False), (2, 58_112, True),
+             (2, 58_113, False)]
+    cases += [(f, K, True) for f, s in switch.items() for K in (s, s + 1)]
+    for f, K, fits in cases:
+        t = torch.as_tensor(rng.uniform(-1, 1, K).astype(np.float32),
+                            device=x.device)
+        a = (t, x[:2, :K + 5 * f].contiguous(), 6, f, 0)
+        if fits:
+            err = max_err(fir.fir_strided(*a),
+                          fir.fir_strided_reference(*a))
+            require(err == 0, f"K3 at {K} taps, factor {f}: {err} != 0")
+        else:
+            try:
+                fir.fir_strided(*a)
+            except RuntimeError as e:
+                require("do not fit" in str(e), f"K3 raised {e}")
             else:
-                try:
-                    fir.fir_strided(*a)
-                except RuntimeError as e:
-                    require("do not fit" in str(e), f"K3 raised {e}")
-                else:
-                    require(False, f"K3 took {K} taps at factor {f}")
+                require(False, f"K3 took {K} taps at factor {f}")
     print("K3 tap limits: 17,316 taps at factor 1 and 58,112 at factor 2 "
           "equal the plain version; one more raises")
+    print("K3 switch from the staged branch to one thread an output: "
+          + ", ".join(f"{s:,} -> {s + 1:,} taps at f = {f}"
+                      for f, s in switch.items())
+          + "; both sides equal the plain version")
 
 
 def check_resample_limits(x, back) -> None:
@@ -1004,6 +1040,7 @@ def check_decimator_kernel(name: str, fir_op, x):
         replaces="sdr_tpu/kernels/fir_pallas.py:145",
         shape=f"{list(xr.shape)} -> {list(y.shape)}, {K} taps, factor {f}, "
               f"start {start}; seam launch {list(seam.shape)} -> {mb}",
+        plan=fir.plan(K, f, xr.device),
         max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: fir.fir_strided_reference(*a), 3, 1),
         bound_ms=b, bound_by=by, bound_fraction=b / ms,

@@ -1,7 +1,7 @@
 """What binds K1, K4, K3, K2 and K5 on the card: each kernel beside
 source variants of itself, timed in turns in one process.
 
-    python -m sdr_tpu_torch.kernel_variants
+    python -m sdr_tpu_torch.kernel_variants [--kernels fir ...]
 
 Each variant is the kernels' sources (``csrc/``) with a few lines replaced,
 each snippet found exactly once or the tool raises (:func:`variant`),
@@ -10,24 +10,34 @@ variant that drops work (``no_sums``: the windows are staged but not
 summed; ``no_demod``: K1 writes a sum of the products instead of the
 atan2; ``resample_no_stores``: K2 sums but stores (almost) nothing;
 ``backhalf_no_stage1`` / ``no_stage2``: K5 without its resample or its
-FIR sums) shows what the rest costs; ``fma`` contracts K3's (and K5's
-second stage's) multiply and add (not the plain version's rounding) and
-shows what the no-FMA order costs; the others change a design choice and
-must equal the committed kernels bitwise.  Shapes are the main path's: 32
-rows of 10,485,760 random u8 bytes with an 86-byte history (K1, K4: 51 s8
-taps, decimation 8), f32 rows of 196,671 (K3, 64 taps) and 655,552 (K3,
-65 taps from 128), and rows of 655,360 with an 82-float history, 3/10
+FIR sums; ``fir_dec_no_sums``: K3's staged f > 1 branch stages and
+splits its tiles into phase rows but sums nothing) shows what the rest
+costs; ``fma`` and ``fir_dec_fma`` contract K3's (and K5's second
+stage's) multiply and add (not the plain version's rounding) and show
+what the no-FMA order costs; the others change a design choice (the
+runtime loop in place of a compiled geometry, the phase rows unpadded,
+4 outputs a thread at f = 8, half the tile) and must equal the committed kernels bitwise.  Shapes are
+the paths': 32 rows of 10,485,760 random u8 bytes with an 86-byte history
+(K1, K4: 51 s8 taps, decimation 8), f32 rows of 196,671 (K3, 64 taps)
+and 655,552 (K3, 65 taps from 128), [32, 2] planes of 5,242,880 (K3's
+f > 1 branch: 51 taps at f = 8 from 5, the exact front's, and 64 at
+f = 16, the AM channel filter's), and rows of 655,360 with an 82-float
+history, 3/10
 with 11 taps a phase (K2 over [32] and [32, 2] rows to 196,671 outputs,
 K5 over [32, 2] to 196,608 through 64 FIR taps).  Times
 are the mean of 20 launches by CUDA events, queued behind a device-side
 sleep (device time, not the host's enqueue), in the order committed,
 variants, committed.  A ``clone`` of each input is the copy yardstick.
-Prints the card's name and power limit and one JSON line.  Needs a CUDA
-GPU and ``nvcc``.
+Prints the card's name and power limit, each build's registers and
+spills as ``ptxas`` reports them, and one JSON line.  ``--kernels``
+limits the run to some kernels (the sources' names: ``u8_front_demod``,
+``u8_front``, ``fir``, ``resample``, ``backhalf``).  Needs a CUDA GPU and
+``nvcc``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import subprocess
@@ -41,6 +51,7 @@ from sdr_tpu_torch.ops.fir import prepare_phase_table
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 
 ROWS, ROW_BYTES, HIST = 32, 10_485_760, 86
+DEC_N = ROW_BYTES // 2                # f32 samples a plane of a row
 REPS, SLEEP_CYCLES = 20, 20_000_000
 OUT = _build.BUILD.parent / "variants"
 
@@ -65,6 +76,31 @@ VARIANTS = {
     "fir_fma": (("fir",), [(
         "acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));",
         "acc[r] = __fmaf_rn(tj[jj], w[OFF + jj + r], acc[r]);")]),
+    "fir_dec_no_sums": (("fir",), [(
+        "    if constexpr (KC > 0)\n      poly_sums<KC, FC, RC>(a, P, RS, s_taps, u);"
+        "\n    else\n      poly_sums_rt<RC>(a, P, RS, s_taps, u, K, f);\n",
+        "")]),
+    "fir_dec_fma": (("fir",), [(
+        "a[r] = __fadd_rn(a[r], __fmul_rn(t, w[p][q + r]));",
+        "a[r] = __fmaf_rn(t, w[p][q + r], a[r]);")]),
+    "fir_dec_runtime": (("fir",), [
+        ("    if (f == 8 && K == 51)\n", "    if (f == -8 && K == 51)\n"),
+        ("    else if (f == 16 && K == 64)\n",
+         "    else if (f == -16 && K == 64)\n")]),
+    "fir_dec_nopad": (("fir",), [(
+        " +\n         (f % 4 == 0 && f <= 32 ? (32 / f) % 8 : 0);", ";")]),
+    "fir_dec_rc4": (("fir",), [(
+        "dec_tile<51, 8, 2>", "dec_tile<51, 8, 4>")]),
+    "fir_dec_occ3": (("fir",), [
+        ("__launch_bounds__(NT, 2)\nfird_kernel",
+         "__launch_bounds__(NT, 3)\nfird_kernel"),
+        ("constexpr int kDecSpan = 8192;", "constexpr int kDecSpan = 4096;")]),
+    "fir_dec_occ4": (("fir",), [
+        ("__launch_bounds__(NT, 2)\nfird_kernel",
+         "__launch_bounds__(NT, 4)\nfird_kernel"),
+        ("constexpr int kDecSpan = 8192;", "constexpr int kDecSpan = 4096;")]),
+    "fir_dec_span4096": (("fir",), [(
+        "constexpr int kDecSpan = 8192;", "constexpr int kDecSpan = 4096;")]),
     "resample_no_sums": (("resample",), [(
         "    tile_periods(buf0 + b * bf, off,",
         "    if (nb < 0) tile_periods(buf0 + b * bf, off,")]),
@@ -92,9 +128,11 @@ VARIANTS = {
         "acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));",
         "acc[r] = __fmaf_rn(tj[jj], w[OFF + jj + r], acc[r]);")]),
 }
-EXACT = {"ns512", "fir_runtime_taps", "resample_runtime_geometry",
+EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
+         "fir_dec_rc4", "fir_dec_occ3", "fir_dec_occ4", "fir_dec_span4096", "resample_runtime_geometry",
          "resample_tile1536", "resample_unroll2"}
-CALL_KERNEL = {"fir65": "fir", "resample_stereo": "resample"}
+CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
+               "resample_stereo": "resample"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
@@ -138,20 +176,29 @@ def time_ms(fn) -> float:
     return a.elapsed_time(b) / REPS
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
+            "fir": fir, "resample": resample, "backhalf": backhalf}
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", nargs="+", choices=sorted(mods),
+                    default=sorted(mods))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants needs a CUDA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
-            "fir": fir, "resample": resample, "backhalf": backhalf}
-    builds = {(m, "committed"): mod.KERNEL for m, mod in mods.items()}
+    builds = {(m, "committed"): mods[m].KERNEL for m in args.kernels}
     for name, (targets, patches) in VARIANTS.items():
         for m in targets:
-            builds[(m, name)] = variant(mods[m].KERNEL, name, patches)
+            if m in args.kernels:
+                builds[(m, name)] = variant(mods[m].KERNEL, name, patches)
     _build.build_all(builds.values())
+    for (m, name), k in builds.items():
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {m} {name}: {line.strip()}")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -169,6 +216,8 @@ def main() -> int:
     t65 = torch.randn(65, generator=g, device=dev)
     table = torch.as_tensor(prepare_phase_table(
         windowed_sinc(31, 0.25, hamming), 3), device=dev)
+    xd = torch.randn(ROWS, 2, DEC_N, generator=g, device=dev)
+    t51 = torch.randn(51, generator=g, device=dev)
     xr = torch.randn(ROWS, 655_360, generator=g, device=dev)
     hr = torch.randn(ROWS, 82, generator=g, device=dev)
     xr2 = torch.randn(ROWS, 2, 655_360, generator=g, device=dev)
@@ -179,6 +228,8 @@ def main() -> int:
         "u8_front": lambda: u8_front.u8_front(tq, scale, 8, x, hist, num),
         "fir": lambda: fir.fir_strided(t64, xm, 196_608),
         "fir65": lambda: fir.fir_strided(t65, xs, 655_360, 1, 128),
+        "fir_dec8": lambda: fir.fir_strided(t51, xd, 655_354, 8, 5),
+        "fir_dec16": lambda: fir.fir_strided(t64, xd, 327_677, 16, 0),
         "resample": lambda: resample.resample(table, 3, 10, xr, hr, 0,
                                               196_671),
         "resample_stereo": lambda: resample.resample(table, 3, 10, xr2, hr2,
@@ -191,6 +242,7 @@ def main() -> int:
         "f32 [32, 196671]": time_ms(xm.clone),
         "f32 [32, 655552]": time_ms(xs.clone),
         "f32 [32, 655360]": time_ms(xr.clone),
+        "f32 [32, 2, 5242880]": time_ms(xd.clone),
         "f32 [32, 2, 655360]": time_ms(xr2.clone)}, "ms": {}}
     names = ["committed", *VARIANTS, "committed again"]
     want = {}
@@ -209,8 +261,8 @@ def main() -> int:
             out["ms"][f"{call} {name}"] = time_ms(fn)
             print(f"{call:15s} {name:18s} {out['ms'][f'{call} {name}']:.4f} "
                   "ms")
-    for m, mod in mods.items():
-        mod.KERNEL = builds[(m, "committed")]
+    for m in args.kernels:
+        mods[m].KERNEL = builds[(m, "committed")]
     print(json.dumps(out))
     return 0
 

@@ -1,9 +1,21 @@
 """K3: strided FIR (csrc/fir.cu).
 
 Counterpart of sdr_tpu/kernels/fir_pallas.py:fir_strided, for any
-``start >= 0`` and ``factor >= 1``.  The kernel plans its own tiles and
-shared memory; a launch whose taps do not fit a block's shared memory
-(more than 17,316 taps at factor 1, 58,112 above, on an H100) raises.
+``start >= 0`` and ``factor >= 1``.  The kernel plans its own branch,
+tiles and shared memory from the taps and the factor before it launches
+(:func:`plan` reads that plan):
+
+* factor 1: register-tiled sums over staged 3072-output tiles;
+* factor > 1, the staged polyphase branch: tiles of ``8192 // factor``
+  outputs (at most 1024) staged once, split into ``factor`` phase rows in
+  shared memory and summed in tap order; it takes every tap count whose
+  buffers fit a block, on an H100 up to 14,520 taps at factor 2, 14,496
+  at 8 and 14,493 at 16 (so ``ceil(taps / factor) <= 897``, the TPU
+  kernel's range, at every factor up to 16);
+* factor > 1 past that switch: one thread an output, up to 58,112 taps.
+
+A launch whose taps do not fit a block's shared memory (more than 17,316
+taps at factor 1, 58,112 above, on an H100) raises.
 """
 
 from __future__ import annotations
@@ -14,12 +26,39 @@ import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 
-__all__ = ["KERNEL", "fir_strided", "fir_strided_reference"]
+__all__ = ["KERNEL", "fir_strided", "fir_strided_reference", "plan"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("fir", {
     "launch_fir": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _LL],
 })
+
+
+BRANCHES = ("factor 1", "staged", "per output")
+
+
+def plan(n_taps: int, factor: int, device=None) -> dict:
+    """The kernel's own plan for a launch of ``n_taps`` taps at
+    ``factor`` on a CUDA device: ``{"branch": one of BRANCHES, "tile":
+    outputs of a tile, "smem": shared-memory bytes of a block}``.  Raises
+    where the taps do not fit, as the launch would."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the plan is the CUDA kernel's, not {device}'s")
+    lib = KERNEL.lib()
+    index = torch.cuda.current_device() if device.index is None else \
+        device.index
+    lib.fir_plan.argtypes = [_I, _I, *[ctypes.POINTER(_I)] * 3]
+    out = [_I() for _ in range(3)]
+    rc = lib.kernel_set_device(index)
+    if rc == 0:
+        rc = lib.fir_plan(int(n_taps), int(factor),
+                          *(ctypes.byref(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"fir plan failed: "
+                           f"{lib.kernel_error_string(rc).decode()}")
+    branch, tile, smem = (v.value for v in out)
+    return {"branch": BRANCHES[branch], "tile": tile, "smem": smem}
 
 
 def _check(taps, x, num, factor, start):
