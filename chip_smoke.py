@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive sdr_tpu_torch's FM and AM receive paths on one NVIDIA GPU.
+"""Drive sdr_tpu_torch's FM, AM, waterfall and channelizer paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -69,8 +70,42 @@ per source, all at once), then:
    block-parallel chain (launches {fir: 2}, the tone at 80 kS/s, peak
    memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
    (within 1e-4) and the plain CPU chain; and ``apps.am``;
-6. prints ``{"kernels": [...]}`` (every kernel with its launches on each
-   path), the card line again, and last ``{"ok": true, "device": {...}}``.
+6. the waterfall path, ``waterfall_chain()`` (planar convert, then
+   ``FftStream``: Blackman-windowed 1,024-point frames at hop 512 on
+   cuFFT; none of the port's kernels) on the mono broadcast: the rows'
+   shape, the mean row's power inside Carson's band, no kernel launched,
+   the streamed run at the CLI's 1,048,576-byte blocks bitwise equal to
+   the block-parallel call, the plain CPU chain on 4 blocks within 1e-5
+   of each frame's peak, 20 timed calls and peak memory; the complex
+   form, ``waterfall_chain(planar=False)``, against the planar rows
+   (within 1e-5 of each frame's peak) and timed beside them;
+7. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
+   (``Channelize``, then per channel the 51-tap decimate-by-8 ``Fir`` on
+   K3, the complex demod, the 3/10 ``Fir`` resampler on K2 and the 64-tap
+   audio ``Fir`` on K3 at f = 1, the volume) on 32 blocks of 4,096,000
+   wideband samples carrying 64 FM stations made at the wideband rate:
+   K3 at f = 8 (seam and main), K2 and K3 at f = 1 (seam and main)
+   bitwise against their plain versions at the bank's shapes, each timed
+   with its bound and its ``conv1d`` yardstick; the launches of one call
+   ({fir: 4, resample: 1}), every channel's tone inside the audio
+   passband, the streamed run within 1e-6, the plain CPU chain on 4
+   blocks within 1e-4, 20 timed calls (wideband complex input
+   samples/s) and peak memory;
+8. the narrowband channelizer, ``channelizer_chain(64)`` on [64,
+   2,621,440] basebands (the CLI's synthetic formula) in 4 blocks: K3 at
+   f = 8 (seam and main), K2 and K3 at f = 1 (seam and main) bitwise
+   against their plain versions at the [4, 64] batch the path gives them,
+   each timed with its bound and its ``conv1d`` yardstick; the launches,
+   the tones, 4 blocks against 1 (the CLI's form) and the streamed run
+   over [64, 655,360] blocks within 1e-6, the plain CPU chain within
+   1e-5, 20 timed calls; then
+   ``apps.channelizer --synthetic`` plain and ``--wideband`` (the WAVs'
+   rates and lengths, the plain form's tones).  ``apps.waterfall`` writes
+   its PNG through matplotlib, which the card's machine lacks; the CPU
+   tests drive it;
+9. prints its own run time, ``{"kernels": [...]}`` (every kernel with
+   its launches on each path), the card line again, and last ``{"ok":
+   true, "device": {...}}``.
 
 Every failed check raises, so any failure exits nonzero.  Without a CUDA
 GPU it exits nonzero before printing any result.
@@ -101,6 +136,13 @@ F_L, F_R = 1_000.0, 400.0             # the stereo broadcast's L and R tones
 F_AM, AM_IF = 500.0, 0.25             # the AM tone; carrier, cycles/sample
 AM_BLOCK = 1_048_576                  # the AM CLI's default block
 AM_RATE = FS_IN // 16                 # AM audio, S/s
+WF_BLOCK = 1_048_576                  # the waterfall CLI's default block
+WF_SIZE, WF_HOP = 1024, 512           # waterfall_chain()'s frames
+CH_C = 64                             # channels of the FM bank
+CH_BLOCK = 4_096_000                  # wideband samples a block (bench.py:307)
+NB_SAMPLES, NB_BLOCKS = 2_621_440, 4  # narrowband samples a channel, blocks
+TONE_CHANNELS = 49                    # tones 200 + 150 c Hz inside the audio
+                                      # FIR's 7.5 kHz passband: c <= 48
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
 
@@ -881,43 +923,46 @@ def check_stereo_kernels(raw, ops):
     return rows
 
 
-def time_chain(ops, raw, what: str) -> float:
+def time_chain(ops, raw, what: str, nblocks: int = ROWS,
+               samples: int | None = None,
+               unit: str = "complex input samples/s") -> float:
     """Median ms of CHAIN_REPS back-to-back block-parallel calls, each
     between CUDA events: the span on the device's clock from the call's
     first enqueue to its last kernel's end, host gaps included.  Then the
     split of a call into the device's time and the host's enqueue
     (``profile_fm.queued_split``): where the span exceeds the device's
-    time, the host's enqueue is what holds the card back."""
+    time, the host's enqueue is what holds the card back.  The rate is
+    ``samples`` (default: the u8 input's complex samples) a call."""
     from sdr_tpu_torch.parallel.sharded import run_time_batched
     from sdr_tpu_torch.profile_fm import queued_split
+    samples = raw.numel() // 2 if samples is None else samples
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(CHAIN_REPS)]
     for a, b in ev:
         a.record()
-        run_time_batched(ops, raw, ROWS)
+        run_time_batched(ops, raw, nblocks)
         b.record()
     torch.cuda.synchronize()
     times = sorted(a.elapsed_time(b) for a, b in ev)
     ms = float(np.median(times))
     print(f"{what} over {CHAIN_REPS} calls by CUDA events: median {ms} ms "
           f"(min {times[0]}, max {times[-1]}); "
-          f"{raw.numel() // 2 / (ms * 1e-3):.6e} complex input samples/s "
-          "(median)")
-    split = queued_split(lambda: run_time_batched(ops, raw, ROWS))
+          f"{samples / (ms * 1e-3):.6e} {unit} (median)")
+    split = queued_split(lambda: run_time_batched(ops, raw, nblocks))
     print(f"{what}, each call queued behind a device-side sleep: device "
           f"{split['device_ms']} ms, host enqueue {split['enqueue_ms']} ms "
           f"(max {split['enqueue_max_ms']}) (medians of 5 calls)")
     return ms
 
 
-def counted_call(ops, raw, kernels):
+def counted_call(ops, raw, kernels, nblocks: int = ROWS):
     """One block-parallel call with every launch counter set to 0 just
     before it and read just after."""
     from sdr_tpu_torch.parallel.sharded import run_time_batched
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
-    y = run_time_batched(ops, raw, ROWS)
+    y = run_time_batched(ops, raw, nblocks)
     torch.cuda.synchronize()
     return y, {k.name: k.launches for k in kernels}
 
@@ -1200,6 +1245,348 @@ def run_am_cli(raw):
     print(f"am cli: {len(pcm)} samples at {rate} Hz, tone {hz:.2f} Hz")
 
 
+def run_waterfall(raw, ops, kernels):
+    """The waterfall path block-parallel (no kernel of the port: the
+    launch counts, the rows' shape, the power inside Carson's band, peak
+    memory, 20 timed calls), streamed at the CLI's blocks and against the
+    plain CPU chain."""
+    from sdr_tpu_torch.apps.chains import waterfall_chain
+    from sdr_tpu_torch.stream import Pipeline
+
+    counted_call(ops, raw, kernels)                 # warm-up: cuFFT's plan
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, raw, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    require_launches(launches, {}, "waterfall path")
+    frames = raw.numel() // 2 // WF_HOP
+    require(tuple(y.shape) == (frames, WF_SIZE), f"waterfall rows {y.shape}")
+    require(torch.isfinite(y).all().item(), "waterfall rows finite")
+    # a spectrum of the 1 kHz tone at 75 kHz deviation: Carson's band, +-76
+    # kHz, is +-61 bins of 1,250 Hz around the centre bin.  It holds about
+    # 98 % of an FM signal's power (the Bessel sum for this index, 75, is
+    # 98.44 %), and +-80 kHz (64 bins) more than 99.9 %
+    power = (y * y).sum(dim=0, dtype=torch.float64)
+    mid, total = WF_SIZE // 2, power.sum().item()
+    carson = power[mid - 61: mid + 62].sum().item() / total
+    wide = power[mid - 64: mid + 65].sum().item() / total
+    require(carson >= 0.98, f"power inside Carson's band {carson} < 0.98")
+    require(wide >= 0.999, f"power inside +-80 kHz {wide} < 0.999")
+    print(f"waterfall block-parallel chain: {ROWS} x {ROW_BYTES} bytes -> "
+          f"{tuple(y.shape)}; power inside Carson's band (+-61 bins) "
+          f"{carson}, inside +-64 bins {wide}; peak memory {peak} bytes; "
+          f"launches in one call {launches}")
+    time_chain(ops, raw, "waterfall block-parallel chain")
+    # the complex form: the same rows without the planes' torch.complex
+    # rebuild ahead of cuFFT
+    cops = waterfall_chain(planar=False, device=ops[0].device)
+    yc, claunches = counted_call(cops, raw, kernels)
+    require_launches(claunches, {}, "waterfall complex form")
+    rel = ((yc - y).abs().amax(dim=-1) / y.abs().amax(dim=-1)).max().item()
+    require(rel <= 1e-5, f"waterfall complex form vs planar {rel} > 1e-5 "
+                         "of a frame's peak")
+    print(f"waterfall complex form (planar=False): max diff {rel} of a "
+          f"frame's peak to the planar rows (bitwise equal: "
+          f"{torch.equal(yc, y)})")
+    del yc
+    time_chain(cops, raw, "waterfall complex-form block-parallel chain")
+
+    pipe = Pipeline(ops, block_in=WF_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = torch.cat(list(pipe.run(raw[i:i + WF_BLOCK] for i in
+                                       range(0, raw.numel(), WF_BLOCK))),
+                         dim=-2)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    require(torch.equal(streamed, y),
+            "waterfall streamed Pipeline.run != block-parallel (max diff "
+            f"{max_err(streamed, y)})")
+    print(f"waterfall streamed Pipeline.run at {WF_BLOCK}-byte blocks: "
+          f"equal to block-parallel; {raw.numel() // 2 / t_stream:.6e} "
+          "complex input samples/s")
+
+    # cuFFT and pocketfft round differently: relative to each frame's peak
+    _, ref = Pipeline(waterfall_chain(device="cpu"), block_in=WF_BLOCK,
+                      device="cpu").process(raw[:4 * WF_BLOCK].cpu())
+    got = streamed[:ref.shape[0]].cpu()
+    rel = ((got - ref).abs().amax(dim=-1)
+           / ref.abs().amax(dim=-1)).max().item()
+    require(rel <= 1e-5, f"waterfall card vs CPU plain chain {rel} > 1e-5 "
+                         "of a frame's peak")
+    print(f"waterfall card vs CPU plain chain on 4 blocks: max diff {rel} "
+          "of a frame's peak")
+    return launches
+
+
+def synth_wideband_bank(n: int, seed: int, device) -> torch.Tensor:
+    """One wideband stream of ``n`` complex64 samples at 64 x 1.28 MS/s
+    carrying 64 FM stations made at that rate: station c at +c/64 cycles
+    a sample, a tone of 200 + 150 c Hz at 75 kHz deviation (the phase in
+    closed form, as ``synth_broadcast``'s, in float64), 0.1 in amplitude,
+    with seeded Gaussian noise (tests/test_channelize.py's wideband bank
+    at broadcast rates)."""
+    fs = CH_C * FS_IN
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = torch.arange(n, dtype=torch.int64, device=device)
+    t = k.to(torch.float64) / fs
+    re = 0.001 * torch.randn(n, generator=g, device=device)
+    im = 0.001 * torch.randn(n, generator=g, device=device)
+    for c in range(CH_C):
+        f = 200.0 + 150.0 * c
+        ang = torch.cos(2 * np.pi * f * t).mul_(-75e3 / f).add_(75e3 / f)
+        # the carrier's phase exactly: (c k mod 64) / 64 turns
+        ang += (k * c % CH_C).to(torch.float64) * (2 * np.pi / CH_C)
+        re += 0.1 * torch.cos(ang).to(torch.float32)
+        im += 0.1 * torch.sin(ang).to(torch.float32)
+        del ang
+    return torch.complex(re, im)
+
+
+def check_resampler_kernel(name: str, fir_op, x):
+    """K2 as a resampling ``Fir`` launches it over the block-parallel
+    batch ``x`` (history from the halo, start 0), bitwise against the
+    plain version, timed beside one ``conv1d`` of the same function."""
+    from sdr_tpu_torch.kernels import resample
+    I, D = fir_op.spec.interpolation, fir_op.spec.decimation
+    Kp = fir_op.spec.taps_per_phase
+    hist = fir_op.shard_carry(x)
+    num = fir_op.out_len(x.shape[-1])
+    a = (fir_op._table, I, D, x, hist, fir_op.offset, num, 0)
+    y = resample.resample(*a)
+    err = max_err(y, resample.resample_reference(*a))
+    torch.cuda.synchronize()
+    require(torch.isfinite(y).all().item(), f"{name} output finite")
+    require(err == 0, f"{name} vs plain {err} != 0")
+    lib = library_resample(fir_op.spec.phase_table, [1.0], I, D,
+                           fir_op.offset, hist, x, num)
+    b, by = bound(nbytes(x, hist, fir_op._table, y), 2 * Kp * y.numel(),
+                  "f32")
+    ms = time_ms(lambda: resample.resample(*a), 20)
+    row = dict(
+        name=name, kernel="resample", route="cuda",
+        source="sdr_tpu_torch/csrc/resample.cu",
+        replaces="sdr_tpu/kernels/resample_pallas.py:187",
+        shape=f"{list(x.shape)} -> {list(y.shape)}, {I}/{D}, {Kp} taps a "
+              f"phase, history {hist.shape[-1]}",
+        max_abs_err=err, ms=ms,
+        plain_ms=time_ms(lambda: resample.resample_reference(*a), 3, 1),
+        bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        library_ms=time_ms(lib, 20), library_max_abs_diff=max_err(lib(), y))
+    print_no_fma_floor(name, Kp, y.numel())
+    return row
+
+
+def check_bank_kernels(x, ops):
+    """K3 at f = 8, K2 and K3 at f = 1 at the wideband channel bank's
+    shapes: the filterbank's [32, 64] channels of 64,000 samples, their
+    demod's 8,000, the resampler's 2,400."""
+    xb = x.view(ROWS, CH_BLOCK)
+    _, xc = ops[0].apply(ops[0].shard_carry(xb), xb)
+    rows = [check_decimator_kernel(
+        "K3 fir (channel bank decimator, complex [32, 64] as [32, 64, 2] "
+        "planes, f = 8, 51 taps)", ops[1], xc)]
+    _, yd = ops[1].apply(ops[1].shard_carry(xc), xc)
+    del xc
+    _, dm = ops[2].apply(ops[2].shard_carry(yd), yd)
+    rows.append(check_resampler_kernel(
+        "K2 resample (channel bank [32, 64], 8,000 -> 2,400)", ops[3], dm))
+    _, rs = ops[3].apply(ops[3].shard_carry(dm), dm)
+    rows.append(check_decimator_kernel(
+        "K3 fir (channel bank audio FIR [32, 64], f = 1, 64 taps)", ops[4],
+        rs))
+    return rows
+
+
+def check_narrowband_kernels(x, ops):
+    """K3 at f = 8, K2 and K3 at f = 1 at the narrowband channel bank's
+    shapes: ``run_time_batched``'s batch of NB_BLOCKS consecutive blocks
+    of every channel, [4, 64] rows of 655,360 samples, their demod's
+    81,920, the resampler's 24,576."""
+    xb = x.view(CH_C, NB_BLOCKS, -1).movedim(1, 0).contiguous()
+    rows = [check_decimator_kernel(
+        "K3 fir (narrowband bank decimator, complex [4, 64] as [4, 64, 2] "
+        "planes, f = 8, 51 taps)", ops[0], xb)]
+    _, yd = ops[0].apply(ops[0].shard_carry(xb), xb)
+    del xb
+    _, dm = ops[1].apply(ops[1].shard_carry(yd), yd)
+    del yd
+    rows.append(check_resampler_kernel(
+        "K2 resample (narrowband bank [4, 64], 81,920 -> 24,576)", ops[2],
+        dm))
+    _, rs = ops[2].apply(ops[2].shard_carry(dm), dm)
+    rows.append(check_decimator_kernel(
+        "K3 fir (narrowband bank audio FIR [4, 64], f = 1, 64 taps)",
+        ops[3], rs))
+    return rows
+
+
+def check_bank_tones(y: np.ndarray, what: str) -> float:
+    """Channel c's audio carries its tone, 200 + 150 c Hz, within 5 Hz,
+    for every c whose tone the audio FIR passes; returns the worst
+    error."""
+    worst = 0.0
+    for c in range(TONE_CHANNELS):
+        hz = tone_hz(y[c])
+        worst = max(worst, abs(hz - (200 + 150 * c)))
+        require(abs(hz - (200 + 150 * c)) < 5,
+                f"{what}: channel {c} tone at {hz} Hz")
+    return worst
+
+
+def run_channelizer_wideband(x, ops, kernels):
+    """The wideband channel bank block-parallel (launches, tones, peak
+    memory, 20 timed calls), streamed, and against the plain CPU
+    chain."""
+    from sdr_tpu_torch.apps.chains import channelizer_chain
+    from sdr_tpu_torch.stream import Pipeline
+
+    counted_call(ops, x, kernels)                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, x, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    # the decimator's and the audio FIR's seam and main launches, and the
+    # resampler: each Fir filter or decimator splits its outputs at the
+    # seam (the few that read history, then the rest from the block)
+    require_launches(launches, {"fir": 4, "resample": 1},
+                     "wideband channelizer path")
+    per_row = CH_BLOCK // CH_C * 3 // 80
+    require(tuple(y.shape) == (CH_C, ROWS * per_row), f"bank {y.shape}")
+    out = y.cpu().numpy()
+    require(np.isfinite(out).all(), "bank output finite")
+    worst = check_bank_tones(out, "wideband bank")
+    print(f"wideband channelizer block-parallel chain: {ROWS} x {CH_BLOCK} "
+          f"wideband samples -> {tuple(y.shape)}; tones of channels 0-"
+          f"{TONE_CHANNELS - 1} within {worst:.3f} Hz; peak memory {peak} "
+          f"bytes; launches in one call {launches}")
+    time_chain(ops, x, "wideband channelizer block-parallel chain",
+               samples=x.numel(), unit="wideband complex input samples/s")
+
+    pipe = Pipeline(ops, block_in=CH_BLOCK, in_dtype=torch.complex64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = torch.cat(list(pipe.run(x[i:i + CH_BLOCK] for i in
+                                       range(0, x.numel(), CH_BLOCK))),
+                         dim=-1)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    dstream = max_err(streamed, y)
+    require(dstream <= 1e-6, f"bank streamed vs block-parallel {dstream}")
+    print(f"wideband channelizer streamed Pipeline.run at {CH_BLOCK}-sample "
+          f"blocks: max abs diff to block-parallel {dstream} (bitwise "
+          f"equal: {torch.equal(streamed, y)}); "
+          f"{x.numel() / t_stream:.6e} wideband complex input samples/s")
+
+    _, ref = Pipeline(channelizer_chain(CH_C, wideband=True, device="cpu"),
+                      block_in=CH_BLOCK, in_dtype=torch.complex64,
+                      device="cpu").process(x[:4 * CH_BLOCK].cpu())
+    diff = max_err(streamed[:, :ref.shape[-1]].cpu(), ref)
+    require(diff <= 1e-4, f"bank card vs CPU plain chain {diff} > 1e-4")
+    print(f"wideband channelizer card vs CPU plain chain on 4 blocks: max "
+          f"abs diff {diff}")
+    return launches
+
+
+def run_channelizer_narrowband(x, ops, kernels):
+    """The narrowband channel bank in NB_BLOCKS blocks (launches, tones,
+    peak memory, 20 timed calls), against one block (the CLI's form), the
+    streamed run over [64, n] blocks and the plain CPU chain."""
+    from sdr_tpu_torch.apps.chains import channelizer_chain
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.stream import Pipeline
+
+    counted_call(ops, x, kernels, NB_BLOCKS)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, x, kernels, NB_BLOCKS)
+    peak = torch.cuda.max_memory_allocated()
+    require_launches(launches, {"fir": 4, "resample": 1},
+                     "narrowband channelizer path")
+    require(tuple(y.shape) == (CH_C, NB_SAMPLES * 3 // 80),
+            f"narrowband bank {y.shape}")
+    out = y.cpu().numpy()
+    require(np.isfinite(out).all(), "narrowband output finite")
+    worst = check_bank_tones(out, "narrowband bank")
+    print(f"narrowband channelizer chain: {list(x.shape)} in {NB_BLOCKS} "
+          f"blocks -> {tuple(y.shape)}; tones of channels 0-"
+          f"{TONE_CHANNELS - 1} within {worst:.3f} Hz; peak memory {peak} "
+          f"bytes; launches in one call {launches}")
+    time_chain(ops, x, "narrowband channelizer block-parallel chain",
+               nblocks=NB_BLOCKS, samples=x.numel(),
+               unit="channel complex input samples/s (all channels)")
+    one = run_time_batched(ops, x, 1)
+    d1 = max_err(one, y)
+    require(d1 <= 1e-6, f"narrowband {NB_BLOCKS} blocks vs 1: {d1}")
+    blk = NB_SAMPLES // NB_BLOCKS
+    pipe = Pipeline(ops, block_in=blk, batch_shape=(CH_C,),
+                    in_dtype=torch.complex64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = torch.cat(list(pipe.run(x[:, i:i + blk] for i in
+                                       range(0, NB_SAMPLES, blk))), dim=-1)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    dstream = max_err(streamed, y)
+    require(dstream <= 1e-6,
+            f"narrowband streamed vs block-parallel {dstream}")
+    print(f"narrowband channelizer streamed Pipeline.run at [{CH_C}, {blk}] "
+          f"blocks: max abs diff to block-parallel {dstream} (bitwise "
+          f"equal: {torch.equal(streamed, y)}); "
+          f"{x.numel() / t_stream:.6e} channel complex input samples/s "
+          "(all channels)")
+    n, m = NB_SAMPLES // NB_BLOCKS, NB_SAMPLES // NB_BLOCKS * 3 // 80
+    ref = run_time_batched(channelizer_chain(CH_C, device="cpu"),
+                           x[:8, :n].cpu(), 1, device="cpu")
+    diff = max_err(y[:8, :m].cpu(), ref)
+    require(diff <= 1e-5, f"narrowband card vs CPU plain chain {diff}")
+    print(f"narrowband channelizer: {NB_BLOCKS} blocks vs 1 max abs diff "
+          f"{d1} (bitwise equal: {torch.equal(one, y)}); card vs CPU plain "
+          f"chain (8 channels, one block) max abs diff {diff}")
+    return launches
+
+
+def run_channelizer_cli():
+    """``python -m sdr_tpu_torch.apps.channelizer --synthetic --channels
+    64 --seconds 0.1``, plain and ``--wideband``: the line, 64 WAVs of
+    4,800 samples at 48 kHz, and the plain form's tones (the
+    ``--wideband`` synthetic zero-stuffs each station, so each channel
+    carries all of them: ROADMAP F2)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    m = int(FS_IN * 0.1) // 80 * 80 * 3 // 80
+    for extra in ([], ["--wideband"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "ch")
+            proc = subprocess.run(
+                [sys.executable, "-m", "sdr_tpu_torch.apps.channelizer",
+                 "--synthetic", "--channels", str(CH_C), "--seconds", "0.1",
+                 "--out-prefix", prefix, *extra], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=300)
+            what = f"channelizer cli {' '.join(extra) or '(narrowband)'}"
+            print(f"{what}: rc {proc.returncode} {proc.stdout.strip()}")
+            require(proc.returncode == 0, f"{what} failed: {proc.stderr}")
+            require(f"demodulated {CH_C} channels x {m} samples at 48000 Hz "
+                    "on 1 devices" in proc.stdout, f"{what} line")
+            pcm = []
+            for c in range(CH_C):
+                with wave.open(f"{prefix}{c:03d}.wav", "rb") as wf:
+                    require(wf.getframerate() == 48_000, "WAV rate")
+                    require(wf.getnframes() == m, "WAV length")
+                    pcm.append(np.frombuffer(wf.readframes(m), "<i2"))
+        if not extra:
+            worst = 0.0
+            for c in range(TONE_CHANNELS):
+                seg = pcm[c][200:].astype(np.float64)
+                spec = np.abs(np.fft.rfft(seg * np.hanning(len(seg)),
+                                          1 << 16))
+                hz = np.argmax(spec) * 48_000 / (1 << 16)
+                worst = max(worst, abs(hz - (200 + 150 * c)))
+                require(abs(hz - (200 + 150 * c)) < 5,
+                        f"{what}: channel {c} tone at {hz} Hz")
+            print(f"{what}: {CH_C} WAVs of {m} samples at 48 kHz; tones of "
+                  f"channels 0-{TONE_CHANNELS - 1} within {worst:.3f} Hz")
+        else:
+            print(f"{what}: {CH_C} WAVs of {m} samples at 48 kHz")
+
+
 def print_rows(rows, card: str) -> None:
     for r in rows:
         print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
@@ -1212,11 +1599,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
 
-    from sdr_tpu_torch.apps.chains import am_chain, fm_chain
+    from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
+                                           fm_chain, waterfall_chain)
+    from sdr_tpu_torch.apps.channelizer import synthesize
     from sdr_tpu_torch.kernels import KERNELS
     from sdr_tpu_torch.kernels._build import _nvcc, build_all
     from sdr_tpu_torch.utils.device import strict_fp32
@@ -1283,11 +1673,35 @@ def main(argv=None) -> int:
     print_rows(arows, card)
     am = run_am_chain(raw, ops, KERNELS)
     run_am_cli(raw)
+    del raw, ops
+
+    # the waterfall: planar convert, FftStream on cuFFT; no kernel of ours
+    raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
+    waterfall = run_waterfall(raw, waterfall_chain(device=device), KERNELS)
+    del raw
+
+    # the wideband channel bank: the filterbank, K3 at f = 8, K2, K3
+    x = synth_wideband_bank(ROWS * CH_BLOCK, args.seed, device)
+    ops = channelizer_chain(CH_C, wideband=True, device=device)
+    crows = check_bank_kernels(x, ops)
+    print_rows(crows, card)
+    wideband = run_channelizer_wideband(x, ops, KERNELS)
+    del x, ops
+
+    # the narrowband bank: [64, N] basebands, the CLI's synthetic formula
+    x = synthesize(CH_C, NB_SAMPLES, FS_IN, device)
+    ops = channelizer_chain(CH_C, device=device)
+    nrows = check_narrowband_kernels(x, ops)
+    print_rows(nrows, card)
+    narrowband = run_channelizer_narrowband(x, ops, KERNELS)
+    del x, ops
+    run_channelizer_cli()
 
     # launches: each row's on the path its shapes come from, and on every
     # path, each path's counts taken around one call of its own
     paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused,
-             "mono_exact": exact, "am": am}
+             "mono_exact": exact, "am": am, "waterfall": waterfall,
+             "channelizer_wideband": wideband, "channelizer": narrowband}
     for r in rows:
         r["launches"] = mono[r["kernel"]]
     for r in srows:
@@ -1297,9 +1711,15 @@ def main(argv=None) -> int:
         r["launches"] = exact[r["kernel"]]
     for r in arows:
         r["launches"] = am[r["kernel"]]
-    rows += srows + erows + arows
+    for r in crows:
+        r["launches"] = wideband[r["kernel"]]
+    for r in nrows:
+        r["launches"] = narrowband[r["kernel"]]
+    rows += srows + erows + arows + crows + nrows
     for r in rows:
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
+    print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, "
+          "the kernels' build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

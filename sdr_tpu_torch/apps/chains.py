@@ -11,6 +11,11 @@ volume) or the three separate stages; optional de-emphasis.
 ``am_chain``: the AM/airband receiver (mix to DC, decimating channel
 filter, AGC, envelope, DC block, volume).  Options that wait for a later
 slice of the port raise ``NotImplementedError`` naming it.
+
+``waterfall_chain``: u8 IQ -> windowed overlapping FFT magnitude rows.
+``channelizer_chain``: the 64-channel FM bank, per-channel basebands or
+one wideband stream split by the polyphase filterbank first.  The JAX
+package's ``method`` argument (its FIR method zoo) has no counterpart.
 """
 
 from __future__ import annotations
@@ -19,13 +24,16 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.ops import design
+from sdr_tpu_torch.ops.channelize import channelizer_taps
 from sdr_tpu_torch.ops.iir import biquad, deemphasis_taps
-from sdr_tpu_torch.stream.ops import (Agc, AmDemod, DcBlocker, Fir, FmDemod,
-                                      Iir, IqConvertU8, Mix,
-                                      ResampleFirScale, Scale, StereoDecode,
-                                      U8FrontDemod, U8FrontEnd)
+from sdr_tpu_torch.stream.ops import (Agc, AmDemod, Channelize, DcBlocker,
+                                      FftStream, Fir, FmDemod, Iir,
+                                      IqConvertU8, Mix, ResampleFirScale,
+                                      Scale, StereoDecode, U8FrontDemod,
+                                      U8FrontEnd)
 
-__all__ = ["fm_taps", "fm_chain", "am_chain"]
+__all__ = ["fm_taps", "fm_chain", "am_chain", "waterfall_chain",
+           "channelizer_chain"]
 
 
 def fm_taps():
@@ -141,3 +149,39 @@ def am_chain(if_freq: float = 0.25, decim: int = 16, agc_mu: float = 0.005,
             AmDemod(planar=planar, device=device),
             DcBlocker(device=device),
             Scale(volume, device=device)]
+
+
+def waterfall_chain(fft_size: int = 1024, hop: int = 512,
+                    planar: bool = True, device="cuda"):
+    """Spectral waterfall ops (BASELINE config #3): u8 IQ -> Blackman
+    windowed overlapping FFT magnitude rows ``[frames, fft_size]``,
+    DC-centred.  ``planar`` (the default) keeps the chain in planar f32
+    I/Q, False goes through complex64; the same rows."""
+    window = design.blackman(fft_size)
+    return [IqConvertU8(planar=planar, device=device),
+            FftStream(fft_size, hop, window=window, planar=planar,
+                      device=device)]
+
+
+def channelizer_chain(n_channels: int = 64, wideband: bool = False,
+                      device="cuda"):
+    """Multi-channel FM bank (BASELINE config #5): per channel, the 51-tap
+    decimate-by-8 ``Fir`` (K3), the complex ``FmDemod``, the 3/10
+    resampler (K2), the 64-tap audio FIR (K3) and the volume, batched over
+    the channel axis.
+
+    ``wideband=False``: the input is ``[n_channels, N]`` complex baseband,
+    a row per tuned channel.  ``wideband=True``: the input is one wideband
+    complex stream at ``n_channels`` times the channel rate, split first by
+    the polyphase DFT filterbank (``Channelize``, 12 taps a branch) into
+    ``[n_channels, N / n_channels]``."""
+    rf, ars, afl = fm_taps()
+    per_channel = [Fir.decimator(rf, 8, device=device),
+                   FmDemod(device=device),
+                   Fir.resampler(ars, 3, 10, device=device),
+                   Fir.filter(afl, device=device),
+                   Scale(0.2, device=device)]
+    if wideband:
+        return [Channelize(channelizer_taps(n_channels, 12), n_channels,
+                           device=device), *per_channel]
+    return per_channel

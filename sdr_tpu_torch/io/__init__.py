@@ -1,3 +1,5 @@
-"""Recorded-signal sources and sinks."""
+"""Recorded-signal sources and sinks, and the waterfall consumer."""
 
-from sdr_tpu_torch.io.files import iq_file_source, wav_sink  # noqa: F401
+from sdr_tpu_torch.io.files import (follow_iq_file,  # noqa: F401
+                                    iq_file_source, wav_sink)
+from sdr_tpu_torch.io.plot import Waterfall  # noqa: F401

@@ -1,14 +1,16 @@
-"""Recorded-signal file source and WAV sink (counterpart of
-sdr_tpu/io/files.py: iq_file_source, wav_sink)."""
+"""Recorded-signal file sources and WAV sink (counterpart of
+sdr_tpu/io/files.py: iq_file_source, follow_iq_file, wav_sink), u8 items
+(RTL-SDR interleaved IQ)."""
 
 from __future__ import annotations
 
+import time
 import wave
 from typing import Iterator
 
 import numpy as np
 
-__all__ = ["iq_file_source", "wav_sink"]
+__all__ = ["iq_file_source", "follow_iq_file", "wav_sink"]
 
 
 def iq_file_source(path, block: int) -> Iterator[np.ndarray]:
@@ -20,6 +22,35 @@ def iq_file_source(path, block: int) -> Iterator[np.ndarray]:
             if b.shape[0] < block:
                 return
             yield b
+
+
+def follow_iq_file(path, block: int, poll: float = 0.2,
+                   idle_timeout: float | None = None,
+                   from_end: bool = False) -> Iterator[np.ndarray]:
+    """Tail a growing raw u8 IQ file, yielding each complete block of
+    ``block`` items as it lands; a trailing partial block waits for the
+    rest.  ``idle_timeout``: stop after that many seconds without growth
+    (None: follow forever).  ``from_end=True`` starts at the last whole
+    block boundary before the current end of file (``tail -f``)."""
+    with open(path, "rb") as fh:
+        if from_end:
+            fh.seek(0, 2)
+            fh.seek(fh.tell() // block * block)
+        idle = 0.0
+        buf = bytearray()        # a writable block, handed over whole
+        while True:
+            chunk = fh.read(block - len(buf))
+            if chunk:
+                idle = 0.0
+                buf += chunk
+                if len(buf) == block:
+                    yield np.frombuffer(buf, dtype=np.uint8)
+                    buf = bytearray()
+                continue
+            if idle_timeout is not None and idle >= idle_timeout:
+                return
+            time.sleep(poll)
+            idle += poll
 
 
 def wav_sink(path, sample_rate: int = 48000, channels: int = 1):

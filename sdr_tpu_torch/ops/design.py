@@ -1,16 +1,18 @@
 """FIR filter design (host-side numpy; counterpart of sdr_tpu/ops/design.py).
 
-Only what the broadcast-FM chain needs: the sinc prototype, the Hamming
-window, windowed sinc and scipy's Parks-McClellan ``remez``.  The
-arithmetic is the JAX package's, step for step, so ``fm_taps`` gives
-bitwise the same taps.
+What the receive chains need: the sinc prototype, the Hann, Hamming and
+Blackman windows, windowed sinc (Hann by default, as in the JAX package)
+and scipy's Parks-McClellan ``remez``.  The arithmetic is the JAX
+package's, step for step, so the windows and ``fm_taps`` are bitwise the
+same.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["sinc", "hamming", "windowed_sinc", "remez"]
+__all__ = ["sinc", "hanning", "hamming", "blackman", "windowed_sinc",
+           "remez"]
 
 
 def sinc(size: int, cutoff: float) -> np.ndarray:
@@ -22,13 +24,26 @@ def sinc(size: int, cutoff: float) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def hanning(size: int) -> np.ndarray:
+    """Hann window."""
+    n = np.arange(size)
+    return (0.5 * (1 - np.cos(2 * np.pi * n / (size - 1)))).astype(np.float32)
+
+
 def hamming(size: int) -> np.ndarray:
     """Hamming window."""
     n = np.arange(size)
     return (0.54 - 0.46 * np.cos(2 * np.pi * n / (size - 1))).astype(np.float32)
 
 
-def windowed_sinc(size: int, cutoff: float, window) -> np.ndarray:
+def blackman(size: int) -> np.ndarray:
+    """Blackman window."""
+    n = np.arange(size)
+    return (0.42 - 0.5 * np.cos(2 * np.pi * n / (size - 1))
+            + 0.08 * np.cos(4 * np.pi * n / (size - 1))).astype(np.float32)
+
+
+def windowed_sinc(size: int, cutoff: float, window=hanning) -> np.ndarray:
     """Windowed-sinc FIR design."""
     return (sinc(size, cutoff) * window(size)).astype(np.float32)
 

@@ -2,12 +2,13 @@
 (counterpart of sdr_tpu/parallel/sharded.py:time_sharded_fn and
 run_time_batched).
 
-A recording ``[N]`` becomes a ``[B, N/B]`` batch of consecutive blocks.
-Every op takes the state entering each row from the row before it
-(``shard_carry``: halo shifts along the batch axis, parallel/halo.py) and
-then runs once over the whole batch, so each kernel launch covers all B
-blocks.  The output equals the streamed run sample for sample: the kernels'
-per-output sums do not depend on how the outputs are batched.
+A recording ``[*lead, N]`` (``lead`` the channels of a bank, or none)
+becomes a ``[B, *lead, N/B]`` batch of consecutive blocks.  Every op takes
+the state entering each row from the row before it (``shard_carry``: halo
+shifts along the batch axis, parallel/halo.py) and then runs once over the
+whole batch, so each kernel launch covers all B blocks.  The output equals
+the streamed run sample for sample: the kernels' per-output sums do not
+depend on how the outputs are batched.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ __all__ = ["time_sharded_fn", "run_time_batched"]
 
 def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
                     return_carries: bool = False):
-    """``fn(xb[B, n]) -> y[B, *planes, n_out]`` running the chain
-    block-parallel.
+    """``fn(xb[B, *lead, n]) -> y[B, *lead, ...per-block output]`` running
+    the chain block-parallel.
 
     ``initials``: per-op carries entering row 0 (a previous segment's final
     state).  ``return_carries``: ``fn`` returns ``(carries, y)`` with each
@@ -49,36 +50,45 @@ def _last_row(tree):
     return tree[-1].clone()
 
 
-def _restack(yb):
-    """``[B, *planes, n]`` -> ``[*planes, B*n]``: the rows are consecutive
-    blocks of each plane's stream (``Pipeline._restack`` of the JAX
-    package).  A copy when there are planes, a view otherwise."""
-    return yb.movedim(0, -2).reshape(yb.shape[1:-1] + (-1,))
+def _restack(yb, time_axis_out: int = -1):
+    """``[B, *lead, ...per-block]`` -> ``[*lead, ...]`` with the block axis
+    merged into the stream axis ``time_axis_out`` (negative, of the
+    per-block output): the rows are consecutive blocks of each stream
+    (``Pipeline._restack`` of the JAX package).  ``[B, *planes, n]`` ->
+    ``[*planes, B*n]`` for sample streams, ``[B, frames, size]`` ->
+    ``[B*frames, size]`` for FFT frames.  A flat reshape would interleave
+    blocks with channels or frames.  A view where the block axis is
+    already outermost, a copy otherwise."""
+    t = yb.ndim + time_axis_out          # the stream axis in yb
+    out = yb.movedim(0, t - 1)
+    return out.reshape(out.shape[:t - 1] + (-1,) + out.shape[t + 1:])
 
 
 def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
                      carries=None, return_carries: bool = False,
                      device="cuda"):
-    """Block-parallel processing of a recorded 1-D signal ``x[N]`` as
-    ``nblocks`` blocks of ``N / nblocks``.  The output is ``[*planes, M]``
-    (``[2, M]`` for the stereo chain), as the streamed run joins it.
+    """Block-parallel processing of a recorded signal ``x[*lead, N]`` as
+    ``nblocks`` blocks of ``N / nblocks`` of each stream.  The output is
+    the streamed run's, joined along the last op's stream axis:
+    ``[*lead, *planes, M]`` (``[2, M]`` for the stereo chain, ``[C, M]``
+    for a channel bank), ``[*lead, frames, size]`` for FFT frames.
 
     ``carries`` (per-op state from a previous segment) and
     ``return_carries=True`` continue a stream exactly across segments;
     the returned carries are the state after the last block."""
     device = resolve_device(device)
     x = as_input(x, device)
-    if x.ndim != 1:
-        raise ValueError(f"run_time_batched takes a 1-D signal, got shape "
-                         f"{tuple(x.shape)}")
-    n = x.shape[-1]
+    n, lead = x.shape[-1], x.shape[:-1]
     if n % nblocks:
         raise ValueError(f"signal length {n} not divisible by {nblocks}")
-    Pipeline(ops, block_in=n // nblocks, in_dtype=x.dtype, device=device)
-    xb = x.reshape(nblocks, n // nblocks)
+    t_axis = Pipeline(ops, block_in=n // nblocks, batch_shape=lead,
+                      in_dtype=x.dtype, device=device).time_axis_out
+    # [B, *lead, n]: the kernels take contiguous rows (a copy only when
+    # there are leading dims and more than one block)
+    xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
     out = time_sharded_fn(ops, initials=carries,
-                          return_carries=return_carries)(xb)
+                          return_carries=return_carries)(xb.contiguous())
     if not return_carries:
-        return _restack(out)
+        return _restack(out, t_axis)
     cb, yb = out
-    return _last_row(cb), _restack(yb)
+    return _last_row(cb), _restack(yb, t_axis)

@@ -1,9 +1,12 @@
-"""Where the time of the block-parallel FM chain goes on the card.
+"""Where the time of a block-parallel chain goes on the card.
 
-    python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|exact|am]
+    python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|exact|am|
+                                        waterfall|channelizer|channelizer_nb]
 
-Runs ``run_time_batched`` over the main path's 32 blocks of 10,485,760
-bytes of random u8 IQ once to warm up, then in one process:
+Runs ``run_time_batched`` over the chain's input (the main path's 32
+blocks of 10,485,760 bytes of random u8 IQ; for the channelizers random
+complex64: 32 blocks of 4,096,000 wideband samples, or [64, 2,621,440]
+channel basebands in 4 blocks) once to warm up, then in one process:
 
 1. ``REPS`` calls unprofiled, each between CUDA events: the call's span on
    the device's clock, host gaps included; then ``SPLIT_REPS`` calls each
@@ -23,9 +26,11 @@ The idle share is ``1 - busy / span``, busy from 2 and the unprofiled
 median span from 1.  The chain (``--chain``) is ``fm_chain()`` (mono,
 the fused front, the default), ``stereo``: ``fm_chain(front='quantized',
 stereo=True, deemphasis=75e-6)``, ``exact``: ``fm_chain(front='exact')``
-(the complex f32 front), or ``am``: ``am_chain()``.  No chain's work
-depends on the data but through the stereo pilot lock, which gates no
-kernel.  Needs a CUDA GPU.
+(the complex f32 front), ``am``: ``am_chain()``, ``waterfall``:
+``waterfall_chain()``, ``channelizer``: ``channelizer_chain(64,
+wideband=True)``, or ``channelizer_nb``: ``channelizer_chain(64)``.  No
+chain's work depends on the data but through the stereo pilot lock,
+which gates no kernel.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -44,18 +49,36 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from sdr_tpu_torch.apps.chains import am_chain, fm_chain
+from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
+                                       fm_chain, waterfall_chain)
 from sdr_tpu_torch.parallel.sharded import run_time_batched
 
 ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
 REPS = 20
 SPLIT_REPS, SPLIT_SLEEP_CYCLES = 5, 200_000_000     # ~0.1 s head start
+
+
+def _u8():
+    return torch.randint(0, 256, (ROWS * ROW_BYTES,), dtype=torch.uint8,
+                         device="cuda")
+
+
+def _complex(*shape):
+    return torch.randn(shape, dtype=torch.complex64, device="cuda")
+
+
+# name: (the chain's ops, its input, its blocks)
 CHAINS = {
-    "mono": fm_chain,
-    "stereo": lambda: fm_chain(front="quantized", stereo=True,
-                               deemphasis=75e-6),
-    "exact": lambda: fm_chain(front="exact"),
-    "am": am_chain,
+    "mono": (fm_chain, _u8, ROWS),
+    "stereo": (lambda: fm_chain(front="quantized", stereo=True,
+                                deemphasis=75e-6), _u8, ROWS),
+    "exact": (lambda: fm_chain(front="exact"), _u8, ROWS),
+    "am": (am_chain, _u8, ROWS),
+    "waterfall": (waterfall_chain, _u8, ROWS),
+    "channelizer": (lambda: channelizer_chain(64, wideband=True),
+                    lambda: _complex(ROWS * 4_096_000), ROWS),
+    "channelizer_nb": (lambda: channelizer_chain(64),
+                       lambda: _complex(64, 2_621_440), 4),
 }
 
 
@@ -115,28 +138,27 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    ops = CHAINS[args.chain]()
-    raw = torch.randint(0, 256, (ROWS * ROW_BYTES,), dtype=torch.uint8,
-                        device="cuda")
-    run_time_batched(ops, raw, ROWS)
+    make_ops, make_input, nblocks = CHAINS[args.chain]
+    ops, raw = make_ops(), make_input()
+    run_time_batched(ops, raw, nblocks)
     torch.cuda.synchronize()
 
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
     for a, b in ev:
         a.record()
-        run_time_batched(ops, raw, ROWS)
+        run_time_batched(ops, raw, nblocks)
         b.record()
     torch.cuda.synchronize()
     span = float(np.median([a.elapsed_time(b) for a, b in ev]))
-    split = queued_split(lambda: run_time_batched(ops, raw, ROWS))
+    split = queued_split(lambda: run_time_batched(ops, raw, nblocks))
 
     labels = label_ops(ops)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(REPS):
-            run_time_batched(ops, raw, ROWS)
+            run_time_batched(ops, raw, nblocks)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / REPS * 1e3
     kernels, by_op = {}, {}
@@ -154,7 +176,7 @@ def main(argv=None) -> int:
 
     pr = cProfile.Profile()
     pr.enable()
-    run_time_batched(ops, raw, ROWS)
+    run_time_batched(ops, raw, nblocks)
     torch.cuda.synchronize()
     pr.disable()
     s = io.StringIO()
@@ -169,8 +191,9 @@ def main(argv=None) -> int:
     for label in labels:
         print(f"  {by_op.get(label, 0.0):10.4f} ms  {label}")
     print(s.getvalue())
-    print(json.dumps({"chain": args.chain,
-                      "rows": ROWS, "row_bytes": ROW_BYTES, "reps": REPS,
+    print(json.dumps({"chain": args.chain, "input": list(raw.shape),
+                      "input_dtype": str(raw.dtype), "blocks": nblocks,
+                      "reps": REPS,
                       "span_ms": span, "device_busy_ms": busy,
                       "idle_share": 1 - busy / span, "queued": split,
                       "profiled_wall_ms": wall, "ops_ms": by_op,

@@ -1,8 +1,9 @@
 """Streaming runtime: stateful block operators and pipelines."""
 
 from sdr_tpu_torch.stream.block import StreamOp  # noqa: F401
-from sdr_tpu_torch.stream.ops import (Agc, AmDemod, DcBlocker,  # noqa: F401
-                                      Fir, FmDemod, Iir, IqConvertI16,
+from sdr_tpu_torch.stream.ops import (Agc, AmDemod, Channelize,  # noqa: F401
+                                      DcBlocker, FftStream, Fir, FmDemod,
+                                      Iir, IqConvertI16,
                                       IqConvertU8, Map, Mix,
                                       ResampleFirScale, Scale, StereoDecode,
                                       U8FrontDemod, U8FrontEnd)

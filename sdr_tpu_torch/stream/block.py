@@ -36,6 +36,19 @@ class StreamOp:
 
     device: torch.device
 
+    def out_tail(self) -> tuple:
+        """The output's dims after its stream axis: ``()`` for sample
+        streams and channel banks (``[..., C, n]``), ``(size,)`` for FFT
+        frames (``[..., frames, size]``)."""
+        return ()
+
+    @property
+    def time_axis_out(self) -> int:
+        """The output's stream axis (negative): blocks join along it, and
+        a block-parallel run merges its rows into it.  -1, or -2 for FFT
+        frames."""
+        return -1 - len(self.out_tail())
+
     def out_len(self, n_in: int) -> int:
         return n_in
 
@@ -57,10 +70,10 @@ class StreamOp:
         raise NotImplementedError
 
     def shard_carry(self, xb: torch.Tensor, initial=None):
-        """Carries for block-parallel execution: ``xb[B, n]`` holds B
-        consecutive blocks of one stream; return the carry entering each
-        row, stacked on a leading [B] axis (row 0 gets ``initial``, or
-        the warmup carry when it is None)."""
+        """Carries for block-parallel execution: ``xb[B, ..., n]`` holds B
+        consecutive blocks of each stream of the leading dims; return the
+        carry entering each row, stacked on a leading [B] axis (row 0 gets
+        ``initial``, or the warmup carry when it is None)."""
         if type(self).init_carry is StreamOp.init_carry:
             return ()
         raise NotImplementedError(

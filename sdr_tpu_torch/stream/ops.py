@@ -18,6 +18,8 @@
   ``DcBlocker``         DC blocking IIR
   ``Scale``             y = k * x
   ``Map``               any elementwise function
+  ``FftStream``         windowed overlapping FFT frames (the waterfall)
+  ``Channelize``        polyphase DFT filterbank: wideband -> C channels
   ====================  ====================================================
 
 The ops with a u8 or resampler history read it and their block through
@@ -28,6 +30,9 @@ small ``cat(hist, x[:seam])``, the rest straight from the block.
 ``IqConvertU8(planar=True)``, ``U8FrontEnd`` and ``StereoDecode`` add a
 plane axis ([2] I/Q, [2] L/R), the planar ``FmDemod`` and ``AmDemod``
 consume one (``map_batch_shape``); the ops after them batch over it.
+``Channelize`` adds a channel axis the same way.  ``FftStream`` emits
+``[..., frames, size]``: its stream axis is -2 (``time_axis_out``, from
+``out_tail``).
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.resample import resample
 from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
-from sdr_tpu_torch.ops import convert, design, scans
+from sdr_tpu_torch.ops import convert, design, fftops, scans
+from sdr_tpu_torch.ops.channelize import polyphase_channelize
 from sdr_tpu_torch.ops.demod import am_demod, fm_demod, fm_demod_planar
 from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
                                    as_real_batch, fir_decimate, fir_filter)
@@ -56,7 +62,7 @@ from sdr_tpu_torch.utils.device import resolve_device
 __all__ = ["IqConvertU8", "IqConvertI16", "U8FrontDemod", "U8FrontEnd",
            "Fir", "FmDemod", "StereoDecode", "ResampleFirScale", "Iir",
            "Mix", "Agc", "AmDemod", "DcBlocker", "Scale", "Map",
-           "resampler_hist_len"]
+           "FftStream", "Channelize", "resampler_hist_len"]
 
 _F32 = torch.float32
 
@@ -882,3 +888,126 @@ class Map(StreamOp):
 
     def apply(self, carry, x):
         return carry, self.fn(x)
+
+
+class FftStream(StreamOp):
+    """Windowed overlapping FFT frames: ``[..., n]`` -> ``[..., n/hop,
+    size]``, every frame of a block in one batched ``torch.fft`` call (the
+    frame axis is the stream: ``time_axis_out = -2``).
+
+    ``window`` defaults to Hann; ``shift`` centres DC; ``magnitude``
+    emits ``|X|`` (f32), else the complex64 spectrum.  ``planar=True``
+    takes planar I/Q ``[..., 2, n]`` f32 (consuming the plane axis); it
+    requires ``magnitude=True``.  cuFFT takes complex input, so the planes
+    become complex64 before framing (the JAX package keeps them apart for
+    the TPU's matrix-unit FFT); the windowed frames are the same numbers,
+    and ``|X|`` is the complex form's (the JAX package's planar form
+    writes ``sqrt(re^2 + im^2)``, within an ulp of it).
+
+    Carry: the trailing ``size - hop`` input samples, zeros at warmup."""
+
+    def __init__(self, size: int, hop: int | None = None, window=None,
+                 shift: bool = True, magnitude: bool = True,
+                 planar: bool = False, device="cuda"):
+        self.size = int(size)
+        self.hop = int(hop) if hop is not None else self.size
+        if self.hop > self.size:
+            raise ValueError("hop must be <= size")
+        if planar and not magnitude:
+            raise ValueError("planar FftStream requires magnitude=True")
+        self.window = (np.asarray(window, dtype=np.float32)
+                       if window is not None else design.hanning(self.size))
+        self.shift = bool(shift)
+        self.magnitude = bool(magnitude)
+        self.planar = bool(planar)
+        self.device = resolve_device(device)
+        self._window = torch.as_tensor(self.window, device=self.device)
+
+    def out_len(self, n_in):
+        if n_in % self.hop:
+            raise ValueError("block must be divisible by hop")
+        return n_in // self.hop
+
+    def out_tail(self):
+        return (self.size,)
+
+    def out_dtype(self, in_dtype):
+        return _F32 if self.magnitude else torch.complex64
+
+    def map_batch_shape(self, batch_shape):
+        return tuple(batch_shape)[:-1] if self.planar else tuple(batch_shape)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        # planar: batch_shape ends with the [2] plane axis
+        return torch.zeros(tuple(batch_shape) + (self.size - self.hop,),
+                           dtype=in_dtype if in_dtype is not None else _F32,
+                           device=self.device)
+
+    def apply(self, carry, x):
+        xext = torch.cat([carry, x], dim=-1)
+        H = self.size - self.hop
+        new = xext[..., xext.shape[-1] - H:].clone() if H else carry
+        if self.planar:
+            xext = torch.complex(xext[..., 0, :], xext[..., 1, :])
+        # each intermediate is dropped as soon as the next exists: the
+        # frames of a 32 x 10 MiB batch take 2.7 GB
+        frames = fftops.frame(xext, self.size, self.hop, self._window)
+        del xext
+        F = fftops.fft(frames)
+        del frames
+        if self.magnitude:
+            F = F.abs()
+        if self.shift:
+            F = torch.fft.fftshift(F, dim=-1)
+        return new, F
+
+    def shard_carry(self, xb, initial=None):
+        return substitute_first(left_halo(xb, self.size - self.hop), initial)
+
+
+class Channelize(StreamOp):
+    """Streaming polyphase DFT filterbank (ops/channelize.py): wideband
+    complex ``[..., n]`` -> channel streams ``[..., C, n/C]`` complex64,
+    the channel axis a batch axis for the ops after it
+    (``map_batch_shape``), each channel's samples the stream.
+
+    Carry: the trailing ``(P - 1) * C`` wideband samples (P taps a
+    branch), zeros at warmup, so every block emits ``n/C`` samples a
+    channel with the branch filters' history."""
+
+    def __init__(self, taps, n_channels: int, device="cuda"):
+        self.n_channels = int(n_channels)
+        self.taps = np.asarray(taps, dtype=np.float32)
+        self.taps_per_branch = -(-self.taps.shape[0] // self.n_channels)
+        self.device = resolve_device(device)
+        self._taps = torch.as_tensor(self.taps, device=self.device)
+
+    def hist_len(self) -> int:
+        return (self.taps_per_branch - 1) * self.n_channels
+
+    def out_len(self, n_in):
+        if n_in % self.n_channels:
+            raise ValueError("block must be divisible by channel count")
+        return n_in // self.n_channels
+
+    def out_dtype(self, in_dtype):
+        return torch.complex64
+
+    def map_batch_shape(self, batch_shape):
+        return tuple(batch_shape) + (self.n_channels,)
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        return torch.zeros(tuple(batch_shape) + (self.hist_len(),),
+                           dtype=in_dtype if in_dtype is not None
+                           else torch.complex64, device=self.device)
+
+    def apply(self, carry, x):
+        xext = torch.cat([carry, x], dim=-1)
+        H = self.hist_len()
+        new = xext[..., xext.shape[-1] - H:].clone() if H else carry
+        y = polyphase_channelize(self._taps, self.n_channels, xext,
+                                 x.shape[-1] // self.n_channels)
+        return new, y
+
+    def shard_carry(self, xb, initial=None):
+        return substitute_first(left_halo(xb, self.hist_len()), initial)

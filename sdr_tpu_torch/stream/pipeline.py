@@ -84,6 +84,11 @@ class Pipeline:
             self.bshapes.append(op.map_batch_shape(self.bshapes[-1]))
         self.block_out = self.lens[-1]
         self.out_dtype = self.dtypes[-1]
+        # the output's stream axis, along which blocks join (-2 for FFT
+        # frames), and its dims after that axis
+        last = self.ops[-1] if self.ops else StreamOp()
+        self.out_tail = last.out_tail()
+        self.time_axis_out = last.time_axis_out
 
     # -- state -------------------------------------------------------------
 
@@ -159,7 +164,7 @@ class Pipeline:
         cs = carries if carries is not None else self.init()
 
         def flush(buf):
-            x = torch.cat([as_input(b, self.device) for b in buf])
+            x = torch.cat([as_input(b, self.device) for b in buf], dim=-1)
             return run_time_batched(self.ops, x, len(buf), carries=cs,
                                     return_carries=True, device=self.device)
 
@@ -175,12 +180,13 @@ class Pipeline:
 
     def process(self, signal, carries=None, parallel_blocks: int | None = None):
         """Chop a recorded signal ``[..., N]`` into blocks (a trailing partial
-        block is dropped), run them, and concatenate the outputs.  Returns
-        ``(final_carries, output)``.
+        block is dropped), run them, and concatenate the outputs along the
+        last op's stream axis (``time_axis_out``: FFT frames join along
+        -2).  Returns ``(final_carries, output)``.
 
-        ``parallel_blocks=B``: run segments of B blocks block-parallel
-        (1-D signals), with the state threaded across segments; the output
-        equals the sequential run."""
+        ``parallel_blocks=B``: run segments of B blocks block-parallel,
+        with the state threaded across segments; the output equals the
+        sequential run."""
         x = as_input(signal, self.device)
         nblocks = x.shape[-1] // self.block_in
         x = x[..., : nblocks * self.block_in]
@@ -194,7 +200,7 @@ class Pipeline:
             pos = 0
             while pos < nblocks:
                 g = min(parallel_blocks, nblocks - pos)
-                seg = x[pos * self.block_in:(pos + g) * self.block_in]
+                seg = x[..., pos * self.block_in:(pos + g) * self.block_in]
                 cs, y = run_time_batched(self.ops, seg, g, carries=cs,
                                          return_carries=True,
                                          device=self.device)
@@ -207,9 +213,9 @@ class Pipeline:
                 outs.append(y)
         if not outs:
             planes = self.bshapes[-1][len(self.batch_shape):]
-            return cs, x.new_empty(x.shape[:-1] + planes + (0,),
-                                   dtype=self.out_dtype)
-        return cs, torch.cat(outs, dim=-1)
+            shape = x.shape[:-1] + planes + (0,) + self.out_tail
+            return cs, x.new_empty(shape, dtype=self.out_dtype)
+        return cs, torch.cat(outs, dim=self.time_axis_out)
 
     def __repr__(self):
         stages = " >-> ".join(
