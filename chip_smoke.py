@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive sdr_tpu_torch's FM, AM, waterfall and channelizer paths on one
-NVIDIA GPU.
+"""Drive sdr_tpu_torch's FM, AM, waterfall, channelizer and transmitter
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K5 from ``sdr_tpu_torch/csrc`` (one nvcc
+It builds the CUDA kernels K1-K6 from ``sdr_tpu_torch/csrc`` (one nvcc
 per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit;
@@ -15,7 +15,8 @@ per source, all at once), then:
    196,608 audio samples per row) and at extra geometries (all three
    bitwise: row bases off 16-byte alignment, histories of 86, 2 and 30
    bytes, f in {1, 4, 8} and K in {16, 51, 63} with s8 and s16 taps for
-   K1; I/D in {3/10, 2/3, 5/4} with every offset, starts 0, 37 and 5 and
+   K1; I/D in {3/10, 2/3, 5/4} and the transmitter's 10/3 and 8/1 with
+   every offset, starts 0, 37 and 5 and
    histories of 5, 86 and 12,000 floats for K2; f in {1, 2, 3, 4, 5, 8,
    16}, K in {1, 51, 64, 65, 200}, starts 0 to 7 and one output below and
    above a tile multiple for K3; the most outputs a stream holds, reads
@@ -70,7 +71,26 @@ per source, all at once), then:
    block-parallel chain (launches {fir: 2}, the tone at 80 kS/s, peak
    memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
    (within 1e-4) and the plain CPU chain; and ``apps.am``;
-6. the waterfall path, ``waterfall_chain()`` (planar convert, then
+6. the AM path with the sequential AGC, ``am_chain(agc_approx=1)`` (the
+   complex form; the 64-tap decimate-by-16 ``Fir`` on K3, then K6 twice:
+   one sweep for each row's entering gain, then the AGC itself) on the
+   same capture: K6 bitwise against its plain version over the first
+   4,096 samples of all 32 rows (card), two whole rows of 327,680 (their
+   CPU copy) and the whole batch (card), with its bytes and latency
+   bounds and the linear form's time beside it; the block-parallel chain
+   (launches {fir: 2, agc_scan: 2}, the tone, peak memory, 20 timed
+   calls), the streamed run at 1,048,576-byte blocks (within 1e-3) and
+   the linear complex chain (within 1e-4);
+7. the transmitter, ``apps.fm_tx`` (10/3 and 8/1 ``Fir`` resamplers on
+   K2, ``FmMod``) on a 60 s, 1 kHz WAV: K2 at both stages on a streamed
+   block and on the whole recording as one block (bitwise, timed beside
+   ``conv_transpose1d``); the CLI's entry point in this process
+   (launches {resample: 124}) and as a command (its wall time, the same
+   file); the streamed output against one block over the whole
+   recording (the resampled stream bitwise, the modulated one within
+   1e-3); and the round trip, its i16 IQ as u8 through ``fm_chain()``
+   block-parallel in 32 blocks (K1, K2, K3): the tone within 5 Hz;
+8. the waterfall path, ``waterfall_chain()`` (planar convert, then
    ``FftStream``: Blackman-windowed 1,024-point frames at hop 512 on
    cuFFT; none of the port's kernels) on the mono broadcast: the rows'
    shape, the mean row's power inside Carson's band, no kernel launched,
@@ -79,7 +99,7 @@ per source, all at once), then:
    of each frame's peak, 20 timed calls and peak memory; the complex
    form, ``waterfall_chain(planar=False)``, against the planar rows
    (within 1e-5 of each frame's peak) and timed beside them;
-7. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
+9. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
    (``Channelize``, then per channel the 51-tap decimate-by-8 ``Fir`` on
    K3, the complex demod, the 3/10 ``Fir`` resampler on K2 and the 64-tap
    audio ``Fir`` on K3 at f = 1, the volume) on 32 blocks of 4,096,000
@@ -91,7 +111,7 @@ per source, all at once), then:
    passband, the streamed run within 1e-6, the plain CPU chain on 4
    blocks within 1e-4, 20 timed calls (wideband complex input
    samples/s) and peak memory;
-8. the narrowband channelizer, ``channelizer_chain(64)`` on [64,
+10. the narrowband channelizer, ``channelizer_chain(64)`` on [64,
    2,621,440] basebands (the CLI's synthetic formula) in 4 blocks: K3 at
    f = 8 (seam and main), K2 and K3 at f = 1 (seam and main) bitwise
    against their plain versions at the [4, 64] batch the path gives them,
@@ -103,7 +123,7 @@ per source, all at once), then:
    rates and lengths, the plain form's tones).  ``apps.waterfall`` writes
    its PNG through matplotlib, which the card's machine lacks; the CPU
    tests drive it;
-9. prints its own run time, ``{"kernels": [...]}`` (every kernel with
+11. prints its own run time, ``{"kernels": [...]}`` (every kernel with
    its launches on each path), the card line again, and last ``{"ok":
    true, "device": {...}}``.
 
@@ -145,6 +165,14 @@ TONE_CHANNELS = 49                    # tones 200 + 150 c Hz inside the audio
                                       # FIR's 7.5 kHz passband: c <= 48
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+AGC_PREFIX = 4_096                    # K6's samples checked on the card
+# K6's step, one sample's dependent chain in agc_scan_kernel<true>
+# (cuobjdump -sass): FMUL, FMUL, FADD, MUFU.RSQ, FMUL, FFMA, FFMA, FADD,
+# FMUL, FADD.  Latencies assumed, not measured: 4 cycles a dependent f32
+# instruction, 16 for MUFU.RSQ.
+K6_STEP_CYCLES = 9 * 4 + 16
+TX_SECONDS, TX_RATE, TX_TONE = 60, 48_000, 1_000.0   # the transmitter's WAV
+TX_BLOCK = 46_080                     # fm_tx's default block
 
 
 def require(cond, msg: str) -> None:
@@ -389,7 +417,8 @@ def fir_geometries(x0, taps):
 
 def resample_geometries(x0, taps):
     """K2's and K5's extra geometries over the 3 rows of ``x0``: I/D in
-    {3/10, 2/3, 5/4} with every phase offset, each at a row base 0 to 3
+    {3/10, 2/3, 5/4} and the transmitter's 10/3 (31 taps) and 8/1 (51
+    taps) with every phase offset, each at a row base 0 to 3
     floats off 16-byte alignment, a history of 5 (shorter than a phase's
     taps), 86 or 12,000 floats (longer than a tile's span), a start of 0,
     37 or 5, and 1 output, 3073 (one past a tile) and the most the stream
@@ -401,7 +430,8 @@ def resample_geometries(x0, taps):
     t33 = torch.as_tensor(rng.uniform(-1, 1, 33).astype(np.float32),
                           device=dev)
     i = 0
-    for I, D, K in ((3, 10, 31), (2, 3, 17), (5, 4, 40)):
+    for I, D, K in ((3, 10, 31), (2, 3, 17), (5, 4, 40), (10, 3, 31),
+                    (8, 1, 51)):
         table = torch.as_tensor(prepare_phase_table(
             rng.uniform(-1, 1, K).astype(np.float32), I), device=dev)
         for offset in range(I):
@@ -1245,6 +1275,277 @@ def run_am_cli(raw):
     print(f"am cli: {len(pcm)} samples at {rate} Hz, tone {hz:.2f} Hz")
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def check_agc_kernel(agc_op, x):
+    """K6 at the AM path's shapes: the decimated [32, 327,680] complex64
+    rows from the gains its sweep hands them.  Bitwise against the plain
+    version on the card over the first AGC_PREFIX samples of every row
+    (a prefix of a causal recurrence is an exact check of those samples),
+    over two whole rows on their CPU copy, and over the whole batch on
+    the card (timed); the stores-off launch gives the same gains.  Timed
+    beside the linear form (``scans.agc``, another algorithm with the same
+    output while the gain stays positive), with its bytes bound and its
+    latency bound (a row's samples times the step's dependent cycles)."""
+    from sdr_tpu_torch.kernels import agc
+    from sdr_tpu_torch.ops import scans
+    mu, ref = agc_op.mu, agc_op.reference
+    enter = agc_op.shard_carry(x)
+    y, g = agc.agc_scan(x, mu, ref, enter)
+    pre = x[:, :AGC_PREFIX].contiguous()
+    yp, gp = agc.agc_scan_reference(pre, mu, ref, enter)
+    yk, gk = agc.agc_scan(pre, mu, ref, enter)
+    err = max(max_err(y[:, :AGC_PREFIX], yp), max_err(yk, yp),
+              max_err(gk, gp))
+    yc, gc = agc.agc_scan_reference(x[:2].cpu(), mu, ref, enter[:2].cpu())
+    err_cpu = max(max_err(yc, y[:2].cpu()), max_err(gc, g[:2].cpu()))
+    _, g_off = agc.agc_scan(x, mu, ref, enter, store=False)
+    torch.cuda.synchronize()
+    require(torch.isfinite(y).all().item(), "K6 output finite")
+    require(err == 0, f"K6 vs plain on the card ({AGC_PREFIX}-sample "
+                      f"prefix of {x.shape[0]} rows) {err} != 0")
+    require(err_cpu == 0, f"K6 vs plain on the CPU (two rows) {err_cpu}")
+    require(torch.equal(g_off, g), "K6 with the stores off: other gains")
+    out = []                          # the one timed plain run's result
+    plain_ms = time_ms(
+        lambda: out.append(agc.agc_scan_reference(x, mu, ref, enter)), 1, 0)
+    err_full = max(max_err(out[0][0], y), max_err(out[0][1], g))
+    require(err_full == 0, f"K6 vs plain on the card, whole batch "
+                           f"{err_full} != 0")
+    del out
+
+    def lib():
+        return scans.agc(x, mu, ref, enter)
+
+    lib_diff = max_err(lib()[0], y)
+    n, clock = x.shape[-1], sm_clock_hz()
+    b, by = bound(nbytes(x, enter, y, g), 9 * x.numel(), "f32")
+    latency = n * K6_STEP_CYCLES / clock * 1e3
+    ms = time_ms(lambda: agc.agc_scan(x, mu, ref, enter), 5)
+    ms_off = time_ms(lambda: agc.agc_scan(x, mu, ref, enter, store=False),
+                     5)
+    print(f"K6 agc_scan: bitwise its plain version over the {AGC_PREFIX}-"
+          f"sample prefix of {x.shape[0]} rows (card), two whole rows "
+          f"(CPU) and the whole batch (card); {ms} ms a pass, {ms_off} ms "
+          f"with the stores off; latency bound {latency} ms ({n} samples x "
+          f"{K6_STEP_CYCLES} cycles at {clock / 1e9} GHz; computed, "
+          "not measured)")
+    return dict(
+        name=f"K6 agc_scan (AM sequential AGC, complex {list(x.shape)})",
+        kernel="agc_scan", route="cuda",
+        source="sdr_tpu_torch/csrc/agc_scan.cu",
+        replaces="none: sdr_tpu/ops/scans.py:146 (lax.scan, the step at "
+                 ":139)",
+        shape=f"{list(x.shape)} complex64 -> the same and {list(g.shape)} "
+              "gains",
+        max_abs_err=max(err, err_cpu, err_full), ms=ms, ms_stores_off=ms_off,
+        plain_ms=plain_ms, bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        latency_bound_ms=latency, latency_fraction=latency / ms,
+        library_ms=time_ms(lib, 5), library_max_abs_diff=lib_diff,
+        library_note="the linear form (scans.agc, method='linear', chunked "
+                     "associative scans): another algorithm, the same "
+                     "output while the gain stays positive")
+
+
+def run_am_approx(raw, ops, kernels):
+    """``am_chain(agc_approx=1)`` block-parallel (launches, tone, peak
+    memory, 20 timed calls), streamed at the CLI's blocks (within 1e-3,
+    the JAX package's bound for the sweeps), and against the linear
+    complex chain (within 1e-4)."""
+    from sdr_tpu_torch.apps.chains import am_chain
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.stream import Pipeline
+
+    counted_call(ops, raw, kernels)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    y, launches = counted_call(ops, raw, kernels)
+    peak = torch.cuda.max_memory_allocated()
+    # the decimator's seam and main launches; the sweep and the apply
+    require_launches(launches, {"fir": 2, "agc_scan": 2},
+                     "AM path, sequential AGC")
+    out = y.cpu().numpy()
+    require(out.shape == (ROWS * ROW_BYTES // 32,),
+            f"AM sequential-AGC output {out.shape}")
+    require(np.isfinite(out).all(), "AM sequential-AGC output finite")
+    hz = am_tone_hz(out)
+    require(abs(hz - F_AM) < 10, f"AM sequential-AGC tone at {hz} Hz")
+    print(f"AM sequential-AGC block-parallel chain: {ROWS} x {ROW_BYTES} "
+          f"bytes; peak memory {peak} bytes; tone {hz:.2f} Hz at {AM_RATE} "
+          f"S/s; launches in one call {launches}")
+    time_chain(ops, raw, "AM sequential-AGC block-parallel chain")
+
+    pipe = Pipeline(ops, block_in=AM_BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = torch.cat(list(pipe.run(raw[i:i + AM_BLOCK] for i in
+                                       range(0, raw.numel(), AM_BLOCK))))
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    dstream = max_err(streamed, y)
+    require(dstream <= 1e-3,
+            f"AM sequential-AGC streamed vs block-parallel {dstream}")
+    print(f"AM sequential-AGC streamed Pipeline.run at {AM_BLOCK}-byte "
+          f"blocks: max abs diff to block-parallel {dstream}; "
+          f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+    linear = run_time_batched(am_chain(planar=False, device=ops[0].device),
+                              raw, ROWS)
+    dlin = max_err(linear, y)
+    require(dlin <= 1e-4, f"AM sequential vs linear AGC chain {dlin}")
+    print(f"AM sequential-AGC vs the linear complex chain: max abs diff "
+          f"{dlin}")
+    return launches
+
+
+def write_tone_wav(path, seconds: int, freq: float, rate: int = TX_RATE):
+    """A mono 16-bit WAV of a tone at 0.8 (tests/test_io_apps.py's
+    transmitter input); returns its samples as fm_tx reads them."""
+    audio = 0.8 * np.sin(2 * np.pi * freq * np.arange(seconds * rate)
+                         / rate)
+    pcm = (audio * 32767).astype("<i2")
+    with wave.open(str(path), "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(rate)
+        wf.writeframes(pcm.tobytes())
+    return (pcm / 32768.0).astype(np.float32)
+
+
+def check_tx_kernels(audio, ops):
+    """K2 at the transmitter's two interpolating stages, bitwise against
+    its plain version and timed beside ``conv_transpose1d``: one streamed
+    block (the launch-bound case) and the whole recording as one block."""
+    n = audio.numel() // TX_BLOCK * TX_BLOCK
+    rows = []
+    for what, x in (("streamed block", audio[:TX_BLOCK].view(1, -1)),
+                    ("whole recording", audio[:n].view(1, -1))):
+        for op in ops[:2]:
+            I, D = op.spec.interpolation, op.spec.decimation
+            rows.append(check_resampler_kernel(
+                f"K2 resample (transmitter {I}/{D}, {what} "
+                f"{list(x.shape)}, {op.spec.n_taps} taps)", op, x,
+                interp=True))
+            _, x = op.apply(op.shard_carry(x), x)
+    return rows
+
+
+def run_fm_tx(kernels, device):
+    """The transmitter on a TX_SECONDS, 1 kHz WAV: ``apps.fm_tx`` in this
+    process with the launch counters read around it (124 K2 launches:
+    two a block) and as a user runs it (``python -m``, its wall time as
+    IQ samples/s against real time; the same file); its streamed output
+    against the same chain run as one block over the whole recording;
+    then the round trip, the i16 IQ converted to u8 as
+    tests/test_io_apps.py does and received by ``fm_chain()``
+    block-parallel in 32 blocks: the tone within 5 Hz.  Returns the
+    transmitter's launches and its K2 rows."""
+    from sdr_tpu_torch.apps import fm_tx
+    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.ops.demod import fm_demod
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.stream import Pipeline
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "tone.wav")
+        audio = torch.as_tensor(write_tone_wav(wav, TX_SECONDS, TX_TONE),
+                                device=device)
+        ops = fm_tx.tx_chain(TX_RATE, 75_000, device=device)
+        rows = check_tx_kernels(audio, ops)
+
+        # the CLI's entry point in this process: the path's launches
+        ours = os.path.join(tmp, "tx.iq")
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        require(fm_tx.main(["--in", wav, "--out", ours]) == 0,
+                "fm_tx in this process")
+        torch.cuda.synchronize()
+        t_in = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        nb = audio.numel() // TX_BLOCK
+        require_launches(launches, {"resample": 2 * nb}, "transmitter path")
+        iq = torch.from_numpy(np.fromfile(ours, np.int16))
+        n_iq = nb * TX_BLOCK * 80 // 3
+        require(iq.numel() == 2 * n_iq, f"fm_tx wrote {iq.numel()} values")
+
+        # as a user runs it
+        theirs = os.path.join(tmp, "tx2.iq")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sdr_tpu_torch.apps.fm_tx", "--in", wav,
+             "--out", theirs], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        print(f"fm_tx cli: rc {proc.returncode} {proc.stdout.strip()}")
+        require(proc.returncode == 0, f"fm_tx cli failed: {proc.stderr}")
+        require(np.array_equal(np.fromfile(theirs, np.int16), iq.numpy()),
+                "fm_tx cli and fm_tx.main wrote different files")
+        print(f"fm_tx: {TX_SECONDS} s at {TX_RATE} Hz in {nb} blocks of "
+              f"{TX_BLOCK} -> {n_iq} IQ samples ({2 * iq.numel()} bytes of "
+              f"i16); launches {launches}; in this process {t_in:.3f} s "
+              f"({n_iq / t_in:.6e} IQ samples/s), as a command {t_cli:.3f} "
+              f"s ({n_iq / t_cli:.6e} IQ samples/s, "
+              f"{n_iq / t_cli / FS_IN:.2f}x real time at {FS_IN} S/s)")
+
+    # streamed against one block over the whole recording: the resampled
+    # stream bitwise (per-output sums), the modulated one within the JAX
+    # package's streamed-vs-whole bound (the phase sum's order follows
+    # the block edges: ROADMAP H12)
+    n = nb * TX_BLOCK
+    _, up_s = Pipeline(ops[:2], block_in=TX_BLOCK,
+                       in_dtype=torch.float32).process(audio[:n])
+    _, up_w = Pipeline(ops[:2], block_in=n,
+                       in_dtype=torch.float32).process(audio[:n])
+    require(torch.equal(up_s, up_w), "transmitter resampled stream: "
+            f"streamed vs whole {max_err(up_s, up_w)}")
+    del up_s, up_w
+    _, y_s = Pipeline(ops, block_in=TX_BLOCK,
+                      in_dtype=torch.float32).process(audio[:n])
+    _, y_w = Pipeline(ops, block_in=n,
+                      in_dtype=torch.float32).process(audio[:n])
+    dwhole = max_err(y_s, y_w)
+    ddemod = max_err(fm_demod(y_s)[0], fm_demod(y_w)[0])
+    require(dwhole <= 1e-3, f"transmitter streamed vs whole {dwhole}")
+    require(ddemod <= 2e-3, f"transmitter streamed vs whole, demodulated "
+                            f"{ddemod}")
+    print(f"transmitter streamed ({nb} blocks) vs one block over the whole "
+          f"recording: resampled stream bitwise equal; modulated max abs "
+          f"diff {dwhole}; demodulated max abs diff {ddemod} rad")
+    del y_s, y_w
+
+    # the round trip through the receiver
+    z = iq.to(device).float() / 2048.0
+    u8 = torch.clamp(torch.round(z * 128 + 128), 0, 255).to(torch.uint8)
+    del z
+    rx = fm_chain(device=device)
+    blk = u8.numel() // ROWS // 160 * 160
+    Pipeline(rx, block_in=blk)                 # a valid block, or raises
+    prefix = u8[:ROWS * blk]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    y = run_time_batched(rx, prefix, ROWS)
+    torch.cuda.synchronize()
+    rx_launches = {k.name: k.launches for k in kernels}
+    out = y.cpu().numpy()
+    require(np.isfinite(out).all(), "round trip output finite")
+    hz = tone_hz(out)
+    require(abs(hz - TX_TONE) < 5, f"round trip tone at {hz} Hz")
+    print(f"round trip: {prefix.numel()} u8 bytes in {ROWS} blocks of "
+          f"{blk} through fm_chain() -> {out.shape[0]} audio samples; tone "
+          f"{hz:.2f} Hz; launches {rx_launches}")
+    return launches, rows
+
+
 def run_waterfall(raw, ops, kernels):
     """The waterfall path block-parallel (no kernel of the port: the
     launch counts, the rows' shape, the power inside Carson's band, peak
@@ -1342,10 +1643,32 @@ def synth_wideband_bank(n: int, seed: int, device) -> torch.Tensor:
     return torch.complex(re, im)
 
 
-def check_resampler_kernel(name: str, fir_op, x):
+def library_interp(fir_op, hist, x, num: int):
+    """One PyTorch call for an interpolating resampler's function over
+    ``concat(hist, x)``: ``conv_transpose1d`` with stride I over the
+    reversed taps (the zero-stuffed stream filtered), then every D-th
+    output from the stream's first phase.  Output m reads the stuffed
+    stream at ``m*D - offset``, the transposed convolution's output
+    ``K - 1`` further.  The input is made here, outside the call."""
+    I, D = fir_op.spec.interpolation, fir_op.spec.decimation
+    w = torch.flip(fir_op._taps, (0,)).view(1, 1, -1)
+    a = w.shape[-1] - 1 - fir_op.offset
+    v = torch.cat([hist, x], dim=-1)
+    v = v.reshape(-1, 1, v.shape[-1])
+
+    def call():
+        z = torch.nn.functional.conv_transpose1d(v, w, stride=I)
+        return z[:, 0, a::D][:, :num].reshape(x.shape[:-1] + (num,))
+
+    return call
+
+
+def check_resampler_kernel(name: str, fir_op, x, interp: bool = False):
     """K2 as a resampling ``Fir`` launches it over the block-parallel
     batch ``x`` (history from the halo, start 0), bitwise against the
-    plain version, timed beside one ``conv1d`` of the same function."""
+    plain version, timed beside one ``conv1d`` of the same function (the
+    polyphase filters, then the interleave), or with ``interp`` one
+    ``conv_transpose1d`` (:func:`library_interp`)."""
     from sdr_tpu_torch.kernels import resample
     I, D = fir_op.spec.interpolation, fir_op.spec.decimation
     Kp = fir_op.spec.taps_per_phase
@@ -1357,8 +1680,9 @@ def check_resampler_kernel(name: str, fir_op, x):
     torch.cuda.synchronize()
     require(torch.isfinite(y).all().item(), f"{name} output finite")
     require(err == 0, f"{name} vs plain {err} != 0")
-    lib = library_resample(fir_op.spec.phase_table, [1.0], I, D,
-                           fir_op.offset, hist, x, num)
+    lib = (library_interp(fir_op, hist, x, num) if interp else
+           library_resample(fir_op.spec.phase_table, [1.0], I, D,
+                            fir_op.offset, hist, x, num))
     b, by = bound(nbytes(x, hist, fir_op._table, y), 2 * Kp * y.numel(),
                   "f32")
     ms = time_ms(lambda: resample.resample(*a), 20)
@@ -1372,6 +1696,9 @@ def check_resampler_kernel(name: str, fir_op, x):
         plain_ms=time_ms(lambda: resample.resample_reference(*a), 3, 1),
         bound_ms=b, bound_by=by, bound_fraction=b / ms,
         library_ms=time_ms(lib, 20), library_max_abs_diff=max_err(lib(), y))
+    if interp:
+        row["library_note"] = (f"conv_transpose1d, stride {I}, over the "
+                               f"reversed taps, then every {D}-th output")
     print_no_fma_floor(name, Kp, y.numel())
     return row
 
@@ -1673,7 +2000,21 @@ def main(argv=None) -> int:
     print_rows(arows, card)
     am = run_am_chain(raw, ops, KERNELS)
     run_am_cli(raw)
+
+    # the AM path with the sequential AGC: K3 at f = 16, K6 (sweep, apply)
+    ops = am_chain(agc_approx=1, device=device)
+    _, xc = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
+    _, xc = ops[1].apply(ops[1].shard_carry(xc), xc)
+    _, xc = ops[2].apply(ops[2].shard_carry(xc), xc)
+    qrows = [check_agc_kernel(ops[3], xc)]
+    del xc
+    print_rows(qrows, card)
+    am_approx = run_am_approx(raw, ops, KERNELS)
     del raw, ops
+
+    # the transmitter: K2 at 10/3 and 8/1, its CLI, the round trip
+    fm_tx_path, trows = run_fm_tx(KERNELS, device)
+    print_rows(trows, card)
 
     # the waterfall: planar convert, FftStream on cuFFT; no kernel of ours
     raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
@@ -1700,7 +2041,8 @@ def main(argv=None) -> int:
     # launches: each row's on the path its shapes come from, and on every
     # path, each path's counts taken around one call of its own
     paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused,
-             "mono_exact": exact, "am": am, "waterfall": waterfall,
+             "mono_exact": exact, "am": am, "am_approx": am_approx,
+             "fm_tx": fm_tx_path, "waterfall": waterfall,
              "channelizer_wideband": wideband, "channelizer": narrowband}
     for r in rows:
         r["launches"] = mono[r["kernel"]]
@@ -1715,7 +2057,11 @@ def main(argv=None) -> int:
         r["launches"] = wideband[r["kernel"]]
     for r in nrows:
         r["launches"] = narrowband[r["kernel"]]
-    rows += srows + erows + arows + crows + nrows
+    for r in qrows:
+        r["launches"] = am_approx[r["kernel"]]
+    for r in trows:
+        r["launches"] = fm_tx_path[r["kernel"]]
+    rows += srows + erows + arows + qrows + trows + crows + nrows
     for r in rows:
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, "

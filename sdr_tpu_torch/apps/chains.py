@@ -9,8 +9,7 @@ a TPU); an optional stereo decoder; the fused back (resample -> FIR ->
 volume) or the three separate stages; optional de-emphasis.
 
 ``am_chain``: the AM/airband receiver (mix to DC, decimating channel
-filter, AGC, envelope, DC block, volume).  Options that wait for a later
-slice of the port raise ``NotImplementedError`` naming it.
+filter, AGC, envelope, DC block, volume).
 
 ``waterfall_chain``: u8 IQ -> windowed overlapping FFT magnitude rows.
 ``channelizer_chain``: the 64-channel FM bank, per-channel basebands or
@@ -130,22 +129,23 @@ def am_chain(if_freq: float = 0.25, decim: int = 16, agc_mu: float = 0.005,
     ``planar`` (default: True unless ``agc_approx`` is given): the chain
     in planar f32 I/Q, the AGC's gains from the all-real envelope; False:
     complex64 up to the envelope.  The AGC is the linear form, exact
-    block-parallel.  ``agc_approx=R`` (the sequential AGC with R sweeps of
-    approximate block-parallel carries) waits for a later slice."""
+    block-parallel.  ``agc_approx=R`` selects the literal sequential AGC
+    (K6 on the card; complex form only) with R sweeps of approximate
+    block-parallel carries, the fallback where ``mu*|x| > 1``."""
     if planar is None:
         planar = agc_approx is None
     if planar and agc_approx is not None:
         raise ValueError("agc_approx (the sequential-AGC fallback) is "
                          "complex-form only; pass planar=False")
-    if agc_approx is not None:
-        raise NotImplementedError(
-            "am_chain(agc_approx=R) (the sequential AGC) waits for the "
-            "sequential-AGC slice of the port")
     chan = design.windowed_sinc(64, 1.0 / decim, design.hamming)
+    agc = (Agc(agc_mu, 1.0, planar=planar, device=device)
+           if agc_approx is None else
+           Agc(agc_mu, 1.0, method="scan", approx_time_sharding=agc_approx,
+               device=device))
     return [IqConvertU8(planar=planar, device=device),
             Mix(-if_freq, planar=planar, device=device),
             Fir.decimator(chan, decim, device=device),
-            Agc(agc_mu, 1.0, planar=planar, device=device),
+            agc,
             AmDemod(planar=planar, device=device),
             DcBlocker(device=device),
             Scale(volume, device=device)]

@@ -6,6 +6,10 @@ or planar-complex input (``fm_demod_planar``).  In the planar form each
 product, sum and polynomial step is one rounded f32 operation, in the
 order the CUDA kernel (csrc/u8_front_demod.cu) performs them, so the two
 agree bitwise on the card.  AM: the envelope ``|x|``.
+
+FM modulation (``fm_mod``, the transmit side): the phase is the
+cumulative sum of ``sensitivity * x`` (:func:`cumsum`, in the JAX
+package's order on the CPU), carried across blocks mod 2*pi.
 """
 
 from __future__ import annotations
@@ -13,7 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fast_atan2", "fm_demod", "fm_demod_planar", "am_demod"]
+__all__ = ["fast_atan2", "fm_demod", "fm_demod_planar", "am_demod",
+           "cumsum", "fm_mod"]
+
+_TWO_PI = float(np.float32(2 * np.pi))
+CUMSUM_RUN = 16
 
 # atan(z) = z * P(z^2) on [0, 1]: degree-6 fit, max error 5.8e-7 rad
 # (the same coefficients as the JAX package and the CUDA kernel).
@@ -74,3 +82,56 @@ def fm_demod(x: torch.Tensor, last: torch.Tensor | None = None):
 def am_demod(x: torch.Tensor) -> torch.Tensor:
     """AM envelope ``|x|`` of complex ``x``; stateless."""
     return x.abs()
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 cumulative sum over the last axis in one fixed order:
+    each run of CUMSUM_RUN samples summed from its start, the runs' totals
+    summed the same way (recursively), and each run then offset by the
+    total of the runs before it.
+
+    It is the order the JAX package's ``jnp.cumsum`` takes on the CPU (its
+    windowed reduction is rewritten into runs of 16), so the two agree
+    bitwise there.  Every step is one f32 add over whole rows (no
+    per-sample loop), so the card gives the CPU's sums bit for bit, where
+    ``torch.cumsum`` sums in double on the CPU and in another order on
+    the card.  Each sum passes through at most 15 adds a level and
+    ``log16(n)`` levels, so its rounding grows with ``log(n)``, not
+    ``n``."""
+    L = CUMSUM_RUN
+    lead, n = x.shape[:-1], x.shape[-1]
+    if n <= 1:
+        return x.clone()
+    m = -(-n // L)
+    runs = torch.nn.functional.pad(x, (0, m * L - n))
+    # [L, *lead, m]: step k adds one contiguous row to the next
+    t = runs.reshape(lead + (m, L)).movedim(-1, 0).contiguous()
+    for k in range(1, L):
+        t[k] += t[k - 1]
+    totals = cumsum(t[L - 1])
+    t[:, ..., 1:] += totals[..., :-1]
+    return t.movedim(0, -1).reshape(lead + (m * L,))[..., :n]
+
+
+def fm_mod(x: torch.Tensor, sensitivity: float, phase=0.0,
+           amplitude: float = 1.0):
+    """FM-modulate a real signal ``x[..., n]`` to complex64 baseband, the
+    transmit-side inverse of :func:`fm_demod`:
+
+        phi[n] = phi[n-1] + sensitivity * x[n],   y[n] = A * e^{j phi[n]}
+
+    ``sensitivity`` is radians a sample per unit input (2*pi*deviation /
+    fs), ``phase`` the phase before the block (a number or ``[...]``).
+    Returns ``(y, final_phase)``, the final phase ``phi[..., -1]`` mod 2*pi
+    (f32, in [0, 2*pi)) for the next block.  Every step is f32 in the JAX
+    function's order: the product, the cumulative sum, the phase added,
+    then ``A*cos`` and ``A*sin``."""
+    x = x.to(torch.float32)
+    if not isinstance(phase, torch.Tensor):
+        phase = torch.full(x.shape[:-1], float(np.float32(phase)),
+                           dtype=torch.float32, device=x.device)
+    phi = cumsum(x * float(np.float32(sensitivity))) + phase[..., None]
+    a = float(np.float32(amplitude))
+    y = torch.complex(a * torch.cos(phi), a * torch.sin(phi))
+    r = torch.fmod(phi[..., -1], _TWO_PI)
+    return y, torch.where(r < 0, r + _TWO_PI, r)

@@ -16,9 +16,10 @@ With a nonnegative gain ``|x*g| = |x|*g``, so ``g[n+1] = g[n] * (1 -
 mu*|x[n]|) + mu*reference``: a first-order linear recurrence with a
 time-varying coefficient, evaluated by :func:`linear_scan`.  The premise
 fails only at loop gains ``mu*|x| > 1``, where the true AGC is unstable
-anyway (the JAX package's module docstring has the argument).  The JAX
-package's literal sequential form (``method='scan'``) waits for a later
-slice of the port.
+anyway (the JAX package's module docstring has the argument).
+``method='scan'`` runs the literal sequential recurrence instead, the
+oracle and the form for ``mu*|x| > 1``: a loop over samples, on the card
+kernel K6 (kernels/agc.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sdr_tpu_torch.kernels.agc import agc_scan
 from sdr_tpu_torch.ops.iir import linear_recurrence
 from sdr_tpu_torch.parallel.halo import exclusive_affine_prefix
 
@@ -135,16 +137,18 @@ def agc_gains(m: torch.Tensor, mu: float, reference: float, state=1.0):
 
 
 def agc(x: torch.Tensor, mu: float, reference: float, state=1.0,
-        method: str = "linear"):
+        method: str = "linear", store: bool = True):
     """Automatic gain control; returns ``(y, final_gain)``.  Complex or
     real ``x``; the gain is real and starts at ``state`` (1 in the
-    reference).  ``method='linear'`` only: the sequential ``'scan'`` form
-    waits for a later slice of the port (a recurrence kernel of its
-    own)."""
+    reference).  ``method='linear'`` evaluates the recurrence as a linear
+    scan (exact under the positive-gain premise); ``'scan'`` is the
+    literal sequential form, ``|y|`` taken from the real planes
+    (kernels/agc.py), with ``store=False`` returning only the final
+    gain (``y`` None)."""
     if method == "scan":
-        raise NotImplementedError(
-            "agc(method='scan') (the sequential AGC) waits for the "
-            "sequential-AGC slice of the port")
+        return agc_scan(x.contiguous(), mu, reference,
+                        _state(state, x.shape[:-1], x.device).contiguous(),
+                        store)
     if method != "linear":
         raise ValueError(f"unknown agc method {method!r}")
     g, final = agc_gains(x.abs().to(_F32), mu, reference, state)

@@ -29,8 +29,18 @@ def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
 
     ``initials``: per-op carries entering row 0 (a previous segment's final
     state).  ``return_carries``: ``fn`` returns ``(carries, y)`` with each
-    op's carry after every row, stacked on the [B] axis."""
+    op's carry after every row, stacked on the [B] axis.
+
+    Raises ``ValueError`` before running anything when an op has no
+    block-parallel form (``time_shardable`` False)."""
     ops = list(ops)
+    for i, op in enumerate(ops):
+        if not op.time_shardable:
+            raise ValueError(
+                f"stage {i} ({op!r}) does not support time sharding "
+                "(nonlinear carry). For Agc, construct it with "
+                "approx_time_sharding=R to enable the documented "
+                "approximate mode, or shard channels instead.")
 
     def fn(xb):
         new = []
@@ -76,6 +86,8 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     ``carries`` (per-op state from a previous segment) and
     ``return_carries=True`` continue a stream exactly across segments;
     the returned carries are the state after the last block."""
+    fn = time_sharded_fn(ops, initials=carries,
+                         return_carries=return_carries)
     device = resolve_device(device)
     x = as_input(x, device)
     n, lead = x.shape[-1], x.shape[:-1]
@@ -86,8 +98,7 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     # [B, *lead, n]: the kernels take contiguous rows (a copy only when
     # there are leading dims and more than one block)
     xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
-    out = time_sharded_fn(ops, initials=carries,
-                          return_carries=return_carries)(xb.contiguous())
+    out = fn(xb.contiguous())
     if not return_carries:
         return _restack(out, t_axis)
     cb, yb = out

@@ -1,7 +1,8 @@
 """Where the time of a block-parallel chain goes on the card.
 
     python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|exact|am|
-                                        waterfall|channelizer|channelizer_nb]
+                                        am_approx|waterfall|channelizer|
+                                        channelizer_nb]
 
 Runs ``run_time_batched`` over the chain's input (the main path's 32
 blocks of 10,485,760 bytes of random u8 IQ; for the channelizers random
@@ -26,7 +27,8 @@ The idle share is ``1 - busy / span``, busy from 2 and the unprofiled
 median span from 1.  The chain (``--chain``) is ``fm_chain()`` (mono,
 the fused front, the default), ``stereo``: ``fm_chain(front='quantized',
 stereo=True, deemphasis=75e-6)``, ``exact``: ``fm_chain(front='exact')``
-(the complex f32 front), ``am``: ``am_chain()``, ``waterfall``:
+(the complex f32 front), ``am``: ``am_chain()``, ``am_approx``:
+``am_chain(agc_approx=1)`` (the sequential AGC on K6), ``waterfall``:
 ``waterfall_chain()``, ``channelizer``: ``channelizer_chain(64,
 wideband=True)``, or ``channelizer_nb``: ``channelizer_chain(64)``.  No
 chain's work depends on the data but through the stereo pilot lock,
@@ -74,6 +76,7 @@ CHAINS = {
                                 deemphasis=75e-6), _u8, ROWS),
     "exact": (lambda: fm_chain(front="exact"), _u8, ROWS),
     "am": (am_chain, _u8, ROWS),
+    "am_approx": (lambda: am_chain(agc_approx=1), _u8, ROWS),
     "waterfall": (waterfall_chain, _u8, ROWS),
     "channelizer": (lambda: channelizer_chain(64, wideband=True),
                     lambda: _complex(ROWS * 4_096_000), ROWS),

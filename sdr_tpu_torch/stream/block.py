@@ -35,6 +35,9 @@ class StreamOp:
     ``map_batch_shape``."""
 
     device: torch.device
+    # False where no block-parallel form exists (the sequential Agc
+    # without its approximate sweeps): runners refuse the op up front
+    time_shardable: bool = True
 
     def out_tail(self) -> tuple:
         """The output's dims after its stream axis: ``()`` for sample

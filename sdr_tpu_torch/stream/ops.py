@@ -8,12 +8,14 @@
   ``Fir``               FIR filter / decimator (K3) / rational resampler
                         (K2), real, planar or complex
   ``FmDemod``           complex or planar I/Q -> FM demod
+  ``FmMod``             real -> complex64 FM modulation, phase carried
   ``StereoDecode``      FM composite -> L/R planes (five FIRs on K3)
   ``ResampleFirScale``  rational resample (K2) -> FIR with the gain folded
                         into its taps (K3); ``fused=True``: both in K5
   ``Iir``               cascaded biquads (ops/iir.py), e.g. de-emphasis
   ``Mix``               multiply by a local oscillator, phase carried
-  ``Agc``               automatic gain control (the linear form)
+  ``Agc``               automatic gain control (linear, or sequential on
+                        K6)
   ``AmDemod``           AM envelope
   ``DcBlocker``         DC blocking IIR
   ``Scale``             y = k * x
@@ -47,7 +49,8 @@ from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
 from sdr_tpu_torch.ops import convert, design, fftops, scans
 from sdr_tpu_torch.ops.channelize import polyphase_channelize
-from sdr_tpu_torch.ops.demod import am_demod, fm_demod, fm_demod_planar
+from sdr_tpu_torch.ops.demod import (am_demod, fm_demod, fm_demod_planar,
+                                     fm_mod)
 from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
                                    as_real_batch, fir_decimate, fir_filter)
 from sdr_tpu_torch.ops.iir import companion_power, linear_recurrence
@@ -55,13 +58,14 @@ from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.ops.shift import oscillator, oscillator_planar
 from sdr_tpu_torch.parallel.halo import (exclusive_affine_prefix,
                                          exclusive_matrix_affine_prefix,
-                                         left_halo, substitute_first)
+                                         left_halo, right_shift_scalar,
+                                         substitute_first)
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.utils.device import resolve_device
 
 __all__ = ["IqConvertU8", "IqConvertI16", "U8FrontDemod", "U8FrontEnd",
-           "Fir", "FmDemod", "StereoDecode", "ResampleFirScale", "Iir",
-           "Mix", "Agc", "AmDemod", "DcBlocker", "Scale", "Map",
+           "Fir", "FmDemod", "FmMod", "StereoDecode", "ResampleFirScale",
+           "Iir", "Mix", "Agc", "AmDemod", "DcBlocker", "Scale", "Map",
            "FftStream", "Channelize", "resampler_hist_len"]
 
 _F32 = torch.float32
@@ -370,6 +374,30 @@ class FmDemod(StreamOp):
 
     def shard_carry(self, xb, initial=None):
         return substitute_first(left_halo(xb, 1)[..., 0], initial)
+
+
+class FmMod(StreamOp):
+    """FM modulator (the transmit side, ops/demod.py:fm_mod): real f32
+    blocks -> complex64, the phase carried mod 2*pi (zeros at warmup).
+    Like the JAX op it has no block-parallel form: the phase entering a
+    block is the whole stream's sum before it."""
+
+    def __init__(self, sensitivity: float, amplitude: float = 1.0,
+                 device="cuda"):
+        self.sensitivity = float(sensitivity)
+        self.amplitude = float(amplitude)
+        self.device = resolve_device(device)
+
+    def out_dtype(self, in_dtype):
+        return torch.complex64
+
+    def init_carry(self, n_in, batch_shape=(), in_dtype=None):
+        return torch.zeros(tuple(batch_shape), dtype=_F32,
+                           device=self.device)
+
+    def apply(self, carry, x):
+        y, phase = fm_mod(x, self.sensitivity, carry, self.amplitude)
+        return phase, y
 
 
 class StereoDecode(StreamOp):
@@ -783,15 +811,24 @@ class AmDemod(StreamOp):
 
 
 class Agc(StreamOp):
-    """Automatic gain control with the gain carried (ops/scans.py, the
-    linear form): complex64 blocks, or planar I/Q ``[..., 2, n]`` with
-    ``planar=True`` (the gains from the all-real envelope, both planes
-    scaled by them).
+    """Automatic gain control with the gain carried (ops/scans.py):
+    complex64 blocks, or planar I/Q ``[..., 2, n]`` with ``planar=True``
+    (the gains from the all-real envelope, both planes scaled by them).
 
-    Block-parallel runs are exact: each row reduces to one affine map on
-    its entering gain (``scans.agc_affine``), composed over the rows by
-    ``exclusive_affine_prefix``.  ``method='scan'`` (the sequential
-    recurrence) and ``approx_time_sharding`` wait for a later slice.
+    ``method='linear'`` (the default) is exact block-parallel: each row
+    reduces to one affine map on its entering gain (``scans.agc_affine``),
+    composed over the rows by ``exclusive_affine_prefix``.
+
+    ``method='scan'``: the literal sequential recurrence (kernel K6 on the
+    card), the oracle and the form for ``mu*|x| > 1``; complex or real
+    blocks, not planar.  It has no exact block-parallel form: runners
+    refuse it unless ``approx_time_sharding=R`` opts into R sweeps, each
+    running every row's scan from its entering gain and handing each
+    row's final gain to the next row.  The recurrence forgets its entering
+    gain exponentially (by a factor of about ``1 - mu*|x|`` a sample), so
+    after one sweep a row's entering gain is off by the decay over a whole
+    block: far below the chains' bounds for blocks much longer than the
+    AGC's time constant.
 
     Carry: the gain entering the next block (one per stream: the planar
     form drops the plane axis), ``initial`` at warmup."""
@@ -804,14 +841,15 @@ class Agc(StreamOp):
         if planar and method != "linear":
             raise ValueError("Agc(planar=True) supports only the linear "
                              "method (the all-real gain scan)")
-        if method == "scan" or approx_time_sharding is not None:
-            raise NotImplementedError(
-                "Agc(method='scan') and approx_time_sharding (the "
-                "sequential AGC) wait for the sequential-AGC slice of the "
-                "port")
+        if approx_time_sharding is not None and approx_time_sharding < 1:
+            raise ValueError("approx_time_sharding must be >= 1")
         self.mu, self.reference = float(mu), float(reference)
         self.initial = float(initial)
+        self.method = method
         self.planar = bool(planar)
+        self.approx_time_sharding = approx_time_sharding
+        self.time_shardable = (method == "linear"
+                               or approx_time_sharding is not None)
         self.device = resolve_device(device)
 
     def init_carry(self, n_in, batch_shape=(), in_dtype=None):
@@ -823,16 +861,34 @@ class Agc(StreamOp):
             g, final = scans.agc_gains(_envelope(x), self.mu,
                                        self.reference, carry)
             return final, x * g[..., None, :]
-        y, final = scans.agc(x, self.mu, self.reference, carry)
+        y, final = scans.agc(x, self.mu, self.reference, carry,
+                             method=self.method)
         return final, y
 
     def shard_carry(self, xb, initial=None):
-        m = _envelope(xb) if self.planar else xb
-        A, B = scans.agc_affine(m, self.mu, self.reference)
-        Ap, Bp = exclusive_affine_prefix(A, B)
-        g0 = self.initial if initial is None else torch.as_tensor(
-            initial, dtype=_F32, device=xb.device)
-        return Ap * g0 + Bp
+        if self.method == "linear":
+            m = _envelope(xb) if self.planar else xb
+            A, B = scans.agc_affine(m, self.mu, self.reference)
+            Ap, Bp = exclusive_affine_prefix(A, B)
+            g0 = self.initial if initial is None else torch.as_tensor(
+                initial, dtype=_F32, device=xb.device)
+            return Ap * g0 + Bp
+        if self.approx_time_sharding is None:
+            raise NotImplementedError(
+                "Agc(method='scan') cannot be time-sharded exactly; use "
+                "the default method='linear' (exact under the "
+                "positive-gain premise), approx_time_sharding=R for the "
+                "documented sweep approximation, or shard channels.")
+        g0 = torch.full(xb.shape[1:-1], self.initial, dtype=_F32,
+                        device=xb.device) if initial is None else \
+            torch.as_tensor(initial, dtype=_F32, device=xb.device)
+        enter = g0.expand(xb.shape[:-1]).contiguous()
+        for _ in range(self.approx_time_sharding):
+            _, final = scans.agc(xb, self.mu, self.reference, enter,
+                                 method="scan", store=False)
+            enter = right_shift_scalar(final)
+            enter[0] = g0
+        return enter
 
 
 class DcBlocker(StreamOp):

@@ -178,8 +178,13 @@ def test_dc_blocker_and_agc_match_jax(rng):
     jA, jB = jax.jit(lambda v: jscans.agc_affine(v, 0.005, 1.0))(xc)
     np.testing.assert_allclose(A.numpy(), np.asarray(jA), rtol=1e-5)
     np.testing.assert_allclose(B.numpy(), np.asarray(jB), rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="slice"):
-        scans.agc(torch.from_numpy(xc), 0.005, 1.0, method="scan")
+    # the sequential form: the same recurrence, |y| from the planes
+    y, g = scans.agc(torch.from_numpy(xc), 0.005, 1.0, torch.from_numpy(g0),
+                     method="scan")
+    jy, jg = jax.jit(lambda v, s: jscans.agc(v, 0.005, 1.0, s,
+                                             method="scan"))(xc, g0)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("planar", [False, True])
@@ -332,8 +337,21 @@ def test_am_cli_on_cpu(tmp_path):
     lambda: chains.am_chain(agc_approx=2, device="cpu"),
     lambda: Agc(0.005, 1.0, method="scan", device="cpu"),
     lambda: Agc(0.005, 1.0, approx_time_sharding=2, device="cpu")])
-def test_sequential_agc_waits_for_its_slice(make):
-    with pytest.raises(NotImplementedError, match="slice"):
-        make()
+def test_sequential_agc_waits_for_its_slice(make, rng):
+    """The sequential AGC's entry points build working ops: each one's
+    ``Agc`` runs a block as the JAX op with the same options does (1e-5)
+    and is time-shardable exactly when the JAX op is.  The sequential AGC
+    stays complex-form only."""
+    made = make()
+    op = made[3] if isinstance(made, list) else made
+    jop = JaxAgc(op.mu, op.reference, method=op.method,
+                 approx_time_sharding=op.approx_time_sharding)
+    assert op.time_shardable == jop.time_shardable
+    x = _cplx(rng, (2, 2048), 0.5)
+    g0 = np.float32([1.0, 1.5])
+    g, y = op.apply(torch.from_numpy(g0), torch.from_numpy(x))
+    jg, jy = jax.jit(jop.apply)(g0, x)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="planar"):
         chains.am_chain(agc_approx=2, planar=True, device="cpu")

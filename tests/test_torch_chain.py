@@ -189,15 +189,16 @@ def test_cli_on_cpu(raw, tmp_path):
 
 
 @pytest.mark.parametrize("make,error,match", [
-    (lambda: chains.am_chain(agc_approx=2, device="cpu"),
-     NotImplementedError, "slice"),
-    (lambda: Agc(0.005, 1.0, method="scan", device="cpu"),
-     NotImplementedError, "slice"),
+    (lambda: chains.am_chain(agc_approx=2, planar=True, device="cpu"),
+     ValueError, "complex-form only"),
+    (lambda: Agc(0.005, 1.0, method="scan", planar=True, device="cpu"),
+     ValueError, "linear method"),
     (lambda: chains.fm_chain(device="cpu", deemphasis=75e-6,
                              deemphasis_mode="x"),
      ValueError, "deemphasis_mode")])
 def test_unported_options_raise(make, error, match):
-    """What the port does not run yet raises, naming the slice that
-    brings it; an unknown option raises ValueError."""
+    """Options that neither package runs raise ValueError naming them: the
+    sequential AGC in the planar form (it is complex or real only, as in
+    the JAX package), an unknown de-emphasis mode."""
     with pytest.raises(error, match=match):
         make()

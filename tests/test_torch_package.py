@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -12,16 +13,19 @@ import pytest
 import torch
 
 import sdr_tpu_torch
-from sdr_tpu_torch.apps import am, chains, channelizer, fm, waterfall
-from sdr_tpu_torch.kernels import (KERNELS, backhalf, fir, resample,
+import sdr_tpu_torch.io as tio
+import sdr_tpu_torch.stream as tstream
+from sdr_tpu_torch.apps import am, chains, channelizer, fm, fm_tx, waterfall
+from sdr_tpu_torch.kernels import (KERNELS, agc, backhalf, fir, resample,
                                    u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels._build import CSRC
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.parallel.sharded import run_time_batched
 from sdr_tpu_torch.ops import channelize, fftops, shift
 from sdr_tpu_torch.stream import (Agc, AmDemod, Channelize, DcBlocker,
-                                  FftStream, Fir, FmDemod, Iir, IqConvertI16,
-                                  IqConvertU8, Map, Mix, Pipeline, Scale,
-                                  StereoDecode, U8FrontEnd)
+                                  FftStream, Fir, FmDemod, FmMod, Iir,
+                                  IqConvertI16, IqConvertU8, Map, Mix,
+                                  Pipeline, Scale, StereoDecode, U8FrontEnd)
 
 PKG = Path(sdr_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
@@ -55,7 +59,10 @@ def test_no_jax_or_sdr_tpu_imports():
             "sdr_tpu_torch/stream/ops.py", "sdr_tpu_torch/ops/fftops.py",
             "sdr_tpu_torch/ops/channelize.py", "sdr_tpu_torch/io/plot.py",
             "sdr_tpu_torch/apps/waterfall.py",
-            "sdr_tpu_torch/apps/channelizer.py"} <= names
+            "sdr_tpu_torch/apps/channelizer.py",
+            "sdr_tpu_torch/kernels/agc.py", "sdr_tpu_torch/ops/demod.py",
+            "sdr_tpu_torch/stream/sources.py", "sdr_tpu_torch/io/files.py",
+            "sdr_tpu_torch/apps/fm_tx.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -140,6 +147,21 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             channelizer.main(["--synthetic", "--channels", "4",
                               "--seconds", "0.01", *extra])
+    # the sequential AGC and the transmitter
+    for make in (lambda: chains.am_chain(agc_approx=1),
+                 lambda: Agc(0.005, 1.0, method="scan",
+                             approx_time_sharding=1),
+                 lambda: FmMod(0.3), lambda: fm_tx.tx_chain(48_000, 75e3)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make()
+    wav = tmp_path / "t.wav"
+    with wave.open(str(wav), "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(48_000)
+        wf.writeframes(np.zeros(46_080, "<i2").tobytes())
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        fm_tx.main(["--in", str(wav), "--out", str(tmp_path / "t.iq")])
     # the CPU runs only when asked for
     Pipeline(ops, block_in=163_840, device="cpu")
 
@@ -172,6 +194,9 @@ def _wrapper_calls(device):
             torch.ones((3, 11), **f32), 3, 10, torch.ones(64, **f32),
             torch.ones((2, 1000), **f32), torch.zeros((2, 5), **f32), 1, 200,
             3),
+        lambda: agc.agc_scan(
+            torch.ones((2, 100), dtype=torch.complex64, device=device),
+            0.005, 1.0, torch.ones(2, **f32)),
     ]
 
 
@@ -180,13 +205,14 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
         k.launches = 0
     plain = [u8_front_demod.u8_front_demod_reference,
              resample.resample_reference, fir.fir_strided_reference,
-             u8_front.u8_front_reference, backhalf.resample_fir_reference]
+             u8_front.u8_front_reference, backhalf.resample_fir_reference,
+             agc.agc_scan_reference]
     calls = _wrapper_calls("cpu")
-    assert len(calls) == len(plain) == len(KERNELS) == 5
+    assert len(calls) == len(plain) == len(KERNELS) == 6
     for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0] * 5
+    assert [k.launches for k in KERNELS] == [0] * 6
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
@@ -211,3 +237,32 @@ def test_tpu_only_names_are_not_ported():
     assert "method" not in channelize.polyphase_channelize.__code__.co_varnames
     assert "'gather'" in channelize.__doc__.split("Not ported:")[1]
     assert "method" not in chains.channelizer_chain.__code__.co_varnames
+
+
+def test_six_kernels_each_with_its_source():
+    """K1-K5 replace the JAX package's Pallas kernels, K6 its sequential
+    AGC scan; each is built from its own CUDA source in csrc/."""
+    names = [k.name for k in KERNELS]
+    assert names == ["u8_front_demod", "resample", "fir", "u8_front",
+                     "backhalf", "agc_scan"]
+    for k in KERNELS:
+        assert k.source.parent == CSRC and k.source.suffix == ".cu"
+        assert k.source.is_file()
+        text = k.source.read_text()
+        for fn in k.functions:
+            assert f'extern "C" int {fn}(' in text
+        assert "kernel_set_device" in text and "kernel_error_string" in text
+
+
+def test_transmit_and_file_exports():
+    """The names the JAX package exports from ``stream`` and ``io.files``
+    for the transmitter, the sources and the raw IQ formats."""
+    for name in ("FmMod", "stream_string", "stream_random", "fork",
+                 "combine", "devnull", "print_sink", "tone", "noise",
+                 "fm_mod"):
+        assert hasattr(tstream, name), name
+    for name in ("IQ_DTYPES", "iq_file_source", "follow_iq_file",
+                 "read_iq_file", "write_iq_file", "block_sink", "wav_sink"):
+        assert hasattr(tio, name), name
+    assert set(tio.IQ_DTYPES) == {"u8", "i16", "f32", "c64"}
+    assert tstream.fm_mod is tstream.sources.fm_mod   # the host generator
