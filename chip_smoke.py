@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive sdr_tpu_torch's FM, AM, waterfall, channelizer and transmitter
-paths on one NVIDIA GPU.
+paths, and their sharded forms, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -123,7 +123,23 @@ per source, all at once), then:
    rates and lengths, the plain form's tones).  ``apps.waterfall`` writes
    its PNG through matplotlib, which the card's machine lacks; the CPU
    tests drive it;
-11. prints its own run time, ``{"kernels": [...]}`` (every kernel with
+11. the sharded paths (``sdr_tpu_torch.parallel``): ``run_time_sharded``
+   over a one-rank NCCL group in this process at the paths' full width,
+   the mono chain and the stereo chain with K5 (bitwise
+   ``run_time_batched``, the same launches); four gloo ranks sharing
+   the card, each reading its span of the recordings through
+   ``host_block_iterator`` (``--shard-rank``: this script as a rank;
+   each prints its launches and times): mono 8 blocks a rank (bitwise),
+   stereo with both back halves (1e-5: the IIR and pilot prefixes
+   compose in another order), the wideband bank (1e-4), the narrowband
+   bank channel-sharded 16 channels a rank and on a 2 x 2 grid
+   (bitwise), ``am_chain(agc_approx=1)`` (through the envelope bitwise,
+   the R sweeps' gains crossing ranks; the whole chain 1e-4, its
+   ``DcBlocker`` prefix); and the channelizer CLI under ``torchrun``
+   (four gloo ranks, ``--wideband``), its WAVs the one-process CLI's.
+   Each sharded call's median span and host time in the collectives,
+   labelled as no scaling figure;
+12. prints its own run time, ``{"kernels": [...]}`` (every kernel with
    its launches on each path), the card line again, and last ``{"ok":
    true, "device": {...}}``.
 
@@ -985,22 +1001,27 @@ def time_chain(ops, raw, what: str, nblocks: int = ROWS,
     return ms
 
 
-def counted_call(ops, raw, kernels, nblocks: int = ROWS):
-    """One block-parallel call with every launch counter set to 0 just
-    before it and read just after."""
-    from sdr_tpu_torch.parallel.sharded import run_time_batched
+def counted(fn, kernels):
+    """``fn()`` once with every launch counter set to 0 just before it and
+    read just after."""
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
-    y = run_time_batched(ops, raw, nblocks)
+    y = fn()
     torch.cuda.synchronize()
     return y, {k.name: k.launches for k in kernels}
+
+
+def counted_call(ops, raw, kernels, nblocks: int = ROWS):
+    """One block-parallel call, its launches counted (:func:`counted`)."""
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    return counted(lambda: run_time_batched(ops, raw, nblocks), kernels)
 
 
 def run_stereo_chain(raw, ops, kernels):
     """The stereo path block-parallel (launch counts, separation, lock,
     timing, peak memory), its fused variant (K5), and the streamed run."""
-    from sdr_tpu_torch.apps.chains import fm_chain, fm_taps
+    from sdr_tpu_torch.apps.chains import fm_chain
     from sdr_tpu_torch.parallel.sharded import time_sharded_fn
     from sdr_tpu_torch.stream import Pipeline, ResampleFirScale
 
@@ -1029,11 +1050,9 @@ def run_stereo_chain(raw, ops, kernels):
     time_chain(ops, raw, "stereo block-parallel chain")
 
     # the same chain with the fused back half
-    _, ars, afl = fm_taps()
     require(isinstance(ops[3], ResampleFirScale) and not ops[3].fused,
             "stereo chain's back half")
-    fops = [*ops[:3], ResampleFirScale(ars, 3, 10, afl, 1.0, fused=True),
-            *ops[4:]]
+    fops = stereo_ops(True, ops[0].device)
     counted_call(fops, raw, kernels)                    # warm-up
     yf, launches_f = counted_call(fops, raw, kernels)
     require(launches_f["backhalf"] > 0 and launches_f["resample"] == 0,
@@ -1914,6 +1933,394 @@ def run_channelizer_cli():
             print(f"{what}: {CH_C} WAVs of {m} samples at 48 kHz")
 
 
+# -- the sharded paths --------------------------------------------------
+
+SHARD_RANKS = 4                       # gloo ranks sharing the one card
+SHARD_REPS = 5                        # timed calls of each sharded path
+SHARD_TIMEOUT_S = 600                 # a rank's limit: a hang fails the run
+SHARD_CLI_SECONDS = 0.5               # the channelizer CLI's default
+SHARD_LABEL = "4 ranks sharing one card: not a scaling figure"
+NCCL_LABEL = "1 rank over NCCL: not a scaling figure"
+
+
+class CollectiveClock:
+    """Host seconds spent in ``torch.distributed.all_gather``, the one
+    collective the port's halo helpers and runners make, while installed
+    (``with``).  For gloo this includes waiting for the other ranks."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self._dist, self._orig = dist, dist.all_gather
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self._orig(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        dist.all_gather = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_gather = self._orig
+
+
+def time_sharded(fn, what: str, label: str, card: str):
+    """Median span of SHARD_REPS calls, each between CUDA events, and the
+    median host time of a call spent in the collectives; printed with the
+    label that says what the figure is not."""
+    spans, coll = [], []
+    for _ in range(SHARD_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with CollectiveClock() as clock:
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+        spans.append(a.elapsed_time(b))
+        coll.append(clock.seconds * 1e3)
+    ms, cms = float(np.median(spans)), float(np.median(coll))
+    print(f"{what}: median span {ms} ms over {SHARD_REPS} calls by CUDA "
+          f"events (min {min(spans)}, max {max(spans)}); host time in the "
+          f"collectives {cms} ms a call (median) -- {label}; {card}")
+    return ms, cms
+
+
+def stereo_ops(fused: bool, device):
+    """The stereo + de-emphasis chain on the quantized front, with the back
+    half on K2 -> K3 or, ``fused``, on K5."""
+    from sdr_tpu_torch.apps.chains import fm_chain, fm_taps
+    from sdr_tpu_torch.stream import ResampleFirScale
+    ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6,
+                   device=device)
+    if not fused:
+        return ops
+    _, ars, afl = fm_taps()
+    return [*ops[:3], ResampleFirScale(ars, 3, 10, afl, 1.0, fused=True,
+                                       device=device), *ops[4:]]
+
+
+def run_nccl_world1(seed: int, device, kernels, card: str):
+    """``run_time_sharded`` over a one-rank NCCL group in this process, at
+    the single-device paths' full width: the mono chain (bitwise
+    ``run_time_batched`` over 32 blocks, the same launches) and the stereo
+    chain with the fused back half (K4, K5; the IIR's and the pilot's
+    affine prefixes gathered by NCCL on CUDA tensors; bitwise)."""
+    import torch.distributed as dist
+    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.parallel import (run_time_batched, run_time_sharded,
+                                        time_mesh)
+
+    # (a CPU device, as a rehearsal without the card passes, takes gloo)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    paths = {}
+    try:
+        mesh = time_mesh(1, device.type)
+        print(f"NCCL world 1: backend {dist.get_backend(mesh.get_group('t'))}"
+              f", mesh {mesh}")
+        for name, synth, ops, want_launches in (
+                ("mono", synth_broadcast, fm_chain(device=device),
+                 {"u8_front_demod": 2, "resample": 1, "fir": 1}),
+                ("stereo_fused", synth_stereo_broadcast,
+                 stereo_ops(True, device), None)):
+            raw = synth(ROWS * ROW_BYTES, seed, device)
+            want, batched = counted(lambda: run_time_batched(
+                ops, raw, ROWS, device=device), kernels)
+            fn = lambda: run_time_sharded(ops, mesh, raw,  # noqa: E731
+                                          nblocks=ROWS, device=device)
+            fn()                                        # warm-up
+            got, launches = counted(fn, kernels)
+            require(torch.equal(got, want), f"NCCL world 1 {name}: sharded "
+                    f"!= run_time_batched (max diff {max_err(got, want)})")
+            require(launches == batched, f"NCCL world 1 {name}: launches "
+                    f"{launches}, run_time_batched's {batched}")
+            if want_launches is not None:
+                require_launches(launches, want_launches,
+                                 f"NCCL world 1 {name}")
+            require(all(launches[k] > 0 for k in batched if batched[k]),
+                    f"NCCL world 1 {name}: launches {launches}")
+            print(f"NCCL world 1 {name}: run_time_sharded(time_mesh(1), "
+                  f"nblocks={ROWS}) bitwise equal to run_time_batched; "
+                  f"launches in one call {launches}")
+            time_sharded(fn, f"NCCL world 1 {name}", NCCL_LABEL, card)
+            paths[f"sharded_nccl_{name}"] = launches
+            del raw, want, got
+    finally:
+        dist.destroy_process_group()
+    return paths
+
+
+def write_shard_inputs(d: Path, seed: int, device):
+    """The recordings the ranks read their spans of, one file each, and
+    the one-process references (``run_time_batched`` on the card) on the
+    host: ``{scenario: tensor}``."""
+    from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
+                                           fm_chain)
+    from sdr_tpu_torch.apps.channelizer import synthesize
+    from sdr_tpu_torch.parallel import run_time_batched
+
+    refs = {}
+    raw = synth_broadcast(ROWS * ROW_BYTES, seed, device)
+    raw.cpu().numpy().tofile(d / "mono.u8")
+    refs["mono"] = run_time_batched(fm_chain(device=device), raw, ROWS,
+                                    device=device)
+    raw = synth_stereo_broadcast(ROWS * ROW_BYTES, seed, device)
+    raw.cpu().numpy().tofile(d / "stereo.u8")
+    for fused in (False, True):
+        refs[f"stereo{'_fused' * fused}"] = run_time_batched(
+            stereo_ops(fused, device), raw, ROWS, device=device)
+    x = synth_wideband_bank(ROWS * CH_BLOCK, seed, device)
+    x.cpu().numpy().tofile(d / "wide.c64")
+    refs["wideband"] = run_time_batched(
+        channelizer_chain(CH_C, wideband=True, device=device), x, ROWS,
+        device=device)
+    x = synthesize(CH_C, NB_SAMPLES, FS_IN, device)
+    x.cpu().numpy().tofile(d / "bank.c64")
+    ops = channelizer_chain(CH_C, device=device)
+    refs["channel"] = run_time_batched(ops, x, 1, device=device)
+    refs["grid"] = run_time_batched(ops, x, NB_BLOCKS, device=device)
+    raw = synth_am(ROWS * ROW_BYTES, seed, device)
+    raw.cpu().numpy().tofile(d / "am.u8")
+    ops = am_chain(agc_approx=1, device=device)
+    refs["am_approx"] = run_time_batched(ops, raw, ROWS, device=device)
+    refs["am_approx_demod"] = run_time_batched(ops[:5], raw, ROWS,
+                                               device=device)
+    del raw, x
+    return {k: v.cpu() for k, v in refs.items()}
+
+
+def shard_worker(rank: int, d: Path, device: torch.device) -> int:
+    """One of SHARD_RANKS gloo ranks on ``device`` (the parent's,
+    ``cuda``: card 0): each scenario on this rank's span (read from the
+    parent's files), its launches counted around one call, SHARD_REPS
+    calls timed; writes its outputs and a report to ``d``.  Builds
+    nothing: the parent built the kernels."""
+    import torch.distributed as dist
+    from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
+                                           fm_chain)
+    from sdr_tpu_torch.kernels import KERNELS
+    from sdr_tpu_torch.parallel import (channel_time_mesh,
+                                        global_time_sharded,
+                                        host_block_iterator,
+                                        init_distributed, make_mesh,
+                                        run_channel_sharded,
+                                        run_grid_sharded, run_time_sharded,
+                                        time_mesh)
+    from sdr_tpu_torch.utils.device import strict_fp32
+
+    strict_fp32()
+    if device.type == "cuda":
+        require(all(k.library_path().exists() for k in KERNELS),
+                "a kernel library is missing: the parent builds them")
+        torch.cuda.set_device(0)
+    card = card_line()
+    init_distributed("gloo", init_method=f"file://{d / 'store'}",
+                     world_size=SHARD_RANKS, rank=rank)
+    report = {}
+    try:
+        tmesh = time_mesh(None, device.type)
+        cmesh = make_mesh((SHARD_RANKS,), ("c",), device.type)
+        grid = channel_time_mesh(2, SHARD_RANKS // 2, device.type)
+        per = ROWS // SHARD_RANKS
+
+        def span(name, n_global, dtype=np.uint8):
+            blk, = host_block_iterator(d / name, tmesh, n_global, dtype)
+            return global_time_sharded(blk, tmesh, n_global, device=device)
+
+        def scenario(name, fn):
+            fn()                                        # warm-up
+            y, launches = counted(fn, KERNELS)
+            np.save(d / f"{name}.{rank}.npy", y.cpu().numpy())
+            print(f"rank {rank} {name}: launches in one call {launches}")
+            ms, cms = time_sharded(fn, f"rank {rank} {name}", SHARD_LABEL,
+                                   card)
+            report[name] = {"launches": launches, "median_ms": ms,
+                            "collective_ms": cms}
+
+        raw = span("mono.u8", ROWS * ROW_BYTES)
+        ops = fm_chain(device=device)
+        scenario("mono", lambda: run_time_sharded(ops, tmesh, raw,
+                                                  nblocks=per, device=device))
+        raw = span("stereo.u8", ROWS * ROW_BYTES)
+        for fused in (False, True):
+            sops = stereo_ops(fused, device)
+            scenario(f"stereo{'_fused' * fused}",
+                     lambda: run_time_sharded(sops, tmesh, raw,
+                                              nblocks=per, device=device))
+        x = span("wide.c64", ROWS * CH_BLOCK, np.complex64)
+        ops = channelizer_chain(CH_C, wideband=True, device=device)
+        scenario("wideband", lambda: run_time_sharded(
+            ops, tmesh, x, nblocks=per, device=device))
+        bank = np.memmap(d / "bank.c64", np.complex64, "r").reshape(
+            CH_C, NB_SAMPLES)
+        ops = channelizer_chain(CH_C, device=device)
+        c, nc = cmesh.get_local_rank("c"), CH_C // SHARD_RANKS
+        x = torch.from_numpy(np.array(bank[c * nc:(c + 1) * nc])).to(device)
+        scenario("channel", lambda: run_channel_sharded(ops, cmesh, x,
+                                                        device=device))
+        c, t = grid.get_local_rank("c"), grid.get_local_rank("t")
+        nc, nt = CH_C // grid["c"].size(), NB_SAMPLES // grid["t"].size()
+        xg = torch.from_numpy(np.array(
+            bank[c * nc:(c + 1) * nc, t * nt:(t + 1) * nt])).to(device)
+        scenario("grid", lambda: run_grid_sharded(
+            ops, grid, xg, nblocks=NB_BLOCKS // grid["t"].size(),
+            device=device))
+        del x, xg
+        raw = span("am.u8", ROWS * ROW_BYTES)
+        ops = am_chain(agc_approx=1, device=device)
+        scenario("am_approx", lambda: run_time_sharded(
+            ops, tmesh, raw, nblocks=per, device=device))
+        scenario("am_approx_demod", lambda: run_time_sharded(
+            ops[:5], tmesh, raw, nblocks=per, device=device))
+    finally:
+        dist.destroy_process_group()
+    (d / f"rank{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+# scenario -> (bound of the joined output against run_time_batched: 0 is
+# bitwise; the kernels a rank must launch in one call)
+SHARD_CHECKS = {
+    "mono": (0.0, ("u8_front_demod", "resample", "fir")),
+    "stereo": (1e-5, ("u8_front", "resample", "fir")),
+    "stereo_fused": (1e-5, ("u8_front", "backhalf", "fir")),
+    "wideband": (1e-4, ("fir", "resample")),
+    "channel": (0.0, ("fir", "resample")),
+    "grid": (0.0, ("fir", "resample")),
+    "am_approx": (1e-4, ("fir", "agc_scan")),
+    "am_approx_demod": (0.0, ("fir", "agc_scan")),
+}
+
+
+def join_ranks(name: str, parts):
+    """The ranks' outputs as one stream: time spans along the last axis,
+    channel shares along -2, the 2 x 2 grid both (rank c*2 + t)."""
+    if name == "channel":
+        return torch.cat(parts, dim=-2)
+    if name == "grid":
+        half = SHARD_RANKS // 2
+        return torch.cat([torch.cat(parts[c * half:(c + 1) * half], dim=-1)
+                          for c in range(2)], dim=-2)
+    return torch.cat(parts, dim=-1)
+
+
+def run_gloo_ranks(seed: int, device, card: str):
+    """SHARD_RANKS processes sharing the card over gloo, each reading its
+    span of the recordings: every scenario's joined output against the
+    one-process run (``SHARD_CHECKS``), each rank's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        refs = write_shard_inputs(d, seed, device)
+        torch.cuda.empty_cache()
+        print(f"sharded inputs written and referenced in "
+              f"{time.perf_counter() - t0:.1f} s")
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+             str(r), "--shard-dir", str(d), "--shard-device", str(device)],
+            cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(SHARD_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SHARD_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, log in enumerate(logs):
+            print(log.rstrip())
+        rcs = [p.returncode for p in procs]
+        require(rcs == [0] * SHARD_RANKS, f"gloo ranks exited {rcs}")
+        reports = [json.loads((d / f"rank{r}.json").read_text())
+                   for r in range(SHARD_RANKS)]
+        paths = {}
+        for name, (tol, kernels) in SHARD_CHECKS.items():
+            got = join_ranks(name, [torch.from_numpy(np.load(
+                d / f"{name}.{r}.npy")) for r in range(SHARD_RANKS)])
+            want = refs[name]
+            require(got.shape == want.shape,
+                    f"sharded {name}: {tuple(got.shape)} vs "
+                    f"{tuple(want.shape)}")
+            err = max_err(got, want)
+            exact = torch.equal(got, want)
+            require(exact if tol == 0 else err <= tol,
+                    f"sharded {name}: max abs diff {err} (bound "
+                    f"{tol or 'bitwise'})")
+            per_rank = [rep[name]["launches"] for rep in reports]
+            for r, launches in enumerate(per_rank):
+                for k in kernels:
+                    require(launches[k] > 0, f"sharded {name}: rank {r} "
+                            f"launched no {k} ({launches})")
+            paths[f"sharded_gloo_{name}"] = {
+                k: [lr[k] for lr in per_rank] for k in per_rank[0]}
+            spans = [rep[name]["median_ms"] for rep in reports]
+            colls = [rep[name]["collective_ms"] for rep in reports]
+            print(f"sharded {name} over {SHARD_RANKS} gloo ranks: max abs "
+                  f"diff to run_time_batched {err} (bound "
+                  f"{tol or 'bitwise'}; bitwise equal: {exact}); launches "
+                  f"per rank {per_rank}; median span per rank {spans} ms, "
+                  f"host collectives {colls} ms -- {SHARD_LABEL}; {card}")
+    return paths
+
+
+def run_torchrun_cli(device):
+    """The channelizer CLI under ``torchrun`` (4 gloo ranks on one device,
+    ``cuda:0`` on the card, ``--wideband --synthetic``): rank 0's WAVs
+    equal the one-process CLI's, byte for byte."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    pinned = "cuda:0" if device.type == "cuda" else "cpu"
+    args = ["--wideband", "--synthetic", "--seconds", str(SHARD_CLI_SECONDS),
+            "--device", pinned]
+    with tempfile.TemporaryDirectory() as tmp:
+        one = subprocess.run(
+            [sys.executable, "-m", "sdr_tpu_torch.apps.channelizer", *args,
+             "--out-prefix", os.path.join(tmp, "one")], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=SHARD_TIMEOUT_S)
+        require(one.returncode == 0, f"one-process cli: {one.stderr}")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(SHARD_RANKS), "-m",
+             "sdr_tpu_torch.apps.channelizer", "--backend", "gloo",
+             *args, "--out-prefix",
+             os.path.join(tmp, "ranks")], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=SHARD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        print(f"torchrun channelizer cli: rc {run.returncode} "
+              f"{run.stdout.strip()} ({wall:.1f} s as a command)")
+        require(run.returncode == 0, f"torchrun cli: {run.stderr[-4000:]}")
+        require(f"on {SHARD_RANKS} devices" in run.stdout, "torchrun line")
+        for c in range(CH_C):
+            a = Path(tmp, f"one{c:03d}.wav").read_bytes()
+            b = Path(tmp, f"ranks{c:03d}.wav").read_bytes()
+            require(a == b, f"torchrun cli WAV {c} differs")
+        print(f"torchrun channelizer cli: {CH_C} WAVs equal to the "
+              "one-process CLI's")
+
+
+def run_sharded(seed: int, device, kernels, card: str):
+    """The sharded phase: NCCL at world 1 in this process, four gloo ranks
+    on the card, and the channelizer CLI under torchrun."""
+    t0 = time.perf_counter()
+    paths = run_nccl_world1(seed, device, kernels, card)
+    paths.update(run_gloo_ranks(seed, device, card))
+    run_torchrun_cli(device)
+    print(f"sharded phase ran in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def print_rows(rows, card: str) -> None:
     for r in rows:
         print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
@@ -1925,11 +2332,20 @@ def print_rows(rows, card: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shard-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)     # a gloo rank of the phase
+    ap.add_argument("--shard-dir", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--shard-device", type=torch.device, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    if args.shard_rank is not None:
+        return shard_worker(args.shard_rank, args.shard_dir,
+                            args.shard_device)
 
     from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
                                            fm_chain, waterfall_chain)
@@ -2038,12 +2454,17 @@ def main(argv=None) -> int:
     del x, ops
     run_channelizer_cli()
 
+    # the sharded paths: NCCL at world 1, four gloo ranks sharing the
+    # card, the channelizer CLI under torchrun
+    sharded = run_sharded(args.seed, device, KERNELS, card)
+
     # launches: each row's on the path its shapes come from, and on every
     # path, each path's counts taken around one call of its own
     paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused,
              "mono_exact": exact, "am": am, "am_approx": am_approx,
              "fm_tx": fm_tx_path, "waterfall": waterfall,
-             "channelizer_wideband": wideband, "channelizer": narrowband}
+             "channelizer_wideband": wideband, "channelizer": narrowband,
+             **sharded}
     for r in rows:
         r["launches"] = mono[r["kernel"]]
     for r in srows:

@@ -1,49 +1,110 @@
-"""Halo primitives for block-parallel runs on one device (counterpart of
+"""Halo primitives for block-parallel runs (counterpart of
 sdr_tpu/parallel/halo.py).
 
 The JAX package fetches a shard's seam state from its left neighbour with
-``ppermute``.  Here the "shards" are the rows of one ``[B, n]`` batch, so
-the same exchange is a shift along the batch axis: no collective.  The
-affine prefixes, which the JAX package builds from an ``all_gather`` and a
-sequential scan, are an exclusive composition over the B rows ("all
-shards to my left" is rows ``< b``), computed by doubling in ``log2(B)``
-whole-batch steps: each op is a launch on the card, so a loop over the 32
-rows would cost the host ~100 launches.
+``ppermute``.  Here the "shards" are the rows of a ``[B, n]`` batch, so
+the same exchange is a shift along the batch axis.  The affine prefixes,
+which the JAX package builds from an ``all_gather`` and a sequential scan,
+are an exclusive composition over the B rows ("all shards to my left" is
+rows ``< b``), computed by doubling in ``log2(B)`` whole-batch steps: each
+op is a launch on the card, so a loop over the 32 rows would cost the host
+~100 launches.
+
+``group`` (a ``torch.distributed`` process group, e.g. a ``DeviceMesh``
+axis) spreads one stream's rows over its ranks: the rows of rank r follow
+every row of the ranks before it.  Row 0 of rank r > 0 then takes its
+halo from rank r-1's last row, and the prefixes compose the whole maps of
+the ranks before r ahead of the local ones.  Every exchange is one
+``all_gather``, which serves world size 1, gloo and NCCL alike (a send to
+one's own rank is refused).  The messages are small (a halo row, a few
+scalars a map) and travel on the group's device: CUDA tensors for NCCL,
+host tensors for gloo; the data and the kernels stay where they are.
+
+Every rank of a group must make the same calls in the same order: a
+collective that some ranks skip hangs the group.  ``group=None`` is the
+single-process form, bit for bit the same as before groups existed.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["left_halo", "right_shift_scalar", "substitute_first",
-           "exclusive_affine_prefix", "exclusive_matrix_affine_prefix"]
+           "exclusive_affine_prefix", "exclusive_matrix_affine_prefix",
+           "first_row", "gather_ranks"]
 
 
-def left_halo(xb: torch.Tensor, h: int, fill=0) -> torch.Tensor:
+def group_rank(group=None) -> int:
+    """This process's rank in ``group`` (0 without a group)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def first_row(rows: int, group=None) -> int:
+    """The stream index of this rank's row 0 when every rank of ``group``
+    holds ``rows`` consecutive rows: ``rank * rows``."""
+    return group_rank(group) * rows
+
+
+def gather_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """``[world, *t.shape]``: every rank's ``t`` in rank order, on
+    ``t``'s device.  The message goes over the group's device: as is for
+    NCCL, through the host for any other backend."""
+    wire = t.contiguous()
+    if dist.get_backend(group) != "nccl":
+        wire = wire.cpu()
+    out = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, wire, group=group)
+    return torch.stack(out).to(t.device)
+
+
+def _from_left(last: torch.Tensor, group):
+    """Rank r-1's ``last`` row, which row 0 of rank r receives; None on
+    rank 0, and everywhere without a group or at world size 1, where no
+    collective runs (as the JAX package's ``_rotate_right``): row 0 then
+    keeps the stream's warmup value."""
+    if group is None or dist.get_world_size(group) == 1:
+        return None
+    got = gather_ranks(last, group)
+    r = dist.get_rank(group)
+    return got[r - 1] if r > 0 else None
+
+
+def left_halo(xb: torch.Tensor, h: int, fill=0, group=None) -> torch.Tensor:
     """``[B, ..., h]``: row b gets the last ``h`` samples of row b-1; row 0
-    gets ``fill`` (the stream's warmup value).  A new tensor."""
+    gets ``fill`` (the stream's warmup value), or with ``group`` the last
+    row of the rank before (``fill`` on rank 0).  A new tensor."""
     n = xb.shape[-1]
     if not 0 <= h <= n:
         raise ValueError(f"halo of {h} samples from blocks of {n}")
     out = torch.empty(xb.shape[:-1] + (h,), dtype=xb.dtype, device=xb.device)
-    out[0] = fill
+    # h is the same on every rank: all gather or none
+    left = _from_left(xb[-1, ..., n - h:], group) if h else None
+    out[0] = fill if left is None else left
     out[1:] = xb[:-1, ..., n - h:]
     return out
 
 
-def right_shift_scalar(v: torch.Tensor) -> torch.Tensor:
-    """``[B, ...]``: row b gets row b-1's value, row 0 zeros."""
+def right_shift_scalar(v: torch.Tensor, group=None) -> torch.Tensor:
+    """``[B, ...]``: row b gets row b-1's value, row 0 zeros (or with
+    ``group`` the last row of the rank before; zeros on rank 0).  (Row 0
+    is not set from a Python number: on a one-dim tensor on the card that
+    assignment waits for the card.)"""
     out = torch.zeros_like(v)
+    left = _from_left(v[-1], group)
+    if left is not None:
+        out[0] = left
     out[1:] = v[:-1]
     return out
 
 
-def substitute_first(value, initial):
+def substitute_first(value, initial, group=None):
     """Replace, in place, row 0 of each tensor in ``value`` (a tensor or
     tuple of fresh tensors stacked on a leading [B] axis) with the
     matching tensor of ``initial``: the stream state entering a segmented
-    run.  Returns ``value``."""
-    if initial is None:
+    run.  With ``group`` only rank 0 holds the stream's first row, so only
+    it substitutes.  Returns ``value``."""
+    if initial is None or group_rank(group) != 0:
         return value
     if isinstance(value, tuple):
         return tuple(substitute_first(v, i) for v, i in zip(value, initial))
@@ -52,11 +113,16 @@ def substitute_first(value, initial):
     return value
 
 
-def _exclusive_scan(compose, identity, maps):
+def _exclusive_scan(compose, identity, maps, group):
     """Exclusive prefix composition over the leading [B] axis of ``maps``
     (a tuple of tensors, one map per row), by doubling: ``log2(B)`` steps
     of whole-batch ops rather than B steps of row ops.  ``compose(later,
-    earlier)`` composes two batches of maps; ``identity`` is one map."""
+    earlier)`` composes two batches of maps; ``identity`` is one map.
+
+    With ``group``: the whole map of each rank's rows is gathered (at
+    every world size, 1 included), the maps of the ranks before this one
+    are composed in rank order, and every local prefix is composed after
+    them, so the ranks' rows form one stream."""
     cur = maps
     d = 1
     while d < cur[0].shape[0]:
@@ -64,28 +130,41 @@ def _exclusive_scan(compose, identity, maps):
         cur = tuple(torch.cat([t[:d], n]) for t, n in zip(cur, new))
         d *= 2
     # cur[b] composes rows 0..b; row b enters with rows 0..b-1
-    return tuple(torch.cat([i.expand_as(t[:1]), t[:-1]])
-                 for i, t in zip(identity, cur))
+    local = tuple(torch.cat([i.expand_as(t[:1]), t[:-1]])
+                  for i, t in zip(identity, cur))
+    if group is None:
+        return local
+    totals = tuple(gather_ranks(t[-1:], group) for t in cur)
+    enter = None
+    for r in range(dist.get_rank(group)):
+        m = tuple(t[r] for t in totals)
+        enter = m if enter is None else compose(m, enter)
+    if enter is None:           # rank 0: nothing before it
+        return local
+    return compose(local, enter)
 
 
-def exclusive_affine_prefix(a: torch.Tensor, b: torch.Tensor):
+def exclusive_affine_prefix(a: torch.Tensor, b: torch.Tensor, group=None):
     """Exclusive prefix composition of the rows' affine maps
     ``y -> a*y + b`` (``a``, ``b`` ``[B, ...]``): ``(A, B)`` with row b the
     composition of the maps of rows ``< b`` (the identity for row 0), so
-    the state entering row b is ``A[b] * y0 + B[b]``."""
+    the state entering row b is ``A[b] * y0 + B[b]``.  With ``group`` the
+    rows of the ranks before this one come first."""
     one = torch.ones((1,) + a.shape[1:], dtype=a.dtype, device=a.device)
     return _exclusive_scan(
         lambda late, early: (late[0] * early[0],
                              late[0] * early[1] + late[1]),
-        (one, torch.zeros_like(one)), (a, b))
+        (one, torch.zeros_like(one)), (a, b), group)
 
 
-def exclusive_matrix_affine_prefix(M: torch.Tensor, v: torch.Tensor):
+def exclusive_matrix_affine_prefix(M: torch.Tensor, v: torch.Tensor,
+                                   group=None):
     """The order-p form of :func:`exclusive_affine_prefix`: the rows' maps
     ``s -> M @ s + v`` with ``M [B, ..., p, p]`` and ``v [B, ..., p]``.
     Returns ``(A, c)``, row b the composition of the maps of rows ``< b``
     (the identity for row 0): the state entering row b is
-    ``A[b] @ s0 + c[b]``."""
+    ``A[b] @ s0 + c[b]``.  With ``group`` the rows of the ranks before
+    this one come first."""
     p = M.shape[-1]
     eye = torch.eye(p, dtype=M.dtype, device=M.device).expand(
         (1,) + M.shape[1:])
@@ -94,4 +173,4 @@ def exclusive_matrix_affine_prefix(M: torch.Tensor, v: torch.Tensor):
                              (late[0] @ early[1][..., None])[..., 0]
                              + late[1]),
         (eye, torch.zeros((1,) + v.shape[1:], dtype=v.dtype,
-                          device=v.device)), (M, v))
+                          device=v.device)), (M, v), group)

@@ -1,6 +1,5 @@
-"""Block-parallel processing of a recorded stream on one device
-(counterpart of sdr_tpu/parallel/sharded.py:time_sharded_fn and
-run_time_batched).
+"""Block-parallel and sharded processing of a recorded stream (counterpart
+of sdr_tpu/parallel/sharded.py).
 
 A recording ``[*lead, N]`` (``lead`` the channels of a bank, or none)
 becomes a ``[B, *lead, N/B]`` batch of consecutive blocks.  Every op takes
@@ -9,30 +8,58 @@ shifts along the batch axis, parallel/halo.py) and then runs once over the
 whole batch, so each kernel launch covers all B blocks.  The output equals
 the streamed run sample for sample: the kernels' per-output sums do not
 depend on how the outputs are batched.
+
+Over several processes (``torch.distributed``, one rank a card):
+
+* **time sharding** (:func:`run_time_sharded`): each rank holds a
+  contiguous span of the stream and runs it as B rows of the same batch
+  form; the rows of rank r follow those of every rank before it, so row 0
+  of rank r takes its seam state from rank r-1's last row (one
+  ``all_gather`` a halo) and the affine prefixes compose the whole maps of
+  the ranks before it.  The sharded output equals the one-process
+  block-parallel run's: bit for bit where the chain has no affine prefix,
+  to f32 rounding where it does (the maps compose in another order).
+* **channel sharding** (:func:`run_channel_sharded`): independent channels
+  ``[..., C, N]`` split over the ranks, each run from warmup with no
+  communication (the 64-channel bank, BASELINE config #5).
+* **grid sharding** (:func:`run_grid_sharded`): both on a 2-D
+  {channel, time} mesh, the halos on the time axis only.
+
+Each runner returns the rank's own output; ``multihost.gather_time_sharded``
+joins them on one rank for a sink.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+
+from sdr_tpu_torch.parallel.halo import gather_ranks
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.stream.pipeline import Pipeline, as_input
 from sdr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["time_sharded_fn", "run_time_batched"]
+__all__ = ["time_sharded_fn", "run_time_batched", "run_time_sharded",
+           "run_channel_sharded", "run_grid_sharded"]
+
+_MAX_DIMS = 8       # dims of a local input the shape check carries
 
 
 def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
-                    return_carries: bool = False):
+                    return_carries: bool = False, group=None):
     """``fn(xb[B, *lead, n]) -> y[B, *lead, ...per-block output]`` running
     the chain block-parallel.
 
-    ``initials``: per-op carries entering row 0 (a previous segment's final
-    state).  ``return_carries``: ``fn`` returns ``(carries, y)`` with each
-    op's carry after every row, stacked on the [B] axis.
+    ``initials``: per-op carries entering the stream's first row (a
+    previous segment's final state).  ``return_carries``: ``fn`` returns
+    ``(carries, y)`` with each op's carry after every row, stacked on the
+    [B] axis.  ``group``: the process group whose ranks hold consecutive
+    batches of the stream (none: this batch is the whole stream).
 
-    Raises ``ValueError`` before running anything when an op has no
-    block-parallel form (``time_shardable`` False)."""
+    Raises ``ValueError`` before running anything, so before any
+    collective and on every rank, when an op has no block-parallel form
+    (``time_shardable`` False)."""
     ops = list(ops)
     for i, op in enumerate(ops):
         if not op.time_shardable:
@@ -46,7 +73,7 @@ def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
         new = []
         for i, op in enumerate(ops):
             carry = op.shard_carry(xb, None if initials is None
-                                   else initials[i])
+                                   else initials[i], group)
             c2, xb = op.apply(carry, xb)
             new.append(c2)
         return (new, xb) if return_carries else xb
@@ -74,9 +101,28 @@ def _restack(yb, time_axis_out: int = -1):
     return out.reshape(out.shape[:t - 1] + (-1,) + out.shape[t + 1:])
 
 
+def _require_equal_shapes(x: torch.Tensor, group) -> None:
+    """Raise on every rank unless every rank of ``group`` holds an input
+    of ``x``'s shape: the ranks' collectives move rows of equal shapes,
+    and the closed-form seams (the resampler's phase, ``Mix``'s row
+    phasors) assume equal spans.  One gather of the shapes (the rank
+    count of dims and the first _MAX_DIMS), then every rank raises alike."""
+    dims = x.shape[:_MAX_DIMS]
+    meta = torch.full((_MAX_DIMS + 1,), -1, dtype=torch.int64)
+    meta[0] = x.ndim
+    meta[1:len(dims) + 1] = torch.tensor(dims, dtype=torch.int64)
+    shapes = gather_ranks(meta.to(x.device), group).cpu()
+    if not bool((shapes == shapes[0]).all()):
+        got = [tuple(s[1:min(s[0], _MAX_DIMS) + 1].tolist()) for s in shapes]
+        raise ValueError(f"the ranks' local inputs differ in shape: {got}")
+    if x.ndim > _MAX_DIMS:
+        raise ValueError(f"a local input of {x.ndim} dims (at most "
+                         f"{_MAX_DIMS})")
+
+
 def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
                      carries=None, return_carries: bool = False,
-                     device="cuda"):
+                     device="cuda", group=None):
     """Block-parallel processing of a recorded signal ``x[*lead, N]`` as
     ``nblocks`` blocks of ``N / nblocks`` of each stream.  The output is
     the streamed run's, joined along the last op's stream axis:
@@ -85,11 +131,18 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
 
     ``carries`` (per-op state from a previous segment) and
     ``return_carries=True`` continue a stream exactly across segments;
-    the returned carries are the state after the last block."""
+    the returned carries are the state after the last block.
+
+    ``group``: ``x`` is this rank's span of a stream whose spans the
+    group's ranks hold in rank order, all of one shape (checked); the
+    output is this rank's span of the whole run's, and ``carries`` enter
+    the stream's first block (rank 0's row 0)."""
     fn = time_sharded_fn(ops, initials=carries,
-                         return_carries=return_carries)
+                         return_carries=return_carries, group=group)
     device = resolve_device(device)
     x = as_input(x, device)
+    if group is not None:
+        _require_equal_shapes(x, group)
     n, lead = x.shape[-1], x.shape[:-1]
     if n % nblocks:
         raise ValueError(f"signal length {n} not divisible by {nblocks}")
@@ -103,3 +156,38 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
         return _restack(out, t_axis)
     cb, yb = out
     return _last_row(cb), _restack(yb, t_axis)
+
+
+def run_time_sharded(ops: Sequence[StreamOp], mesh, x_local,
+                     axis_name: str = "t", nblocks: int = 1,
+                     device="cuda"):
+    """Process a stream time-sharded over the ranks of ``mesh``'s
+    ``axis_name`` (a ``DeviceMesh``, parallel/mesh.py): ``x_local[*lead,
+    N/world]`` is this rank's contiguous span, run as ``nblocks``
+    block-parallel rows after the rows of the ranks before it.  Every
+    rank's span has the same shape, and each block satisfies the chain's
+    divisibility (the Pipeline dry run on the local block length checks
+    it, as the JAX package's does).  Returns this rank's output span."""
+    return run_time_batched(ops, x_local, nblocks, device=device,
+                            group=mesh.get_group(axis_name))
+
+
+def run_channel_sharded(ops: Sequence[StreamOp], mesh, x_local,
+                        axis_name: str = "c", device="cuda"):
+    """Process this rank's channels ``x_local[..., C/world, N]`` of a bank
+    channel-sharded over ``mesh``'s ``axis_name``: pure data parallelism,
+    every channel from warmup as one block, no communication.  To continue
+    a stream across segments, run :func:`run_time_batched` per channel
+    group with ``carries`` instead."""
+    mesh.get_group(axis_name)           # the axis must exist
+    return run_time_batched(ops, x_local, 1, device=device)
+
+
+def run_grid_sharded(ops: Sequence[StreamOp], mesh, x_local,
+                     channel_axis: str = "c", time_axis: str = "t",
+                     nblocks: int = 1, device="cuda"):
+    """2-D sharding: this rank's ``x_local[..., C/n_c, N/n_t]``, channels
+    over ``channel_axis`` and time over ``time_axis``, the halos exchanged
+    within the time axis's group only."""
+    mesh.get_group(channel_axis)        # the axis must exist
+    return run_time_sharded(ops, mesh, x_local, time_axis, nblocks, device)

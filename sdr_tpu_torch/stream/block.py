@@ -29,7 +29,7 @@ class StreamOp:
 
     Subclasses define ``out_len(n_in)`` (may raise on an incompatible
     block), ``out_dtype(in_dtype)``, ``init_carry(n_in, batch_shape,
-    in_dtype)``, ``apply(carry, x)`` and ``shard_carry(xb, initial)``,
+    in_dtype)``, ``apply(carry, x)`` and ``shard_carry(xb, initial, group)``,
     and hold ``device``.  An op that emits or consumes a plane axis (the
     planar I/Q pair, the stereo L/R pair) says so in
     ``map_batch_shape``."""
@@ -72,11 +72,15 @@ class StreamOp:
     def apply(self, carry, x):
         raise NotImplementedError
 
-    def shard_carry(self, xb: torch.Tensor, initial=None):
+    def shard_carry(self, xb: torch.Tensor, initial=None, group=None):
         """Carries for block-parallel execution: ``xb[B, ..., n]`` holds B
         consecutive blocks of each stream of the leading dims; return the
         carry entering each row, stacked on a leading [B] axis (row 0 gets
-        ``initial``, or the warmup carry when it is None)."""
+        ``initial``, or the warmup carry when it is None).  With ``group``
+        (a ``torch.distributed`` process group) the rows of each rank
+        follow those of the ranks before it, row 0 of rank 0 being the
+        stream's first: the op passes ``group`` to the halo helpers
+        (parallel/halo.py), and every rank makes the same collectives."""
         if type(self).init_carry is StreamOp.init_carry:
             return ()
         raise NotImplementedError(

@@ -58,8 +58,8 @@ from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.ops.shift import oscillator, oscillator_planar
 from sdr_tpu_torch.parallel.halo import (exclusive_affine_prefix,
                                          exclusive_matrix_affine_prefix,
-                                         left_halo, right_shift_scalar,
-                                         substitute_first)
+                                         first_row, left_halo,
+                                         right_shift_scalar, substitute_first)
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.utils.device import resolve_device
 
@@ -193,9 +193,10 @@ class U8FrontEnd(_U8Front):
                      self.out_len(x.shape[-1]))
         return _tail(carry, x, self.hist_len()), y
 
-    def shard_carry(self, xb, initial=None):
-        return substitute_first(left_halo(xb, self.hist_len(), fill=0x80),
-                                initial)
+    def shard_carry(self, xb, initial=None, group=None):
+        return substitute_first(
+            left_halo(xb, self.hist_len(), fill=0x80, group=group), initial,
+            group)
 
 
 class U8FrontDemod(_U8Front):
@@ -216,17 +217,18 @@ class U8FrontDemod(_U8Front):
                                     hist, liq, self.out_len(x.shape[-1]))
         return (_tail(hist, x, self.hist_len()), liq_new), y
 
-    def shard_carry(self, xb, initial=None):
+    def shard_carry(self, xb, initial=None, group=None):
         # the previous block's last H + 2f bytes hold the window of its
         # last output: K1's single output over them gives that sample
         H, f2 = self.hist_len(), 2 * self.factor
-        halo = left_halo(xb, H + f2, fill=0x80)
+        halo = left_halo(xb, H + f2, fill=0x80, group=group)
         zeros = torch.zeros(xb.shape[:-1] + (2,), dtype=_F32,
                             device=xb.device)
         _, liq = u8_front_demod(self.tq, self.scale, self.factor,
                                 halo[..., H:].contiguous(),
                                 halo[..., :H].contiguous(), zeros, 1)
-        return substitute_first((halo[..., f2:].contiguous(), liq), initial)
+        return substitute_first((halo[..., f2:].contiguous(), liq), initial,
+                                group)
 
 
 class Fir(StreamOp):
@@ -326,9 +328,10 @@ class Fir(StreamOp):
             y = torch.cat([yb, ym], dim=-1)
         return _tail(carry, x, H), y
 
-    def shard_carry(self, xb, initial=None):
-        return substitute_first(left_halo(xb, self.hist_len(xb.shape[-1])),
-                                initial)
+    def shard_carry(self, xb, initial=None, group=None):
+        return substitute_first(
+            left_halo(xb, self.hist_len(xb.shape[-1]), group=group), initial,
+            group)
 
 
 class FmDemod(StreamOp):
@@ -372,8 +375,9 @@ class FmDemod(StreamOp):
             y, last = fm_demod(x, carry)
         return last, y
 
-    def shard_carry(self, xb, initial=None):
-        return substitute_first(left_halo(xb, 1)[..., 0], initial)
+    def shard_carry(self, xb, initial=None, group=None):
+        return substitute_first(left_halo(xb, 1, group=group)[..., 0],
+                                initial, group)
 
 
 class FmMod(StreamOp):
@@ -493,11 +497,11 @@ class StereoDecode(StreamOp):
         y = torch.stack([m + s, m - s], dim=-2)
         return (xe[..., nt - self.H:].clone(), new_lock), y
 
-    def shard_carry(self, xb, initial=None):
-        h = left_halo(xb, self.H)
+    def shard_carry(self, xb, initial=None, group=None):
+        h = left_halo(xb, self.H, group=group)
         lock0 = torch.zeros(xb.shape[:-1], dtype=_F32, device=xb.device)
         if initial is not None:
-            h = substitute_first(h, initial[0])
+            h = substitute_first(h, initial[0], group)
             lock0 += torch.as_tensor(initial[1], dtype=_F32,
                                      device=xb.device)
         # the exact entering lock state: each row's decision is an affine
@@ -510,7 +514,7 @@ class StereoDecode(StreamOp):
         decisive = (r > self.LOCK_HI) | (r < self.LOCK_LO)
         a = torch.where(decisive, 0.0, 1.0).to(_F32)
         b = torch.where(r > self.LOCK_HI, 1.0, 0.0).to(_F32)
-        A, B = exclusive_affine_prefix(a, b)
+        A, B = exclusive_affine_prefix(a, b, group)
         return (h, A * lock0 + B)
 
 
@@ -575,9 +579,10 @@ class ResampleFirScale(StreamOp):
             y = fir_strided(self._taps, yr, n_out)
         return _tail(carry, x, carry.shape[-1]), y
 
-    def shard_carry(self, xb, initial=None):
-        return substitute_first(left_halo(xb, self.hist_len(xb.shape[-1])),
-                                initial)
+    def shard_carry(self, xb, initial=None, group=None):
+        return substitute_first(
+            left_halo(xb, self.hist_len(xb.shape[-1]), group=group), initial,
+            group)
 
 
 class Iir(StreamOp):
@@ -635,22 +640,22 @@ class Iir(StreamOp):
         return (torch.stack(new_xin, dim=-2),
                 torch.stack(new_yout, dim=-2)), x
 
-    def shard_carry(self, xb, initial=None):
+    def shard_carry(self, xb, initial=None, group=None):
         x = xb.to(_F32)
         n = x.shape[-1]
         xin_list, yout_list = [], []
         for s in range(self.sos.shape[0]):
             b, coeffs = self._section(s)
-            xin = left_halo(x, 2)
+            xin = left_halo(x, 2, group=group)
             if initial is not None:
-                xin = substitute_first(xin, initial[0][..., s, :])
+                xin = substitute_first(xin, initial[0][..., s, :], group)
             drive = self._drive(b, torch.cat([xin, x], dim=-1))
             y_zero = linear_recurrence(coeffs, drive)
             Mn = companion_power(tuple(float(c) for c in coeffs), n,
                                  x.device)
             v = y_zero[..., -2:].flip(-1)
             A, enter = exclusive_matrix_affine_prefix(
-                Mn.expand(v.shape[:-1] + (2, 2)), v)
+                Mn.expand(v.shape[:-1] + (2, 2)), v, group)
             if initial is not None:
                 s0 = torch.as_tensor(initial[1][..., s, :], dtype=_F32,
                                      device=x.device).flip(-1)
@@ -694,7 +699,8 @@ class Mix(StreamOp):
     phasor, then advances the phasor by the block's whole turn and
     renormalises it, so f32 rounding cannot drift its magnitude.  The
     table is made on the host in float64 once per block length and kept
-    on the device.  Block-parallel runs give row b the closed-form phasor
+    on the device.  Block-parallel runs give the stream's block b (counted
+    across the ranks of a group) the closed-form phasor
     ``exp(2*pi*j*freq*n*b)``, reduced mod 1 in float64 before the f32
     cast.
 
@@ -728,21 +734,22 @@ class Mix(StreamOp):
         return self._cached(("lo", n),
                             lambda: make(n, self.freq, device="cpu"))
 
-    def _turn(self, n: int, rows: int = 1) -> np.ndarray:
-        """float64 angles of ``n * r`` samples for r in [0, rows), reduced
-        mod 1 turn before the cast."""
+    def _turn(self, n: int, rows: int = 1, start: int = 0) -> np.ndarray:
+        """float64 angles of ``n * r`` samples for r in [start, start +
+        rows), reduced mod 1 turn before the cast."""
         return 2.0 * np.pi * np.mod(
             np.float64(self.freq) * np.float64(n)
-            * np.arange(rows, dtype=np.float64), 1.0)
+            * np.arange(start, start + rows, dtype=np.float64), 1.0)
 
-    def _row_phasors(self, n: int, rows: int) -> torch.Tensor:
+    def _row_phasors(self, n: int, rows: int, start: int = 0) -> torch.Tensor:
         """f32 ``[rows, 2]``: (cos, sin) of the phase entering each row of
-        a block-parallel batch."""
+        a block-parallel batch whose row 0 is the stream's block
+        ``start``."""
         def make():
-            ang = self._turn(n, rows)
+            ang = self._turn(n, rows, start)
             return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(
                 np.float32)
-        return self._cached(("rows", n, rows), make)
+        return self._cached(("rows", n, rows, start), make)
 
     def init_carry(self, n_in, batch_shape=(), in_dtype=None):
         if self.planar:
@@ -774,10 +781,13 @@ class Mix(StreamOp):
         new = carry * complex(np.complex64(np.exp(1j * ang)))
         return new / new.abs(), y
 
-    def shard_carry(self, xb, initial=None):
-        tab = self._row_phasors(xb.shape[-1], xb.shape[0])
+    def shard_carry(self, xb, initial=None, group=None):
+        # closed form, no collective: the phasors of this rank's rows of
+        # the stream, [rank * B, rank * B + B)
+        B = xb.shape[0]
+        tab = self._row_phasors(xb.shape[-1], B, first_row(B, group))
         lead = xb.shape[:-2] if self.planar else xb.shape[:-1]
-        tab = tab.view((xb.shape[0],) + (1,) * (len(lead) - 1) + (2,))
+        tab = tab.view((B,) + (1,) * (len(lead) - 1) + (2,))
         pr, pi = tab[..., 0], tab[..., 1]
         if initial is not None:
             init = torch.as_tensor(initial, device=xb.device)
@@ -865,11 +875,11 @@ class Agc(StreamOp):
                              method=self.method)
         return final, y
 
-    def shard_carry(self, xb, initial=None):
+    def shard_carry(self, xb, initial=None, group=None):
         if self.method == "linear":
             m = _envelope(xb) if self.planar else xb
             A, B = scans.agc_affine(m, self.mu, self.reference)
-            Ap, Bp = exclusive_affine_prefix(A, B)
+            Ap, Bp = exclusive_affine_prefix(A, B, group)
             g0 = self.initial if initial is None else torch.as_tensor(
                 initial, dtype=_F32, device=xb.device)
             return Ap * g0 + Bp
@@ -886,8 +896,9 @@ class Agc(StreamOp):
         for _ in range(self.approx_time_sharding):
             _, final = scans.agc(xb, self.mu, self.reference, enter,
                                  method="scan", store=False)
-            enter = right_shift_scalar(final)
-            enter[0] = g0
+            enter = right_shift_scalar(final, group)
+            if first_row(xb.shape[0], group) == 0:  # the stream's first row
+                enter[0] = g0
         return enter
 
 
@@ -915,15 +926,15 @@ class DcBlocker(StreamOp):
         y, new = scans.dc_blocker(x, carry[0], carry[1], self.alpha)
         return new, y
 
-    def shard_carry(self, xb, initial=None):
-        last = left_halo(xb, 1)[..., 0]
+    def shard_carry(self, xb, initial=None, group=None):
+        last = left_halo(xb, 1, group=group)[..., 0]
         if initial is not None:
-            last = substitute_first(last, initial[0])
+            last = substitute_first(last, initial[0], group)
         y_zero, _ = scans.dc_blocker(xb, last, 0.0, self.alpha)
         b = y_zero[..., -1]
         a = torch.full_like(b, float(np.float32(self.alpha))
                             ** xb.shape[-1])
-        A, enter = exclusive_affine_prefix(a, b)
+        A, enter = exclusive_affine_prefix(a, b, group)
         if initial is not None:
             enter = enter + A * torch.as_tensor(initial[1], dtype=_F32,
                                                 device=xb.device)
@@ -1017,8 +1028,9 @@ class FftStream(StreamOp):
             F = torch.fft.fftshift(F, dim=-1)
         return new, F
 
-    def shard_carry(self, xb, initial=None):
-        return substitute_first(left_halo(xb, self.size - self.hop), initial)
+    def shard_carry(self, xb, initial=None, group=None):
+        return substitute_first(
+            left_halo(xb, self.size - self.hop, group=group), initial, group)
 
 
 class Channelize(StreamOp):
@@ -1065,5 +1077,6 @@ class Channelize(StreamOp):
                                  x.shape[-1] // self.n_channels)
         return new, y
 
-    def shard_carry(self, xb, initial=None):
-        return substitute_first(left_halo(xb, self.hist_len()), initial)
+    def shard_carry(self, xb, initial=None, group=None):
+        return substitute_first(left_halo(xb, self.hist_len(), group=group),
+                                initial, group)

@@ -62,7 +62,8 @@ def test_no_jax_or_sdr_tpu_imports():
             "sdr_tpu_torch/apps/channelizer.py",
             "sdr_tpu_torch/kernels/agc.py", "sdr_tpu_torch/ops/demod.py",
             "sdr_tpu_torch/stream/sources.py", "sdr_tpu_torch/io/files.py",
-            "sdr_tpu_torch/apps/fm_tx.py"} <= names
+            "sdr_tpu_torch/apps/fm_tx.py", "sdr_tpu_torch/parallel/mesh.py",
+            "sdr_tpu_torch/parallel/multihost.py"} <= names
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
