@@ -1,8 +1,15 @@
 #!/usr/bin/env python3
 """Drive sdr_tpu_torch's FM, AM, waterfall, channelizer and transmitter
-paths, and their sharded forms, on one NVIDIA GPU.
+paths, their sharded forms and the FM receiver's live input, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --s1-tree DIR [--s1-backend nccl]
+
+The second form times only phase 11's NCCL world-1 calls of the port in
+another checkout ``DIR`` (e.g. the parent commit's, unpacked with ``git
+archive``) over the given process-group backend, to compare two trees'
+spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 It builds the CUDA kernels K1-K6 from ``sdr_tpu_torch/csrc`` (one nvcc
@@ -124,9 +131,12 @@ per source, all at once), then:
    its PNG through matplotlib, which the card's machine lacks; the CPU
    tests drive it;
 11. the sharded paths (``sdr_tpu_torch.parallel``): ``run_time_sharded``
-   over a one-rank NCCL group in this process at the paths' full width,
-   the mono chain and the stereo chain with K5 (bitwise
-   ``run_time_batched``, the same launches); four gloo ranks sharing
+   over a one-rank NCCL group in this process (``cpu:gloo,cuda:nccl``, as
+   ``init_distributed`` asks for it) at the paths' full width, the mono
+   chain and the stereo chain with K5 (bitwise ``run_time_batched``, the
+   same launches, the counted call under
+   ``torch.cuda.set_sync_debug_mode('error')``: it never waits for the
+   card; each span beside the one-process call's); four gloo ranks sharing
    the card, each reading its span of the recordings through
    ``host_block_iterator`` (``--shard-rank``: this script as a rank;
    each prints its launches and times): mono 8 blocks a rank (bitwise),
@@ -139,9 +149,28 @@ per source, all at once), then:
    (four gloo ranks, ``--wideband``), its WAVs the one-process CLI's.
    Each sharded call's median span and host time in the collectives,
    labelled as no scaling figure;
-12. prints its own run time, ``{"kernels": [...]}`` (every kernel with
-   its launches on each path), the card line again, and last ``{"ok":
-   true, "device": {...}}``.
+12. after phase 13, prints its own run time, ``{"kernels": [...]}``
+   (every kernel with its launches on each path, the live ones included),
+   the card line again, and last ``{"ok": true, "device": {...}}``;
+13. the live path: ``python -m sdr_tpu_torch.apps.fm --in
+   rtl_tcp://127.0.0.1:PORT --freq 90.2M --gain 496 --ppm 1`` as a
+   command against this script's mock rtl_tcp server (the ``RTL0``
+   header, tuner 5, 29 gains; it records the client's commands and sends
+   32 blocks of 1,310,720 bytes of the synthetic broadcasts, 16.4 s of
+   air, at 8x real time): rc 0, the commands, no dropped block, the WAV
+   byte for byte the file CLI's on the same bytes, the tone; ``--batched
+   8`` (the same WAV); the stereo chain (the file CLI's WAV, L/R
+   separation); ``main`` in this process against an unpaced radio under
+   the port's ``Timer`` (samples/s against real time, blocks dropped and
+   launches: a figure, not a check) for mono, ``--batched 8`` and
+   stereo; the native loader (its g++ build time, ``--native`` giving
+   the file CLI's WAV, ``native_file_source(repeat=True)`` the file twice
+   over, 64 UDP datagrams of 65,440 bytes through ``fm_chain()`` on the
+   card bitwise the same blocks from a file); ``Pipeline.scan`` over
+   [8, 1,310,720] (bitwise ``Pipeline.run``, launches {u8_front_demod:
+   8, resample: 8, fir: 8}); ``Timer`` and ``timed`` reading at least the
+   CUDA-event time of a block-parallel call queued behind a device-side
+   sleep; and ``profile`` writing a trace.
 
 Every failed check raises, so any failure exits nonzero.  Without a CUDA
 GPU it exits nonzero before printing any result.
@@ -152,9 +181,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 from pathlib import Path
@@ -1991,6 +2023,27 @@ def time_sharded(fn, what: str, label: str, card: str):
     return ms, cms
 
 
+def time_back_to_back(fn, what: str, label: str, card: str,
+                      reps: int = CHAIN_REPS) -> float:
+    """ms a call over ``reps`` calls enqueued back to back with no wait
+    between them (CUDA events before the first and after the last): where
+    a call waits for the card, its enqueue and the card's work add up;
+    otherwise the larger of the two sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / reps
+    print(f"{what}: {ms} ms a call over {reps} back-to-back calls by CUDA "
+          f"events -- {label}; {card}")
+    return ms
+
+
 def stereo_ops(fused: bool, device):
     """The stereo + de-emphasis chain on the quantized front, with the back
     half on K2 -> K3 or, ``fused``, on K5."""
@@ -2005,37 +2058,63 @@ def stereo_ops(fused: bool, device):
                                        device=device), *ops[4:]]
 
 
+def nccl_world1(device, backend: str | None = None):
+    """A one-rank process group in this process: NCCL for CUDA tensors
+    with gloo beside it for host ones (what ``init_distributed`` asks
+    for), or ``backend``; gloo for a CPU rehearsal."""
+    import torch.distributed as dist
+    if backend is None:
+        backend = "cpu:gloo,cuda:nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def sync_free(fn):
+    """``fn()`` with ``torch.cuda.set_sync_debug_mode('error')``: any call
+    in it that waits for the card raises."""
+    if not torch.cuda.is_available():
+        return fn()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def run_nccl_world1(seed: int, device, kernels, card: str):
     """``run_time_sharded`` over a one-rank NCCL group in this process, at
     the single-device paths' full width: the mono chain (bitwise
     ``run_time_batched`` over 32 blocks, the same launches) and the stereo
     chain with the fused back half (K4, K5; the IIR's and the pilot's
-    affine prefixes gathered by NCCL on CUDA tensors; bitwise)."""
+    affine prefixes gathered by NCCL on CUDA tensors; bitwise).  The
+    counted call runs with the sync debug mode at 'error' (the shape check
+    gathers host tensors over the group's gloo side and never waits for
+    the card); each sharded call's span is printed beside the
+    one-process call's."""
     import torch.distributed as dist
     from sdr_tpu_torch.apps.chains import fm_chain
     from sdr_tpu_torch.parallel import (run_time_batched, run_time_sharded,
                                         time_mesh)
 
-    # (a CPU device, as a rehearsal without the card passes, takes gloo)
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                            store=dist.HashStore(), rank=0, world_size=1)
+    nccl_world1(device)
     paths = {}
     try:
         mesh = time_mesh(1, device.type)
-        print(f"NCCL world 1: backend {dist.get_backend(mesh.get_group('t'))}"
-              f", mesh {mesh}")
+        print(f"NCCL world 1: backend "
+              f"{dist.get_backend_config(mesh.get_group('t'))}, mesh {mesh}")
         for name, synth, ops, want_launches in (
                 ("mono", synth_broadcast, fm_chain(device=device),
                  {"u8_front_demod": 2, "resample": 1, "fir": 1}),
                 ("stereo_fused", synth_stereo_broadcast,
                  stereo_ops(True, device), None)):
             raw = synth(ROWS * ROW_BYTES, seed, device)
-            want, batched = counted(lambda: run_time_batched(
-                ops, raw, ROWS, device=device), kernels)
+            one = lambda: run_time_batched(  # noqa: E731
+                ops, raw, ROWS, device=device)
+            want, batched = counted(one, kernels)
             fn = lambda: run_time_sharded(ops, mesh, raw,  # noqa: E731
                                           nblocks=ROWS, device=device)
             fn()                                        # warm-up
-            got, launches = counted(fn, kernels)
+            got, launches = counted(lambda: sync_free(fn), kernels)
             require(torch.equal(got, want), f"NCCL world 1 {name}: sharded "
                     f"!= run_time_batched (max diff {max_err(got, want)})")
             require(launches == batched, f"NCCL world 1 {name}: launches "
@@ -2046,14 +2125,68 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
             require(all(launches[k] > 0 for k in batched if batched[k]),
                     f"NCCL world 1 {name}: launches {launches}")
             print(f"NCCL world 1 {name}: run_time_sharded(time_mesh(1), "
-                  f"nblocks={ROWS}) bitwise equal to run_time_batched; "
-                  f"launches in one call {launches}")
+                  f"nblocks={ROWS}) bitwise equal to run_time_batched, "
+                  f"with the sync debug mode at 'error'; launches in one "
+                  f"call {launches}")
             time_sharded(fn, f"NCCL world 1 {name}", NCCL_LABEL, card)
+            time_sharded(one, f"one process {name} (run_time_batched)",
+                         "the same work without a group", card)
+            time_back_to_back(fn, f"NCCL world 1 {name}", NCCL_LABEL, card)
+            time_back_to_back(one, f"one process {name}",
+                              "the same work without a group", card)
             paths[f"sharded_nccl_{name}"] = launches
             del raw, want, got
     finally:
         dist.destroy_process_group()
     return paths
+
+
+def compare_s1(tree: Path, backend: str, seed: int) -> int:
+    """The NCCL world-1 spans of ``tree``'s port (another checkout, e.g.
+    the parent commit's from ``git archive``) with the process group's
+    ``backend``: mono and stereo with K5, each sharded call beside the
+    one-process call, on the same inputs as phase 11.  Prints the spans;
+    checks the outputs bitwise."""
+    sys.path.insert(0, str(tree.resolve()))
+    import sdr_tpu_torch
+    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.kernels import KERNELS
+    from sdr_tpu_torch.kernels._build import build_all
+    from sdr_tpu_torch.parallel import (run_time_batched, run_time_sharded,
+                                        time_mesh)
+    import torch.distributed as dist
+
+    card = card_line()
+    print(f"S1 spans of {Path(sdr_tpu_torch.__file__).parent} over "
+          f"{backend!r}; card: {card}")
+    build_all(KERNELS)
+    device = torch.device("cuda")
+    nccl_world1(device, backend)
+    try:
+        mesh = time_mesh(1)
+        for name, synth, ops in (
+                ("mono", synth_broadcast, fm_chain(device=device)),
+                ("stereo_fused", synth_stereo_broadcast,
+                 stereo_ops(True, device))):
+            raw = synth(ROWS * ROW_BYTES, seed, device)
+            one = lambda: run_time_batched(  # noqa: E731
+                ops, raw, ROWS, device=device)
+            fn = lambda: run_time_sharded(ops, mesh, raw,  # noqa: E731
+                                          nblocks=ROWS, device=device)
+            require(torch.equal(fn(), one()), f"{name}: sharded != one")
+            for rep in range(2):
+                time_sharded(fn, f"S1 {backend} {name} sharded", NCCL_LABEL,
+                             card)
+                time_sharded(one, f"S1 {backend} {name} one process",
+                             "the same work without a group", card)
+                time_back_to_back(fn, f"S1 {backend} {name} sharded",
+                                  NCCL_LABEL, card)
+                time_back_to_back(one, f"S1 {backend} {name} one process",
+                                  "the same work without a group", card)
+            del raw
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def write_shard_inputs(d: Path, seed: int, device):
@@ -2321,6 +2454,320 @@ def run_sharded(seed: int, device, kernels, card: str):
     return paths
 
 
+LIVE_BLOCKS = 32                      # 16.4 s of air at 1.28 MS/s
+LIVE_SPEED = 8                        # the mock radio's pace, x real time
+LIVE_ARGS = ["--freq", "90.2M", "--gain", "496", "--ppm", "1"]
+LIVE_COMMANDS = [(2, FS_IN), (1, 90_200_000), (5, 1), (3, 1), (4, 496)]
+STEREO_ARGS = ["--front", "quantized", "--stereo", "--deemphasis", "75e-6"]
+UDP_BLOCK = 65_440                    # the largest multiple of 160 a datagram
+UDP_BLOCKS = 64
+SCAN_BLOCKS = 8
+
+
+class MockRadio:
+    """A loopback rtl_tcp server for one connection: the 12-byte header
+    (``RTL0``, tuner 5 = R820T, 29 gains), the client's five 5-byte
+    commands recorded, then ``payload`` at ``speed`` times real time
+    (2 bytes a complex sample at 1.28 MS/s; None: as fast as loopback
+    takes it), then the end of the stream."""
+
+    def __init__(self, payload: bytes, speed):
+        self.payload, self.speed = payload, speed
+        self.commands, self.error = [], None
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(1)
+        self._srv.settimeout(300)
+        self.url = f"rtl_tcp://127.0.0.1:{self._srv.getsockname()[1]}"
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        try:
+            conn, _ = self._srv.accept()
+            with conn:
+                conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+                conn.settimeout(30)
+                buf = b""
+                while len(buf) < 5 * len(LIVE_COMMANDS):
+                    chunk = conn.recv(256)
+                    if not chunk:
+                        break
+                    buf += chunk
+                self.commands = [struct.unpack(">BI", buf[i:i + 5])
+                                 for i in range(0, len(buf) - 4, 5)]
+                conn.settimeout(None)
+                rate = None if self.speed is None else 2 * FS_IN * self.speed
+                view, step = memoryview(self.payload), 1 << 16
+                t0 = time.perf_counter()
+                for off in range(0, len(view), step):
+                    if rate is not None:
+                        time.sleep(max(0.0, t0 + off / rate
+                                       - time.perf_counter()))
+                    conn.sendall(view[off:off + step])
+                conn.shutdown(socket.SHUT_WR)
+        except OSError as e:
+            self.error = e
+        finally:
+            self._srv.close()
+
+    def join(self, what: str):
+        self._thread.join(timeout=600)
+        require(not self._thread.is_alive(), f"{what}: mock radio hung")
+        require(self.error is None, f"{what}: mock radio: {self.error}")
+        require(self.commands == LIVE_COMMANDS, f"{what}: commands "
+                f"{self.commands}, expected {LIVE_COMMANDS}")
+
+
+def read_wav(path):
+    with wave.open(str(path), "rb") as wf:
+        return (wf.getframerate(), wf.getnchannels(),
+                np.frombuffer(wf.readframes(wf.getnframes()), "<i2"))
+
+
+def live_command(payload: bytes, extra, out) -> bytes:
+    """``python -m sdr_tpu_torch.apps.fm --in rtl_tcp://...`` as a
+    command against a mock radio paced at LIVE_SPEED x real time: rc 0,
+    the commands, no dropped block.  Returns the WAV's bytes."""
+    radio = MockRadio(payload, LIVE_SPEED)
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sdr_tpu_torch.apps.fm", "--in", radio.url,
+         "--out", str(out), *LIVE_ARGS, *extra], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    what = f"live cli {' '.join(extra) or '(mono)'}"
+    require(proc.returncode == 0, f"{what}: rc {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    radio.join(what)
+    require("radio dropped" not in proc.stderr,
+            f"{what}: {proc.stderr.strip()}")
+    print(f"{what} at {LIVE_SPEED}x real time: rc 0, {wall:.2f} s as a "
+          f"command ({len(payload) / 2 / FS_IN:.2f} s of air), commands "
+          f"{radio.commands}, no dropped block; {proc.stdout.strip()}")
+    return Path(out).read_bytes()
+
+
+def live_in_process(payload: bytes, extra, out, kernels, device):
+    """The FM CLI's ``main`` in this process against a mock radio that
+    sends as fast as loopback allows, under the port's ``Timer``: its
+    launches, blocks dropped, and input samples/s against real time (a
+    figure, not a check)."""
+    import contextlib
+    import io as iolib
+    from sdr_tpu_torch.apps import fm
+    from sdr_tpu_torch.stream import Timer
+    radio = MockRadio(payload, None)
+    err = iolib.StringIO()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    with contextlib.redirect_stderr(err), Timer(device) as t:
+        require(fm.main(["--in", radio.url, "--out", str(out), *LIVE_ARGS,
+                         *extra]) == 0, "live main")
+    launches = {k.name: k.launches for k in kernels}
+    what = f"live main {' '.join(extra) or '(mono)'}, unpaced"
+    radio.join(what)
+    _, ch, pcm = read_wav(out)
+    blocks = len(pcm) // ch // (STREAM_BLOCK * 3 // 160)
+    dropped = err.getvalue().strip() or "radio dropped 0 blocks"
+    rate = blocks * STREAM_BLOCK / 2 / t.seconds
+    print(f"{what}: {blocks} of {len(payload) // STREAM_BLOCK} blocks in "
+          f"{t.seconds:.4f} s (Timer, the pipeline's construction and the "
+          f"connection included): {rate:.6e} complex input samples/s, "
+          f"{rate / FS_IN:.2f}x real time (1.28e6 S/s); {dropped}; "
+          f"launches {launches}")
+    return launches
+
+
+def check_native(path: Path, payload: bytes, device, wav_file: bytes,
+                 tmp: Path):
+    """The native loader: its build time, ``--native`` on the CLI (the
+    file CLI's WAV), ``repeat=True`` (the file twice over), and UDP
+    datagrams of UDP_BLOCK bytes over loopback through ``fm_chain()`` on
+    the card, bitwise the same blocks read from a file."""
+    from sdr_tpu_torch.apps import fm
+    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.io import native
+    from sdr_tpu_torch.io.files import iq_file_source
+    from sdr_tpu_torch.stream import Pipeline
+
+    t0 = time.perf_counter()
+    lib = native.build_native(force=True)
+    print(f"native loader built with g++ in {time.perf_counter() - t0:.2f} "
+          f"s into {lib.relative_to(ROOT)}")
+    out = tmp / "native.wav"
+    require(fm.main(["--in", str(path), "--out", str(out), "--native"]) == 0,
+            "--native")
+    require(out.read_bytes() == wav_file, "--native WAV != the file CLI's")
+    want = np.frombuffer(payload, np.uint8)
+    it = iter(native.native_file_source(path, STREAM_BLOCK, repeat=True))
+    got = np.concatenate([next(it) for _ in range(2 * LIVE_BLOCKS)])
+    require(np.array_equal(got, np.tile(want, 2)),
+            "native_file_source(repeat=True) is not the file twice over")
+    print(f"--native: the file CLI's WAV byte for byte; repeat=True: "
+          f"{2 * LIVE_BLOCKS} blocks, the file twice over")
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    data = payload[:UDP_BLOCKS * UDP_BLOCK]
+    upath = tmp / "udp.u8"
+    upath.write_bytes(data)
+    pipe = Pipeline(fm_chain(device=device), block_in=UDP_BLOCK,
+                    device=device)
+    want = list(pipe.run(iq_file_source(upath, UDP_BLOCK)))
+    # a ring as deep as the burst: the check is for datagrams lost on the
+    # way, not for a consumer outrun
+    src = native.native_udp_source(port, UDP_BLOCK, n_buffers=UDP_BLOCKS,
+                                   timeout=5.0)
+
+    def send():
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        time.sleep(0.5)
+        for i in range(UDP_BLOCKS):
+            s.sendto(data[i * UDP_BLOCK:(i + 1) * UDP_BLOCK],
+                     ("127.0.0.1", port))
+            time.sleep(0.002)
+        s.close()
+
+    sender = threading.Thread(target=send, daemon=True)
+    sender.start()
+    ys = list(pipe.run(src))
+    sender.join(timeout=60)
+    require(len(ys) == UDP_BLOCKS, f"native UDP: {UDP_BLOCKS - len(ys)} of "
+            f"{UDP_BLOCKS} datagrams missing (dropped {src.dropped})")
+    require(all(torch.equal(a, b) for a, b in zip(ys, want)),
+            "native UDP blocks through fm_chain() != the file's")
+    print(f"native UDP: {UDP_BLOCKS} datagrams of {UDP_BLOCK} bytes, every "
+          f"one through Pipeline(fm_chain()) on the card, bitwise the same "
+          f"blocks from a file; dropped {src.dropped}")
+
+
+def check_surface(raw, device, kernels, tmp: Path, card: str):
+    """``Pipeline.scan`` over [SCAN_BLOCKS, STREAM_BLOCK] (bitwise
+    ``Pipeline.run``, its launches), ``Timer`` and ``timed`` against the
+    CUDA-event time of a block-parallel call queued behind a device-side
+    sleep (they wait for the card), and ``profile`` writing a trace."""
+    from sdr_tpu_torch.apps.chains import fm_chain
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.stream import Pipeline, Timer
+    from sdr_tpu_torch.utils import profile, timed, trace
+
+    ops = fm_chain(device=device)
+    pipe = Pipeline(ops, block_in=STREAM_BLOCK, device=device)
+    x = raw[:SCAN_BLOCKS * STREAM_BLOCK].view(SCAN_BLOCKS, STREAM_BLOCK)
+    run = torch.stack(list(pipe.run(x.unbind(0))))
+    (_, ys), launches = counted(lambda: pipe.scan(x), kernels)
+    require(torch.equal(ys, run), "Pipeline.scan != Pipeline.run")
+    require_launches(launches, {"u8_front_demod": SCAN_BLOCKS,
+                                "resample": SCAN_BLOCKS,
+                                "fir": SCAN_BLOCKS}, "Pipeline.scan")
+    print(f"Pipeline.scan over {list(x.shape)}: bitwise Pipeline.run, "
+          f"ys {list(ys.shape)}, launches {launches}")
+
+    def queued():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        run_time_batched(ops, raw, ROWS, device=device)
+        b.record()
+        return a, b
+
+    run_time_batched(ops, raw, ROWS, device=device)                # warm-up
+    torch.cuda.synchronize()
+    with Timer(device) as t:
+        a, b = queued()
+    ev = a.elapsed_time(b)
+    require(t.seconds * 1e3 >= ev, f"Timer {t.seconds * 1e3} ms < the "
+            f"call's {ev} ms of device time: it did not wait")
+    lines = []
+    torch.cuda.synchronize()
+    with timed("queued call", sink=lines.append, device=device):
+        a2, b2 = queued()
+    ev2 = a2.elapsed_time(b2)
+    got = float(lines[0].split(": ")[1].rstrip("s")) * 1e3
+    # timed prints 0.1 ms steps: allow its rounding, half a step
+    require(got >= ev2 - 0.05, f"timed {got} ms < the call's {ev2} ms")
+    print(f"Timer {t.seconds * 1e3:.3f} ms >= {ev:.3f} ms and timed "
+          f"{got:.3f} ms >= {ev2:.3f} ms of CUDA-event time of a "
+          f"block-parallel call behind a device-side sleep: both wait for "
+          f"the card; {card}")
+
+    logdir = tmp / "profile"
+    with profile(logdir, device=device):
+        with trace("fm_block_parallel"):
+            run_time_batched(ops, raw, ROWS, device=device)
+        torch.cuda.synchronize()
+    traces = list(logdir.iterdir())
+    require(len(traces) == 1 and traces[0].stat().st_size > 0,
+            f"profile wrote {traces}")
+    events = json.loads(traces[0].read_text()).get("traceEvents", [])
+    kernels_seen = sum(1 for e in events if e.get("cat") == "kernel")
+    require(any(e.get("name") == "fm_block_parallel" for e in events),
+            "profile: the trace region is missing")
+    print(f"profile: {traces[0].name}, {traces[0].stat().st_size} bytes, "
+          f"{len(events)} events, {kernels_seen} of them device kernels")
+    return launches
+
+
+def run_live(seed: int, device, kernels, card: str):
+    """Phase 13: the FM CLI on a live (mock) rtl_tcp radio, the native
+    loader, ``Pipeline.scan``, ``Timer``, ``timed`` and ``profile``."""
+    from sdr_tpu_torch.apps import fm
+
+    t0 = time.perf_counter()
+    paths = {}
+    mono = synth_broadcast(LIVE_BLOCKS * STREAM_BLOCK, seed, device)
+    stereo = synth_stereo_broadcast(LIVE_BLOCKS * STREAM_BLOCK, seed, device)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        for name, raw, extra in (("mono", mono, []),
+                                 ("stereo", stereo, STEREO_ARGS)):
+            payload = raw.cpu().numpy().tobytes()
+            path = tmp / f"{name}.u8"
+            path.write_bytes(payload)
+            wav = tmp / f"{name}_file.wav"
+            require(fm.main(["--in", str(path), "--out", str(wav),
+                             *extra]) == 0, f"file cli {name}")
+            wav_file = wav.read_bytes()
+            live = live_command(payload, extra, tmp / f"{name}_live.wav")
+            require(live == wav_file, f"live {name} WAV != the file CLI's")
+            rate, ch, pcm = read_wav(tmp / f"{name}_live.wav")
+            require(rate == 48_000 and len(pcm) == LIVE_BLOCKS * ch
+                    * (STREAM_BLOCK * 3 // 160), f"live {name} WAV shape")
+            if name == "mono":
+                hz = tone_hz(pcm.astype(np.float64))
+                require(abs(hz - 1000) < 5, f"live mono tone at {hz} Hz")
+                batched = live_command(payload, ["--batched", "8"],
+                                       tmp / "batched_live.wav")
+                require(batched == live,
+                        "live --batched 8 WAV != the streamed live WAV")
+                print(f"live mono: the file CLI's WAV byte for byte, tone "
+                      f"{hz:.2f} Hz; --batched 8 the same bytes")
+                paths["live_mono"] = live_in_process(
+                    payload, [], tmp / "u_mono.wav", kernels, device)
+                paths["live_batched"] = live_in_process(
+                    payload, ["--batched", "8"], tmp / "u_batched.wav",
+                    kernels, device)
+                check_native(path, payload, device, wav_file, tmp)
+            else:
+                pcm = pcm.reshape(-1, 2).astype(np.float64)
+                sep = check_separation(pcm[4000:, 0], pcm[4000:, 1],
+                                       "live stereo")
+                print(f"live stereo: the file CLI's WAV byte for byte, "
+                      f"separation L {sep[0]:.1f}x R {sep[1]:.1f}x")
+                paths["live_stereo"] = live_in_process(
+                    payload, extra, tmp / "u_stereo.wav", kernels, device)
+        paths["scan"] = check_surface(mono, device, kernels, tmp, card)
+    print(f"live phase ran in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def print_rows(rows, card: str) -> None:
     for r in rows:
         print(f"{r['name']}: max_abs_err {r['max_abs_err']}, {r['ms']} ms, "
@@ -2338,6 +2785,11 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--shard-device", type=torch.device, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--s1-tree", type=Path, default=None,
+                    help="time only the NCCL world-1 calls of the port in "
+                         "this checkout (e.g. the parent commit's)")
+    ap.add_argument("--s1-backend", default="cpu:gloo,cuda:nccl",
+                    help="the process group's backend for --s1-tree")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2346,6 +2798,8 @@ def main(argv=None) -> int:
     if args.shard_rank is not None:
         return shard_worker(args.shard_rank, args.shard_dir,
                             args.shard_device)
+    if args.s1_tree is not None:
+        return compare_s1(args.s1_tree, args.s1_backend, args.seed)
 
     from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
                                            fm_chain, waterfall_chain)
@@ -2458,13 +2912,17 @@ def main(argv=None) -> int:
     # card, the channelizer CLI under torchrun
     sharded = run_sharded(args.seed, device, KERNELS, card)
 
+    # the live path: the FM CLI on a mock rtl_tcp radio, the native
+    # loader, Pipeline.scan, Timer, timed and profile
+    live = run_live(args.seed, device, KERNELS, card)
+
     # launches: each row's on the path its shapes come from, and on every
     # path, each path's counts taken around one call of its own
     paths = {"mono": mono, "stereo": stereo, "stereo_fused": fused,
              "mono_exact": exact, "am": am, "am_approx": am_approx,
              "fm_tx": fm_tx_path, "waterfall": waterfall,
              "channelizer_wideband": wideband, "channelizer": narrowband,
-             **sharded}
+             **sharded, **live}
     for r in rows:
         r["launches"] = mono[r["kernel"]]
     for r in srows:

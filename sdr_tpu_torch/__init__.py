@@ -14,3 +14,29 @@ here is true f32, as the JAX package runs its FIR products at HIGHEST.
 from sdr_tpu_torch.utils.device import strict_fp32
 
 strict_fp32()
+
+from sdr_tpu_torch.ops import (  # noqa: E402,F401
+    iq_u8_to_cfloat,
+    iq_i16_to_cfloat,
+    cfloat_to_iq_i16,
+    scale,
+    half_band_up,
+    quarter_band_up,
+    fir_filter,
+    fir_decimate,
+    fir_resample,
+    FirSpec,
+    fm_demod,
+    am_demod,
+    dc_blocker,
+    agc,
+    fft,
+    rfft,
+    spectrogram,
+    sinc,
+    hanning,
+    hamming,
+    blackman,
+    windowed_sinc,
+    srrc,
+)

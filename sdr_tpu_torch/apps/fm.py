@@ -1,8 +1,15 @@
-"""Broadcast FM receiver CLI over a recorded u8 IQ file (counterpart of
-sdr_tpu/apps/fm.py):
+"""Broadcast FM receiver CLI (counterpart of sdr_tpu/apps/fm.py).
+
+Recorded capture:
 
     python -m sdr_tpu_torch.apps.fm --in capture.iq --out audio.wav \\
         --rate 1280K --block 1310720
+
+Live radio through an rtl_tcp server (``--gain`` in tenths of dB, the
+hardware AGC without it; ``--ppm`` the frequency correction):
+
+    python -m sdr_tpu_torch.apps.fm --in rtl_tcp://radiohost:1234 \\
+        --freq 90.2M --gain 496 --ppm 1
 
 Reads RTL-SDR-format u8 interleaved IQ (1.28 MS/s by default) and writes
 WAV at 3/80 of the input rate (48 kHz): mono, or L/R with ``--stereo``
@@ -11,10 +18,14 @@ WAV at 3/80 of the input rate (48 kHz): mono, or L/R with ``--stereo``
     python -m sdr_tpu_torch.apps.fm --in capture.iq --out audio.wav \\
         --front quantized --stereo --deemphasis 75e-6
 
-The front is the fused kernel unless ``--front`` names the quantized one
-or the exact f32 stages (``--front exact``).  Runs on the card;
-``--device cpu`` runs the plain PyTorch versions.  Live radio (rtl_tcp),
-the native ring loader and live audio wait for later slices of the port.
+A live input first runs the chain once on a block of silence (``prime``),
+so the card's start-up is paid before the radio streams.  ``--audio``
+plays the audio live through the optional ``sounddevice`` package
+instead (and fails without it); ``--native`` reads a recording through
+the C++ ring-buffer loader (built with g++ on first use).  The
+front is the fused kernel unless ``--front`` names the quantized one or
+the exact f32 stages (``--front exact``).  Runs on the card; ``--device
+cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -23,20 +34,43 @@ import argparse
 import itertools
 import sys
 
+import numpy as np
+
 from sdr_tpu_torch.apps.chains import fm_chain
 from sdr_tpu_torch.io.files import iq_file_source, wav_sink
 from sdr_tpu_torch.stream import Pipeline, rate as rate_meter
 from sdr_tpu_torch.utils import parse_size
 
 
+def prime(pipe: Pipeline, block: int, batched: int) -> None:
+    """Run the chain once, in the form the stream will take, on blocks of
+    silence (u8 0x80), and wait for the result: the card's lazy start-up
+    (module loads, library handles, the kernels' caches) is then paid
+    before a live radio streams, which cannot wait for it.  The stream
+    itself starts from fresh carries, so its output is unchanged."""
+    silence = np.full(block, 0x80, np.uint8)
+    ys = (pipe.run_batched([silence] * batched, batched) if batched
+          else pipe.run([silence]))
+    for y in ys:
+        y.cpu()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--in", dest="inp", required=True,
-                    help="input raw u8 interleaved IQ file")
+                    help="input raw u8 interleaved IQ file, or "
+                         "rtl_tcp://host:port for a live radio")
     ap.add_argument("--out", default="audio.wav", help="output WAV file")
     ap.add_argument("--rate", default="1280K", type=parse_size,
                     help="input sample rate (complex S/s), e.g. 1280K")
+    ap.add_argument("--freq", type=parse_size, default="90200K",
+                    help="centre frequency for rtl_tcp sources, e.g. 90.2M")
+    ap.add_argument("--gain", type=int, default=None,
+                    help="tuner gain in tenths of dB (rtl_tcp; default: "
+                         "the hardware AGC)")
+    ap.add_argument("--ppm", type=int, default=0,
+                    help="frequency correction in ppm (rtl_tcp)")
     ap.add_argument("--block", default="1310720", type=parse_size,
                     help="u8 items per block (must keep chain rates integral)")
     ap.add_argument("--volume", type=float, default=0.2)
@@ -59,36 +93,65 @@ def main(argv=None):
                     help="stop after N input blocks (0 = until EOF)")
     ap.add_argument("--meter", action="store_true",
                     help="print throughput while running")
+    ap.add_argument("--audio", action="store_true",
+                    help="play live via sounddevice instead of a WAV")
+    ap.add_argument("--native", action="store_true",
+                    help="read the recording through the C++ ring-buffer "
+                         "loader")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain PyTorch versions)")
     args = ap.parse_args(argv)
 
+    # the pipeline first: without a GPU it raises before a radio is opened
     pipe = Pipeline(fm_chain(args.volume, front=args.front,
                              stereo=args.stereo, fs_in=float(args.rate),
                              deemphasis=args.deemphasis, device=args.device),
                     block_in=args.block, device=args.device)
     # block_in counts u8 items: two per complex sample
     audio_rate = 2 * args.rate * pipe.block_out // pipe.block_in
-    write, close = wav_sink(args.out, audio_rate,
-                            channels=2 if args.stereo else 1)
-    source = iq_file_source(args.inp, args.block)
-    if args.max_blocks:
-        source = itertools.islice(source, args.max_blocks)
-    if args.batched:
-        blocks = pipe.run_batched(source, args.batched)
+    channels = 2 if args.stereo else 1
+    if args.audio:
+        from sdr_tpu_torch.io.audio import audio_sink
+        write, close = audio_sink(audio_rate, channels=channels)
     else:
-        blocks = pipe.run(source)
-    if args.meter:
-        blocks = rate_meter(blocks, pipe.block_out * max(1, args.batched))
+        write, close = wav_sink(args.out, audio_rate, channels=channels)
+    radio = None
     n = 0
     try:
+        if args.inp.startswith("rtl_tcp://"):
+            from sdr_tpu_torch.io.rtl_tcp import RtlTcpParams, rtl_tcp_source
+            prime(pipe, args.block, args.batched)
+            radio = rtl_tcp_source(
+                args.inp, RtlTcpParams(args.freq, args.rate,
+                                       freq_correction=args.ppm,
+                                       tuner_gain=args.gain), args.block)
+            source = iter(radio)
+        elif args.native:
+            from sdr_tpu_torch.io.native import native_file_source
+            source = native_file_source(args.inp, args.block)
+        else:
+            source = iq_file_source(args.inp, args.block)
+        if args.max_blocks:
+            source = itertools.islice(source, args.max_blocks)
+        if args.batched:
+            blocks = pipe.run_batched(source, args.batched)
+        else:
+            blocks = pipe.run(source)
+        if args.meter:
+            blocks = rate_meter(blocks, pipe.block_out * max(1, args.batched))
         for y in blocks:
             write(y.cpu().numpy())
             n += y.shape[-1]
     finally:
         close()
-    print(f"wrote {n} audio samples at {audio_rate} Hz to {args.out}")
+        if radio is not None:
+            radio.close()
+            if radio.dropped:
+                print(f"radio dropped {radio.dropped} blocks",
+                      file=sys.stderr)
+    dest = "audio device" if args.audio else args.out
+    print(f"wrote {n} audio samples at {audio_rate} Hz to {dest}")
     return 0
 
 

@@ -39,16 +39,25 @@ def read_iq_file(path, fmt: str = "u8", count: int = -1,
                        offset=offset)
 
 
-def iq_file_source(path, block: int, fmt: str = "u8") -> Iterator[np.ndarray]:
+def iq_file_source(path, block: int, fmt: str = "u8",
+                   repeat: bool = False) -> Iterator[np.ndarray]:
     """Yield fixed-size blocks of ``block`` items of ``fmt`` (u8: RTL-SDR
-    interleaved IQ) from a raw file; drops the trailing partial block."""
+    interleaved IQ) from a raw file; drops the trailing partial block.
+    ``repeat=True`` rewinds at the end and goes on for ever (a file with
+    no whole block yields nothing)."""
     dtype = IQ_DTYPES[fmt]
     with open(path, "rb") as fh:
         while True:
-            b = np.fromfile(fh, dtype=dtype, count=block)
-            if b.shape[0] < block:
+            whole = 0
+            while True:
+                b = np.fromfile(fh, dtype=dtype, count=block)
+                if b.shape[0] < block:
+                    break
+                whole += 1
+                yield b
+            if not repeat or whole == 0:
                 return
-            yield b
+            fh.seek(0)
 
 
 def follow_iq_file(path, block: int, fmt: str = "u8", poll: float = 0.2,

@@ -1,10 +1,11 @@
-"""The scrolling waterfall consumer (counterpart of sdr_tpu/io/plot.py:
-Waterfall).
+"""Plot consumers (counterpart of sdr_tpu/io/plot.py): line and filled
+plots of one block, their frequency axes, and the scrolling waterfall.
 
-Hosts with the card are headless, so the waterfall renders PNGs (one-shot
-or rewritten as rows arrive, matplotlib imported only to render) or text
-rows for a terminal.  It keeps the latest ``rows`` spectral rows, scrolling
-like the reference's texture ring.
+Hosts with the card are headless, so the plots render PNGs (matplotlib,
+imported only to render: the axes and the waterfall's text rows need
+none) or, for the waterfall, text rows for a terminal.  The waterfall
+keeps the latest ``rows`` spectral rows, scrolling like the reference's
+texture ring.
 """
 
 from __future__ import annotations
@@ -13,9 +14,58 @@ import os
 
 import numpy as np
 
+from sdr_tpu_torch.io.files import _host
 from sdr_tpu_torch.ops.fftops import waterfall_image
 
-__all__ = ["Waterfall"]
+__all__ = ["plot_line", "plot_fill", "Waterfall", "zero_axis",
+           "centered_axis"]
+
+
+def zero_axis(n: int, fs: float = 1.0) -> np.ndarray:
+    """Frequency axis [0, fs) of ``n`` bins."""
+    return np.arange(n) * (fs / n)
+
+
+def centered_axis(n: int, fs: float = 1.0) -> np.ndarray:
+    """DC-centred frequency axis [-fs/2, fs/2) of ``n`` bins, for
+    fftshifted spectra."""
+    return (np.arange(n) - n // 2) * (fs / n)
+
+
+def _figure(title, xlabel, ylabel):
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots(figsize=(10, 5))
+    if title:
+        ax.set_title(title)
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    return plt, fig, ax
+
+
+def plot_line(y, filename: str, x=None, title: str = "",
+              xlabel: str = "sample", ylabel: str = "") -> None:
+    """Save a line plot of one block ``y`` (an array or a tensor) against
+    ``x`` (default: the sample index) as a PNG."""
+    plt, fig, ax = _figure(title, xlabel, ylabel)
+    y = _host(y)
+    ax.plot(_host(x) if x is not None else np.arange(len(y)), y,
+            linewidth=0.8)
+    fig.savefig(filename, dpi=100)
+    plt.close(fig)
+
+
+def plot_fill(y, filename: str, x=None, title: str = "",
+              xlabel: str = "frequency", ylabel: str = "power") -> None:
+    """Save a filled plot of one block ``y`` (a spectrum) against ``x``
+    (default: the bin index) as a PNG."""
+    plt, fig, ax = _figure(title, xlabel, ylabel)
+    y = _host(y)
+    ax.fill_between(_host(x) if x is not None else np.arange(len(y)), y,
+                    color="#3070b0")
+    fig.savefig(filename, dpi=100)
+    plt.close(fig)
 
 
 class Waterfall:

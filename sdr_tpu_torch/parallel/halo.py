@@ -32,7 +32,7 @@ import torch.distributed as dist
 
 __all__ = ["left_halo", "right_shift_scalar", "substitute_first",
            "exclusive_affine_prefix", "exclusive_matrix_affine_prefix",
-           "first_row", "gather_ranks"]
+           "first_row", "gather_ranks", "group_backend"]
 
 
 def group_rank(group=None) -> int:
@@ -46,12 +46,23 @@ def first_row(rows: int, group=None) -> int:
     return group_rank(group) * rows
 
 
+def group_backend(group, device_type: str):
+    """The backend ``group`` runs for tensors of ``device_type`` ('nccl',
+    'gloo'), from its configuration (``'cpu:gloo,cuda:nccl'``); None when
+    it has none for that device."""
+    for item in dist.get_backend_config(group).split(","):
+        dev, _, name = item.partition(":")
+        if dev == device_type:
+            return name
+    return None
+
+
 def gather_ranks(t: torch.Tensor, group) -> torch.Tensor:
     """``[world, *t.shape]``: every rank's ``t`` in rank order, on
-    ``t``'s device.  The message goes over the group's device: as is for
-    NCCL, through the host for any other backend."""
+    ``t``'s device.  The message goes as is where the group runs NCCL for
+    ``t``'s device, through the host otherwise (gloo)."""
     wire = t.contiguous()
-    if dist.get_backend(group) != "nccl":
+    if group_backend(group, t.device.type) != "nccl":
         wire = wire.cpu()
     out = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, wire, group=group)

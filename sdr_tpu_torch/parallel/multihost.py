@@ -40,7 +40,10 @@ def init_distributed(backend: str = "nccl", init_method: Optional[str] = None,
     the ``env://`` method); pass them for a manual bring-up, e.g.
     ``init_method='tcp://localhost:29500'`` or ``'file:///tmp/store'``.
     ``backend``: 'nccl' (the default: CUDA tensors between cards) or
-    'gloo' (host tensors)."""
+    'gloo' (host tensors).  'nccl' asks for ``'cpu:gloo,cuda:nccl'``: the
+    same NCCL for CUDA tensors, and gloo beside it for the host tensors
+    of the runners' shape check, which then never waits for the card;
+    every subgroup (a mesh's axes) inherits both."""
     if dist.is_initialized():
         return
     if world_size is None:
@@ -49,6 +52,8 @@ def init_distributed(backend: str = "nccl", init_method: Optional[str] = None,
         return
     if rank is None:
         rank = int(os.environ["RANK"])
+    if backend == "nccl":
+        backend = "cpu:gloo,cuda:nccl"
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
 

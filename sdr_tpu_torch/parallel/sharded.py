@@ -35,7 +35,7 @@ from typing import Sequence
 
 import torch
 
-from sdr_tpu_torch.parallel.halo import gather_ranks
+from sdr_tpu_torch.parallel.halo import gather_ranks, group_backend
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.stream.pipeline import Pipeline, as_input
 from sdr_tpu_torch.utils.device import resolve_device
@@ -106,12 +106,20 @@ def _require_equal_shapes(x: torch.Tensor, group) -> None:
     of ``x``'s shape: the ranks' collectives move rows of equal shapes,
     and the closed-form seams (the resampler's phase, ``Mix``'s row
     phasors) assume equal spans.  One gather of the shapes (the rank
-    count of dims and the first _MAX_DIMS), then every rank raises alike."""
+    count of dims and the first _MAX_DIMS), then every rank raises alike.
+
+    Only ``x.shape`` is read.  The shapes travel as a host tensor over the
+    group's CPU backend (gloo; ``init_distributed`` asks NCCL groups for
+    ``'cpu:gloo,cuda:nccl'``), so the check never waits for the card.  A
+    group with no CPU backend (NCCL alone) gathers them on ``x``'s device
+    and reads them back, which waits for the card's queued work."""
     dims = x.shape[:_MAX_DIMS]
     meta = torch.full((_MAX_DIMS + 1,), -1, dtype=torch.int64)
     meta[0] = x.ndim
     meta[1:len(dims) + 1] = torch.tensor(dims, dtype=torch.int64)
-    shapes = gather_ranks(meta.to(x.device), group).cpu()
+    if group_backend(group, "cpu") is None:
+        meta = meta.to(x.device)
+    shapes = gather_ranks(meta, group).cpu()
     if not bool((shapes == shapes[0]).all()):
         got = [tuple(s[1:min(s[0], _MAX_DIMS) + 1].tolist()) for s in shapes]
         raise ValueError(f"the ranks' local inputs differ in shape: {got}")

@@ -1,4 +1,7 @@
-"""Throughput meter (counterpart of sdr_tpu/stream/rate.py:rate)."""
+"""Throughput metering (counterpart of sdr_tpu/stream/rate.py): the
+``rate`` passthrough and the ``Timer`` context manager.  Card work is
+asynchronous, so both wait for it before reading the clock; otherwise
+they would time the enqueue, not the work."""
 
 from __future__ import annotations
 
@@ -7,7 +10,9 @@ from typing import Iterable
 
 import torch
 
-__all__ = ["rate"]
+from sdr_tpu_torch.utils.device import resolve_device
+
+__all__ = ["rate", "Timer"]
 
 
 def rate(blocks: Iterable, samples_per_block: int, every: int = 10,
@@ -22,3 +27,23 @@ def rate(blocks: Iterable, samples_per_block: int, every: int = 10,
             dt = time.perf_counter() - start
             sink(f"{i * samples_per_block / dt:.3e} samples/sec")
         yield blk
+
+
+class Timer:
+    """Context manager measuring wall time in ``seconds``, waiting on exit
+    for the work queued on ``device`` (``torch.cuda.synchronize``).
+    Raises without a GPU unless ``device='cpu'``, which has nothing to
+    wait for."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.seconds = time.perf_counter() - self.start
+        return False

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "strict_fp32"]
+__all__ = ["resolve_device", "strict_fp32", "device_kind"]
 
 
 def strict_fp32() -> None:
@@ -34,3 +34,11 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def device_kind(device="cuda") -> str:
+    """The name of ``device``'s hardware: the card's
+    (``torch.cuda.get_device_name``), or 'cpu'.  Raises without a GPU
+    unless ``device='cpu'``."""
+    dev = resolve_device(device)
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)

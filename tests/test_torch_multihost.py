@@ -26,6 +26,8 @@ from sdr_tpu_torch.parallel import (gather_time_sharded, global_time_sharded,
                                     host_block_iterator, init_distributed,
                                     local_time_span, run_time_batched,
                                     run_time_sharded, time_mesh)
+from sdr_tpu_torch.parallel.halo import group_backend
+from sdr_tpu_torch.parallel.sharded import _require_equal_shapes
 
 import torch_sharded_worker as worker
 from torch_sharded_worker import spawn
@@ -131,6 +133,36 @@ def test_world_one_equals_one_process(world1, make):
     got = run_time_sharded(make(), world1, raw, nblocks=8, device="cpu")
     want = run_time_batched(make(), raw, 8, device="cpu")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_shape_check_reads_only_the_shape(world1):
+    """The runners' shape check gathers host tensors over the group's CPU
+    backend: on a ``meta`` tensor (no data, no device memory) it runs
+    through, so it builds nothing on the input's device and never reads
+    its data, and on the card never waits for it."""
+    group = world1.get_group("t")
+    _require_equal_shapes(torch.empty((8, 2, 1024), device="meta"), group)
+    with pytest.raises(ValueError, match="at most 8"):
+        _require_equal_shapes(torch.empty((1,) * 9, device="meta"), group)
+
+
+def test_group_backend_reads_each_devices_backend(world1):
+    group = world1.get_group("t")
+    assert group_backend(group, "cpu") == "gloo"
+    assert group_backend(group, "cuda") == "gloo"   # gloo serves both
+    assert group_backend(group, "xpu") is None
+
+
+def test_init_distributed_gives_nccl_a_host_side(monkeypatch):
+    """'nccl' asks for NCCL on CUDA tensors and gloo on host ones, so the
+    shape check has a host backend; other backends pass through."""
+    got = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: got.append(backend))
+    init_distributed(world_size=2, rank=0, init_method="tcp://localhost:1")
+    init_distributed("gloo", world_size=2, rank=0,
+                     init_method="tcp://localhost:1")
+    assert got == ["cpu:gloo,cuda:nccl", "gloo"]
 
 
 def test_two_process_run_from_a_file(tmp_path):
