@@ -15,7 +15,12 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
 It builds the CUDA kernels K1-K6 from ``sdr_tpu_torch/csrc`` (one nvcc
 per source, all at once), then:
 
-1. prints the toolchain and the card's name and power limit;
+1. prints the toolchain and the card's name and power limit, and
+   measures the card's ceilings (``measure_ceilings``: the probes of
+   ``csrc/ceilings.cu``, built with the kernels; device memory, f32, int8,
+   the SM clock and the instruction latencies of K6's step, each rate at
+   most 1.05 times the data sheet's), which the no-FMA floors, K6's
+   latency bound and phase 14 read;
 2. the mono path, ``fm_chain()`` (K1, K2, K3): holds each kernel against
    its plain PyTorch version on the card at the path's shapes (32 rows of
    10,485,760 u8 bytes -> 655,360 demod samples -> 196,671 resampled ->
@@ -170,7 +175,15 @@ per source, all at once), then:
    [8, 1,310,720] (bitwise ``Pipeline.run``, launches {u8_front_demod:
    8, resample: 8, fir: 8}); ``Timer`` and ``timed`` reading at least the
    CUDA-event time of a block-parallel call queued behind a device-side
-   sleep; and ``profile`` writing a trace.
+   sleep; and ``profile`` writing a trace;
+14. the roofline, after phase 10, from the calls phases 2-10 already
+   timed (no new timed call): for every block-parallel chain its median
+   span, its device time (``queued_split``), ``chain_roofline``'s stage
+   sum on the data sheet's and on this run's measured ceilings, the speed
+   of light, the io floor (the first stage's input read and the last
+   stage's output written, over the memory rate) and each floor's share
+   of the device time; no chain's device time may be under its io floor
+   (data sheet) divided by 1.05.
 
 Every failed check raises, so any failure exits nonzero.  Without a CUDA
 GPU it exits nonzero before printing any result.
@@ -211,14 +224,12 @@ CH_BLOCK = 4_096_000                  # wideband samples a block (bench.py:307)
 NB_SAMPLES, NB_BLOCKS = 2_621_440, 4  # narrowband samples a channel, blocks
 TONE_CHANNELS = 49                    # tones 200 + 150 c Hz inside the audio
                                       # FIR's 7.5 kHz passband: c <= 48
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
 AGC_PREFIX = 4_096                    # K6's samples checked on the card
-# K6's step, one sample's dependent chain in agc_scan_kernel<true>
-# (cuobjdump -sass): FMUL, FMUL, FADD, MUFU.RSQ, FMUL, FFMA, FFMA, FADD,
-# FMUL, FADD.  Latencies assumed, not measured: 4 cycles a dependent f32
-# instruction, 16 for MUFU.RSQ.
-K6_STEP_CYCLES = 9 * 4 + 16
+IO_SLACK = 1.05                       # a chain under io floor / this fails
+# this run's measured Ceilings ("measured"), set by main before any phase
+CEILINGS = {}
+# time_chain's records, one a timed block-parallel chain (phase 14)
+CHAIN_TIMINGS = []
 TX_SECONDS, TX_RATE, TX_TONE = 60, 48_000, 1_000.0   # the transmitter's WAV
 TX_BLOCK = 46_080                     # fm_tx's default block
 
@@ -256,9 +267,13 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def bound(nbytes: int, ops: int, kind: str):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    operations over the peak rate of their type, on the H100 SXM data
+    sheet's ceilings (utils/roofline.py)."""
+    from sdr_tpu_torch.utils.roofline import DATASHEET, MEASURED_CEILINGS
+    sheet = MEASURED_CEILINGS[DATASHEET]
+    t_bytes = nbytes / sheet.hbm_bps * 1e3
+    t_ops = ops / {"f32": sheet.f32_flops, "int8": sheet.int8_ops}[kind] \
+        * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -501,14 +516,15 @@ def max_err(a, b) -> float:
 
 def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> None:
     """Print a kernel's floor under the order it keeps (K2, K3, K5),
-    computed, not measured: a rounded multiply and a rounded add per tap
-    and output, separate f32 instructions, at 128 f32 lanes per SM and the
-    H100 SXM's 1.98 GHz boost clock."""
+    computed from this run's measured SM clock: a rounded multiply and a
+    rounded add per tap and output, separate f32 instructions, at 128 f32
+    lanes per SM."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ms = 2 * n_taps * outputs / (sms * 128 * 1.98e9) * 1e3
+    clock = CEILINGS["measured"].clock_hz
+    ms = 2 * n_taps * outputs / (sms * 128 * clock) * 1e3
     print(f"{what}: no-FMA floor {ms} ms ({n_taps} taps x {outputs} outputs "
-          f"x 2 f32 instructions at {sms} SMs x 128 lanes x 1.98 GHz; "
-          "computed, not measured)")
+          f"x 2 f32 instructions at {sms} SMs x 128 lanes x {clock / 1e9} "
+          "GHz, the measured clock; computed)")
 
 
 def fir_switch(f: int, device) -> int:
@@ -1003,14 +1019,16 @@ def check_stereo_kernels(raw, ops):
 
 def time_chain(ops, raw, what: str, nblocks: int = ROWS,
                samples: int | None = None,
-               unit: str = "complex input samples/s") -> float:
+               unit: str = "complex input samples/s") -> dict:
     """Median ms of CHAIN_REPS back-to-back block-parallel calls, each
     between CUDA events: the span on the device's clock from the call's
     first enqueue to its last kernel's end, host gaps included.  Then the
     split of a call into the device's time and the host's enqueue
     (``profile_fm.queued_split``): where the span exceeds the device's
     time, the host's enqueue is what holds the card back.  The rate is
-    ``samples`` (default: the u8 input's complex samples) a call."""
+    ``samples`` (default: the u8 input's complex samples) a call.  Returns
+    the chain's record (its ops, block geometry, span and split), also
+    kept in CHAIN_TIMINGS for phase 14."""
     from sdr_tpu_torch.parallel.sharded import run_time_batched
     from sdr_tpu_torch.profile_fm import queued_split
     samples = raw.numel() // 2 if samples is None else samples
@@ -1030,7 +1048,12 @@ def time_chain(ops, raw, what: str, nblocks: int = ROWS,
     print(f"{what}, each call queued behind a device-side sleep: device "
           f"{split['device_ms']} ms, host enqueue {split['enqueue_ms']} ms "
           f"(max {split['enqueue_max_ms']}) (medians of 5 calls)")
-    return ms
+    lead = int(np.prod(raw.shape[:-1], dtype=np.int64))
+    rec = dict(chain=what, ops=ops, block_in=raw.shape[-1] // nblocks,
+               in_dtype=raw.dtype, batch=nblocks * lead, span_ms=ms,
+               span_min_ms=times[0], span_max_ms=times[-1], **split)
+    CHAIN_TIMINGS.append(rec)
+    return rec
 
 
 def counted(fn, kernels):
@@ -1326,15 +1349,6 @@ def run_am_cli(raw):
     print(f"am cli: {len(pcm)} samples at {rate} Hz, tone {hz:.2f} Hz")
 
 
-def sm_clock_hz() -> float:
-    """The card's highest SM clock (``nvidia-smi clocks.max.sm``)."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    return float(out) * 1e6
-
-
 def check_agc_kernel(agc_op, x):
     """K6 at the AM path's shapes: the decimated [32, 327,680] complex64
     rows from the gains its sweep hands them.  Bitwise against the plain
@@ -1344,7 +1358,8 @@ def check_agc_kernel(agc_op, x):
     the card (timed); the stores-off launch gives the same gains.  Timed
     beside the linear form (``scans.agc``, another algorithm with the same
     output while the gain stays positive), with its bytes bound and its
-    latency bound (a row's samples times the step's dependent cycles)."""
+    latency bound (a row's samples times the step's dependent cycles, at
+    this run's measured latencies and clock)."""
     from sdr_tpu_torch.kernels import agc
     from sdr_tpu_torch.ops import scans
     mu, ref = agc_op.mu, agc_op.reference
@@ -1376,9 +1391,9 @@ def check_agc_kernel(agc_op, x):
         return scans.agc(x, mu, ref, enter)
 
     lib_diff = max_err(lib()[0], y)
-    n, clock = x.shape[-1], sm_clock_hz()
+    n, measured = x.shape[-1], CEILINGS["measured"]
     b, by = bound(nbytes(x, enter, y, g), 9 * x.numel(), "f32")
-    latency = n * K6_STEP_CYCLES / clock * 1e3
+    latency = n * measured.step_cycles / measured.clock_hz * 1e3
     ms = time_ms(lambda: agc.agc_scan(x, mu, ref, enter), 5)
     ms_off = time_ms(lambda: agc.agc_scan(x, mu, ref, enter, store=False),
                      5)
@@ -1386,8 +1401,8 @@ def check_agc_kernel(agc_op, x):
           f"sample prefix of {x.shape[0]} rows (card), two whole rows "
           f"(CPU) and the whole batch (card); {ms} ms a pass, {ms_off} ms "
           f"with the stores off; latency bound {latency} ms ({n} samples x "
-          f"{K6_STEP_CYCLES} cycles at {clock / 1e9} GHz; computed, "
-          "not measured)")
+          f"{measured.step_cycles} cycles at {measured.clock_hz / 1e9} GHz, "
+          "the step's chain at this run's measured latencies and clock)")
     return dict(
         name=f"K6 agc_scan (AM sequential AGC, complex {list(x.shape)})",
         kernel="agc_scan", route="cuda",
@@ -1963,6 +1978,57 @@ def run_channelizer_cli():
                   f"channels 0-{TONE_CHANNELS - 1} within {worst:.3f} Hz")
         else:
             print(f"{what}: {CH_C} WAVs of {m} samples at 48 kHz")
+
+
+def run_roofline(card: str) -> list:
+    """Phase 14: each block-parallel chain that time_chain timed, beside
+    its floors from ``utils/roofline.py`` on the data sheet's ceilings and
+    on this run's measured ones.  Adds no timed call.  The io floor is the
+    bytes a chain cannot avoid, its input read and its output written: a
+    device time under it (less 5 %) means the timing is at fault.  A stage
+    sum's share above 1 is printed, not hidden: a small intermediate can
+    stay in the 50 MB L2 between stages."""
+    from sdr_tpu_torch.utils.roofline import (DATASHEET, MEASURED_CEILINGS,
+                                              chain_roofline)
+    ceilings = {"sheet": MEASURED_CEILINGS[DATASHEET],
+                "measured": CEILINGS["measured"]}
+    rows = []
+    for rec in CHAIN_TIMINGS:
+        row = {k: rec[k] for k in ("chain", "block_in", "batch", "span_ms",
+                                   "device_ms", "enqueue_ms")}
+        row["in_dtype"] = str(rec["in_dtype"])
+        for key, c in ceilings.items():
+            r = chain_roofline(rec["ops"], rec["block_in"], rec["in_dtype"],
+                               rec["batch"], ceilings=c)
+            st = r["stages"]
+            io_ms = (st[0]["bytes_in"] + st[-1]["bytes_out"]) / c.hbm_bps \
+                * 1e3
+            floor_ms = r["total_floor_s"] * 1e3
+            worst = max(st, key=lambda s: s["floor_s"])
+            row[key] = dict(
+                floor_ms=floor_ms, io_floor_ms=io_ms,
+                sol_samples_per_s=r["sol_samples_per_s"],
+                share=floor_ms / rec["device_ms"],
+                io_share=io_ms / rec["device_ms"],
+                largest_stage=f"{worst['op']} {worst['floor_s'] * 1e3} ms "
+                              f"({worst['bound_by']})",
+                stages=[(s["op"], s["floor_s"] * 1e3, s["bound_by"])
+                        for s in st])
+        rows.append(row)
+        sh, me = row["sheet"], row["measured"]
+        print(f"roofline {rec['chain']}: span {rec['span_ms']} ms, device "
+              f"{rec['device_ms']} ms; stage-sum floor {sh['floor_ms']} ms "
+              f"(data sheet) / {me['floor_ms']} ms (measured), shares "
+              f"{sh['share']} / {me['share']}; io floor {sh['io_floor_ms']} "
+              f"/ {me['io_floor_ms']} ms, shares {sh['io_share']} / "
+              f"{me['io_share']}; speed of light {sh['sol_samples_per_s']:.6e}"
+              f" / {me['sol_samples_per_s']:.6e} input samples/s; largest "
+              f"stage floor {sh['largest_stage']}; on {card}")
+        require(rec["device_ms"] >= sh["io_floor_ms"] / IO_SLACK,
+                f"{rec['chain']}: device {rec['device_ms']} ms under its io "
+                f"floor {sh['io_floor_ms']} ms / {IO_SLACK}")
+    require(rows, "no block-parallel chain was timed")
+    return rows
 
 
 # -- the sharded paths --------------------------------------------------
@@ -2804,6 +2870,7 @@ def main(argv=None) -> int:
     from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
                                            fm_chain, waterfall_chain)
     from sdr_tpu_torch.apps.channelizer import synthesize
+    from sdr_tpu_torch import measure_ceilings
     from sdr_tpu_torch.kernels import KERNELS
     from sdr_tpu_torch.kernels._build import _nvcc, build_all
     from sdr_tpu_torch.utils.device import strict_fp32
@@ -2816,7 +2883,7 @@ def main(argv=None) -> int:
           f"torch.version.cuda {torch.version.cuda}; nvcc: {nvcc[-1]}")
     print(f"card: {card}")
     t0 = time.perf_counter()
-    build_all(KERNELS)
+    build_all(KERNELS + (measure_ceilings.KERNEL,))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for k in KERNELS:
         for line in k.build_log.splitlines():
@@ -2824,6 +2891,13 @@ def main(argv=None) -> int:
                 print(f"  {k.name}: {line.strip()}")
 
     device = torch.device("cuda")
+    # the card's ceilings, before any phase reads them
+    CHAIN_TIMINGS.clear()
+    t0 = time.perf_counter()
+    probe = measure_ceilings.measure(device)
+    CEILINGS["measured"] = measure_ceilings.as_ceilings(probe)
+    print(f"ceilings measured in {time.perf_counter() - t0:.1f} s on {card}: "
+          f"{json.dumps(probe)}")
     # the mono path: fm_chain(), K1 -> K2 -> K3
     raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
     ops = fm_chain(device=device)
@@ -2908,6 +2982,11 @@ def main(argv=None) -> int:
     del x, ops
     run_channelizer_cli()
 
+    # the roofline of every chain timed above; no new timed call
+    t0 = time.perf_counter()
+    roofline = run_roofline(card)
+    print(f"roofline phase in {time.perf_counter() - t0:.1f} s")
+
     # the sharded paths: NCCL at world 1, four gloo ranks sharing the
     # card, the channelizer CLI under torchrun
     sharded = run_sharded(args.seed, device, KERNELS, card)
@@ -2945,6 +3024,7 @@ def main(argv=None) -> int:
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, "
           "the kernels' build included")
+    print(json.dumps({"roofline": roofline, "ceilings": probe}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

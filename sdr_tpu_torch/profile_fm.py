@@ -21,7 +21,12 @@ channel basebands in 4 blocks) once to warm up, then in one process:
    count only by name), and the profiled wall time, which carries the
    profiler's own overhead;
 3. one call under ``cProfile``: the host functions that take the most
-   time.
+   time;
+4. each stream op alone (its ``shard_carry`` and ``apply`` on the batch
+   the op before it made), ``SPLIT_REPS`` calls queued behind a sleep:
+   its device time beside its floor on the H100 SXM data sheet's
+   ceilings (``utils/roofline.py``) and ``pct_of_floor`` (floor over
+   time), as the JAX package's ``bench.py`` records its stages.
 
 The idle share is ``1 - busy / span``, busy from 2 and the unprofiled
 median span from 1.  The chain (``--chain``) is ``fm_chain()`` (mono,
@@ -43,7 +48,6 @@ import functools
 import io
 import json
 import pstats
-import subprocess
 import time
 
 import numpy as np
@@ -53,7 +57,9 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
                                        fm_chain, waterfall_chain)
+from sdr_tpu_torch.measure_ceilings import card_line
 from sdr_tpu_torch.parallel.sharded import run_time_batched
+from sdr_tpu_torch.utils.roofline import chain_roofline
 
 ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
 REPS = 20
@@ -132,15 +138,34 @@ def label_ops(ops) -> list:
     return labels
 
 
+def stage_times(ops, x, nblocks: int) -> list:
+    """Each op's device time (ms, :func:`queued_split`) on the batch
+    ``run_time_batched`` hands it: the rows ``[B, *lead, n/B]``, then each
+    op's output in turn.  Its floor from ``chain_roofline`` beside it."""
+    n, lead = x.shape[-1], x.shape[:-1]
+    batch = nblocks * int(np.prod(lead, dtype=np.int64))
+    roof = chain_roofline(ops, n // nblocks, x.dtype, batch)["stages"]
+    xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
+    xb = xb.contiguous()
+    rows = []
+    for op, st in zip(ops, roof):
+        def call(op=op, xb=xb):
+            return op.apply(op.shard_carry(xb), xb)[1]
+        ms = queued_split(call)["device_ms"]
+        rows.append({"op": st["op"], "device_ms": ms,
+                     "floor_ms": st["floor_s"] * 1e3,
+                     "bound_by": st["bound_by"],
+                     "pct_of_floor": 100 * st["floor_s"] * 1e3 / ms})
+        xb = call()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chain", default="mono", choices=sorted(CHAINS),
                     help="the chain to profile (default: mono)")
     args = ap.parse_args(argv)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = card_line()
     make_ops, make_input, nblocks = CHAINS[args.chain]
     ops, raw = make_ops(), make_input()
     run_time_batched(ops, raw, nblocks)
@@ -184,6 +209,7 @@ def main(argv=None) -> int:
     pr.disable()
     s = io.StringIO()
     pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(15)
+    stages = stage_times(ops, raw, nblocks)
 
     print(f"card: {card}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
@@ -194,6 +220,12 @@ def main(argv=None) -> int:
     for label in labels:
         print(f"  {by_op.get(label, 0.0):10.4f} ms  {label}")
     print(s.getvalue())
+    print("each op alone, device time beside its floor (H100 SXM data "
+          "sheet):")
+    for st in stages:
+        print(f"  {st['device_ms']:10.4f} ms  floor {st['floor_ms']:.4f} ms "
+              f"({st['bound_by']})  {st['pct_of_floor']:6.2f} % of floor  "
+              f"{st['op']}")
     print(json.dumps({"chain": args.chain, "input": list(raw.shape),
                       "input_dtype": str(raw.dtype), "blocks": nblocks,
                       "reps": REPS,
@@ -201,6 +233,7 @@ def main(argv=None) -> int:
                       "idle_share": 1 - busy / span, "queued": split,
                       "profiled_wall_ms": wall, "ops_ms": by_op,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
+                      "stages": stages,
                       "card": card}))
     return 0
 
