@@ -12,7 +12,7 @@ archive``) over the given process-group backend, to compare two trees'
 spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K6 from ``sdr_tpu_torch/csrc`` (one nvcc
+It builds the CUDA kernels K1-K8 from ``sdr_tpu_torch/csrc`` (one nvcc
 per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit, and
@@ -76,11 +76,15 @@ per source, all at once), then:
    (equal), the plain CPU chain and the fused mono chain; ``planar=True``,
    ``fuse_back=False`` and the FIR de-emphasis at 4 blocks against the
    plain CPU chain; and the CLI with ``--front exact``;
-5. the AM path, ``am_chain()`` (planar: convert, Mix, the 64-tap
+5. the AM path, ``am_chain()`` (planar: convert, Mix on K8, the 64-tap
    decimate-by-16 channel ``Fir`` on K3, Agc, AmDemod, DcBlocker, volume)
    on a synthetic AM carrier at 0.25 cycles/sample carrying a 500 Hz
-   tone: K3 at f = 16 (bitwise) with its ``conv1d`` yardstick; the
-   block-parallel chain (launches {fir: 2}, the tone at 80 kS/s, peak
+   tone: K8 bitwise against its plain version at [32, 2, 5,242,880] with
+   a seeded phasor a row and at 48 extra geometries (n not a multiple of
+   4, bases 0-3 floats off 16-byte alignment, leading dims [3] and [2,
+   3]), timed with its bound (no library call computes it); K3 at f = 16
+   (bitwise) with its ``conv1d`` yardstick; the block-parallel chain
+   (launches {fir: 2, mix: 1}, the tone at 80 kS/s, peak
    memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
    (within 1e-4) and the plain CPU chain; and ``apps.am``;
 6. the AM path with the sequential AGC, ``am_chain(agc_approx=1)`` (the
@@ -112,14 +116,21 @@ per source, all at once), then:
    form, ``waterfall_chain(planar=False)``, against the planar rows
    (within 1e-5 of each frame's peak) and timed beside them;
 9. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
-   (``Channelize``, then per channel the 51-tap decimate-by-8 ``Fir`` on
-   K3, the complex demod, the 3/10 ``Fir`` resampler on K2 and the 64-tap
-   audio ``Fir`` on K3 at f = 1, the volume) on 32 blocks of 4,096,000
-   wideband samples carrying 64 FM stations made at the wideband rate:
-   K3 at f = 8 (seam and main), K2 and K3 at f = 1 (seam and main)
-   bitwise against their plain versions at the bank's shapes, each timed
-   with its bound and its ``conv1d`` yardstick; the launches of one call
-   ({fir: 4, resample: 1}), every channel's tone inside the audio
+   (``Channelize``, its branch filter on K7, then per channel the 51-tap
+   decimate-by-8 ``Fir`` on K3, the complex demod, the 3/10 ``Fir``
+   resampler on K2 and the 64-tap audio ``Fir`` on K3 at f = 1, the
+   volume) on 32 blocks of 4,096,000 wideband samples carrying 64 FM
+   stations made at the wideband rate: K7 at the bank's shape with each
+   row's carry as history (max |diff| = 0: the plain version may differ
+   in the sign of a zero) and at 194 extra geometries (C in {1, 8, 64,
+   100} x P in {1, 5, 12, 16}, ``num`` one below and above its tile,
+   histories 0 and (P - 1) C, bases 1-3 samples off 16-byte alignment;
+   and at P = 12 the widest row that fits a block, C = 1,383, while
+   1,384 raises from its plan), timed with its bound and a grouped ``conv1d`` yardstick; K3 at f = 8
+   (seam and main), K2 and K3 at f = 1 (seam and main) bitwise against
+   their plain versions at the bank's shapes, each timed with its bound
+   and its ``conv1d`` yardstick; the launches of one call ({fir: 4,
+   resample: 1, channelize: 1}), every channel's tone inside the audio
    passband, the streamed run within 1e-6, the plain CPU chain on 4
    blocks within 1e-4, 20 timed calls (wideband complex input
    samples/s) and peak memory;
@@ -146,7 +157,8 @@ per source, all at once), then:
    ``host_block_iterator`` (``--shard-rank``: this script as a rank;
    each prints its launches and times): mono 8 blocks a rank (bitwise),
    stereo with both back halves (1e-5: the IIR and pilot prefixes
-   compose in another order), the wideband bank (1e-4), the narrowband
+   compose in another order), the wideband bank (1e-4; K7, K3 and K2
+   each launched on every rank), the narrowband
    bank channel-sharded 16 channels a rank and on a 2 x 2 grid
    (bitwise), ``am_chain(agc_approx=1)`` (through the envelope bitwise,
    the R sweeps' gains crossing ranks; the whole chain 1e-4, its
@@ -1280,6 +1292,74 @@ def run_exact_chain(raw, ops, kernels):
     return launches
 
 
+def check_mix_kernel(mix_op, x, seed: int):
+    """K8 as the planar ``Mix`` launches it over the AM path's planes
+    ``x`` [32, 2, 5,242,880] with the op's oscillator table and a
+    non-trivial unit phasor a row (seeded angles: the path's own phasors
+    are all 1 at this block length and frequency), bitwise against the
+    plain version; then at extra geometries (:func:`mix_geometries`).
+    Timed with its bound; no single PyTorch call computes the function."""
+    from sdr_tpu_torch.kernels import mix
+    n = x.shape[-1]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    ang = torch.rand(x.shape[:-2], generator=g, dtype=torch.float64,
+                     device=x.device) * (2 * np.pi)
+    carry = torch.stack([ang.cos(), ang.sin()], dim=-1).float()
+    a = (mix_op._table(n), carry, x)
+    y = mix.mix_planar(*a)
+    ref = mix.mix_planar_reference(*a)
+    torch.cuda.synchronize()
+    require(torch.isfinite(y).all().item(), "K8 output finite")
+    require(torch.equal(y.view(torch.int32), ref.view(torch.int32)),
+            f"K8 vs plain not bitwise (max abs diff {max_err(y, ref)})")
+    err = max_err(y, ref)
+    del ref
+    count = mix_geometries(x.device, seed)
+    b, by = bound(nbytes(*a, y), 12 * x.numel() // 2, "f32")
+    ms = time_ms(lambda: mix.mix_planar(*a), 20)
+    print(f"K8 mix_planar: bitwise its plain version at {list(x.shape)} and "
+          f"at {count} extra geometries")
+    return dict(
+        name=f"K8 mix_planar (AM planar Mix, {list(x.shape)} f32)",
+        kernel="mix", route="cuda", source="sdr_tpu_torch/csrc/mix.cu",
+        replaces="none: sdr_tpu/stream/ops.py:1148-1154 (Mix planar: two "
+                 "planar rotations XLA fuses into one pass)",
+        shape=f"table [2, {n}], phasors {list(carry.shape)}, "
+              f"{list(x.shape)} -> the same",
+        max_abs_err=err, bitwise=True, geometries=count, ms=ms,
+        plain_ms=time_ms(lambda: mix.mix_planar_reference(*a), 3, 1),
+        bound_ms=b, bound_by=by, bound_fraction=b / ms, library_ms=None,
+        library_note="none: no single PyTorch call rotates planar I/Q by a "
+                     "table and a phasor a row")
+
+
+def mix_geometries(device, seed: int) -> int:
+    """K8 bitwise against its plain version at n in {1, 6, 1,027, 4,099,
+    65,539} (none a multiple of 4) and 4,096, leading dims [3] and [2, 3],
+    the planes and the table at bases 0-3 floats off 16-byte alignment;
+    returns the count."""
+    from sdr_tpu_torch.kernels import mix
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    count = 0
+    for n in (1, 6, 1_027, 4_096, 4_099, 65_539):
+        for lead in ((3,), (2, 3)):
+            for off in range(4):
+                lo = misaligned(torch.randn(2, n, generator=g,
+                                            device=device), off)
+                ang = torch.rand(lead, generator=g, device=device) * 6.283
+                carry = torch.stack([ang.cos(), ang.sin()], dim=-1)
+                x = misaligned(torch.randn(lead + (2, n), generator=g,
+                                           device=device), off)
+                y = mix.mix_planar(lo, carry, x)
+                ref = mix.mix_planar_reference(lo, carry, x)
+                require(torch.equal(y.view(torch.int32),
+                                    ref.view(torch.int32)),
+                        f"K8 at n {n}, lead {lead}, offset {off}: not "
+                        f"bitwise (max abs diff {max_err(y, ref)})")
+                count += 1
+    return count
+
+
 def run_am_chain(raw, ops, kernels):
     """The AM path block-parallel (launches, tone, peak memory, 20 timed
     calls), streamed at the CLI's blocks, and against the plain CPU
@@ -1291,8 +1371,8 @@ def run_am_chain(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # the channel decimator's seam and main launches
-    require_launches(launches, {"fir": 2}, "AM path")
+    # the planar mix; the channel decimator's seam and main launches
+    require_launches(launches, {"fir": 2, "mix": 1}, "AM path")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,), f"AM output {out.shape}")
     require(np.isfinite(out).all(), "AM output finite")
@@ -1769,15 +1849,128 @@ def check_resampler_kernel(name: str, fir_op, x, interp: bool = False):
     return row
 
 
-def check_bank_kernels(x, ops):
-    """K3 at f = 8, K2 and K3 at f = 1 at the wideband channel bank's
-    shapes: the filterbank's [32, 64] channels of 64,000 samples, their
-    demod's 8,000, the resampler's 2,400."""
+def check_channelize_kernel(ch_op, x, seed: int):
+    """K7 as the wideband bank's ``Channelize`` launches it over the
+    block-parallel batch ``x`` [32, 4,096,000]: each row's history its
+    carry from the halo (the previous row's tail; row 0 the zero warmup,
+    the seam), max |diff| = 0 against the plain version (the two may
+    differ in the sign of a zero: PyTorch multiplies by the taps promoted
+    to complex); then at extra geometries (:func:`channelize_geometries`).
+    Timed with its bound and one grouped ``conv1d`` (groups = 2C, P taps)
+    over the 2C float lanes moved to the channel axis, transposes
+    included."""
+    from sdr_tpu_torch.kernels import channelize
+    hb = ch_op._hb
+    P, C = hb.shape
+    hist = ch_op.shard_carry(x)
+    num = x.shape[-1] // C
+    a = (hb, hist, x, num)
+    v = channelize.branch_filter(*a)
+    err = max_err(v, channelize.branch_filter_reference(*a))
+    torch.cuda.synchronize()
+    require(torch.isfinite(v).all().item(), "K7 output finite")
+    require(err == 0, f"K7 vs plain {err} != 0")
+    count = channelize_geometries(x.device, seed)
+    rows = x.shape[0]
+    z = torch.view_as_real(torch.cat([hist, x], dim=-1)).reshape(
+        rows, -1, 2 * C)                                # [rows, m, 2C]
+    w = hb.t().repeat_interleave(2, dim=0).unsqueeze(1)  # [2C, 1, P]
+
+    def lib():
+        y = torch.nn.functional.conv1d(z.transpose(1, 2).contiguous(), w,
+                                       groups=2 * C)
+        return y[..., :num].transpose(1, 2).contiguous()
+
+    lib_diff = max_err(torch.view_as_complex(lib().view(rows, num, C, 2)),
+                       v)
+    b, by = bound(nbytes(hb, hist, x, v), 2 * P * 2 * v.numel(), "f32")
+    ms = time_ms(lambda: channelize.branch_filter(*a), 20)
+    print(f"K7 branch_filter: max |diff| 0 against its plain version at "
+          f"{list(x.shape)} with its carry and at {count} extra geometries")
+    return dict(
+        name=f"K7 branch_filter (wideband bank, {list(x.shape)} complex64 "
+             f"+ carry {list(hist.shape)}, C = {C}, P = {P})",
+        kernel="channelize", route="cuda",
+        source="sdr_tpu_torch/csrc/channelize.cu",
+        replaces="none: sdr_tpu/ops/channelize.py:108-114 (the branch "
+                 "filter's P-term stencil XLA fuses into one pass)",
+        shape=f"hist {list(hist.shape)}, x {list(x.shape)} -> "
+              f"{list(v.shape)} complex64",
+        plan=channelize.plan(C, P, num, x.device),
+        max_abs_err=err, geometries=count, ms=ms,
+        plain_ms=time_ms(lambda: channelize.branch_filter_reference(*a), 3,
+                         1),
+        bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        library_ms=time_ms(lib, 20), library_max_abs_diff=lib_diff,
+        library_note=f"grouped conv1d (groups {2 * C}, {P} taps) over the "
+                     f"{2 * C} float lanes moved to the channel axis; the "
+                     "call includes its two transpose copies")
+
+
+def channelize_geometries(device, seed: int) -> int:
+    """K7 with max |diff| = 0 against its plain version over [3] rows at
+    C in {1, 8, 64, 100} x P in {1, 5, 12, 16}, ``num`` one below and one
+    above the kernel's tile (its plan), histories of 0 and (P - 1) C
+    samples, and row bases 1-3 complex samples off 16-byte alignment (the
+    rows hold one sample more than read, so a later row's base moves
+    too); returns the count."""
+    from sdr_tpu_torch.kernels import channelize
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device=device),
+                             torch.randn(shape, generator=g, device=device))
+
+    count = 0
+    for C in (1, 8, 64, 100):
+        for P in (1, 5, 12, 16):
+            hb = torch.randn(P, C, generator=g, device=device)
+            tile = channelize.plan(C, P, 1 << 30, device)["tile"]
+            for num in (tile - 1, tile + 1):
+                for H in (0, (P - 1) * C):
+                    for off in (1, 2, 3):
+                        n = (num + P - 1) * C - H + 1
+                        x = misaligned(cplx(3, n), off)
+                        hist = misaligned(cplx(3, H), off) if H else \
+                            x.new_empty((3, 0))
+                        a = (hb, hist, x, num)
+                        err = max_err(channelize.branch_filter(*a),
+                                      channelize.branch_filter_reference(*a))
+                        require(err == 0, f"K7 at C {C}, P {P}, num {num}, "
+                                          f"history {H}, offset {off}: {err}")
+                        count += 1
+    # the widest row whose kR + P - 1 = 15 staged rows and taps fit a
+    # block at P = 12: (15 * 2 + 12) C floats <= 58,112, so C = 1,383 runs
+    # and 1,384 raises from the kernel's own plan
+    for C, fits in ((1_383, True), (1_384, False)):
+        hb = torch.randn(12, C, generator=g, device=device)
+        x = cplx(1, 12 * C)
+        a = (hb, x.new_empty((1, 0)), x, 1)
+        try:
+            err = max_err(channelize.branch_filter(*a),
+                          channelize.branch_filter_reference(*a))
+        except RuntimeError as e:
+            require(not fits and "do not fit" in str(e),
+                    f"K7 at C {C}, P 12: {e}")
+        else:
+            require(fits and err == 0, f"K7 at C {C}, P 12 ran ({err})")
+        count += 1
+    print("K7 limit: C = 1,383 runs and 1,384 raises at P = 12 (the staged "
+          "rows and taps of a block within 58,112 floats)")
+    return count
+
+
+def check_bank_kernels(x, ops, seed: int):
+    """K7 at the wideband channel bank's [32, 4,096,000] input, then K3 at
+    f = 8, K2 and K3 at f = 1 at its shapes: the filterbank's [32, 64]
+    channels of 64,000 samples, their demod's 8,000, the resampler's
+    2,400."""
     xb = x.view(ROWS, CH_BLOCK)
+    rows = [check_channelize_kernel(ops[0], xb, seed)]
     _, xc = ops[0].apply(ops[0].shard_carry(xb), xb)
-    rows = [check_decimator_kernel(
+    rows.append(check_decimator_kernel(
         "K3 fir (channel bank decimator, complex [32, 64] as [32, 64, 2] "
-        "planes, f = 8, 51 taps)", ops[1], xc)]
+        "planes, f = 8, 51 taps)", ops[1], xc))
     _, yd = ops[1].apply(ops[1].shard_carry(xc), xc)
     del xc
     _, dm = ops[2].apply(ops[2].shard_carry(yd), yd)
@@ -1837,10 +2030,11 @@ def run_channelizer_wideband(x, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, x, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # the decimator's and the audio FIR's seam and main launches, and the
-    # resampler: each Fir filter or decimator splits its outputs at the
-    # seam (the few that read history, then the rest from the block)
-    require_launches(launches, {"fir": 4, "resample": 1},
+    # the filterbank's branch filter; the decimator's and the audio FIR's
+    # seam and main launches, and the resampler: each Fir filter or
+    # decimator splits its outputs at the seam (the few that read history,
+    # then the rest from the block)
+    require_launches(launches, {"fir": 4, "resample": 1, "channelize": 1},
                      "wideband channelizer path")
     per_row = CH_BLOCK // CH_C * 3 // 80
     require(tuple(y.shape) == (CH_C, ROWS * per_row), f"bank {y.shape}")
@@ -2389,7 +2583,7 @@ SHARD_CHECKS = {
     "mono": (0.0, ("u8_front_demod", "resample", "fir")),
     "stereo": (1e-5, ("u8_front", "resample", "fir")),
     "stereo_fused": (1e-5, ("u8_front", "backhalf", "fir")),
-    "wideband": (1e-4, ("fir", "resample")),
+    "wideband": (1e-4, ("channelize", "fir", "resample")),
     "channel": (0.0, ("fir", "resample")),
     "grid": (0.0, ("fir", "resample")),
     "am_approx": (1e-4, ("fir", "agc_scan")),
@@ -2931,15 +3125,16 @@ def main(argv=None) -> int:
     run_cli(raw, stereo=False, front="exact")
     del raw, ops
 
-    # the AM path: K3 at f = 16 over the mixed planes
+    # the AM path: K8 (the planar mix), K3 at f = 16 over the mixed planes
     raw = synth_am(ROWS * ROW_BYTES, args.seed, device)
     ops = am_chain(device=device)
     _, xp = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
+    arows = [check_mix_kernel(ops[1], xp, args.seed)]
     _, mixed = ops[1].apply(ops[1].shard_carry(xp), xp)
     del xp
-    arows = [check_decimator_kernel(
+    arows.append(check_decimator_kernel(
         "K3 fir (AM channel filter, planar [32, 2], f = 16, 64 taps)",
-        ops[2], mixed)]
+        ops[2], mixed))
     del mixed
     print_rows(arows, card)
     am = run_am_chain(raw, ops, KERNELS)
@@ -2965,10 +3160,10 @@ def main(argv=None) -> int:
     waterfall = run_waterfall(raw, waterfall_chain(device=device), KERNELS)
     del raw
 
-    # the wideband channel bank: the filterbank, K3 at f = 8, K2, K3
+    # the wideband channel bank: the filterbank on K7, K3 at f = 8, K2, K3
     x = synth_wideband_bank(ROWS * CH_BLOCK, args.seed, device)
     ops = channelizer_chain(CH_C, wideband=True, device=device)
-    crows = check_bank_kernels(x, ops)
+    crows = check_bank_kernels(x, ops, args.seed)
     print_rows(crows, card)
     wideband = run_channelizer_wideband(x, ops, KERNELS)
     del x, ops

@@ -11,10 +11,11 @@ taps ``h[r::C]``, then one FFT across the branches.  The branch filter
 is the JAX package's stencil form: the row-major view ``x2[..., m, r] =
 x[..., mC + r]`` read as P shifted views weighted by the tap rows,
 summed in the order p = 0..P-1, so the branch axis is the contiguous
-last one for the FFT; one transpose gives ``[..., C, M]``.  Plain
-PyTorch elementwise work and ``torch.fft``, as the JAX package leaves
-them to XLA.  Not ported: the JAX package's ``'gather'`` form, its
-differential oracle (the tests hold this form against both).
+last one for the FFT; one transpose gives ``[..., C, M]``.  The stencil,
+which XLA fuses into one pass, is the kernel K7 here
+(``kernels/channelize.py``); the FFT is ``torch.fft`` (cuFFT).
+Not ported: the JAX package's ``'gather'`` form, its differential oracle
+(the tests hold this form against both).
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sdr_tpu_torch.kernels.channelize import branch_filter
 from sdr_tpu_torch.ops import design
 
-__all__ = ["channelizer_taps", "polyphase_channelize"]
+__all__ = ["branch_taps", "channelize_rows", "channelizer_taps",
+           "polyphase_channelize"]
 
 
 def channelizer_taps(n_channels: int, taps_per_branch: int = 8,
@@ -36,29 +39,42 @@ def channelizer_taps(n_channels: int, taps_per_branch: int = 8,
                                 design.hamming) * n_channels
 
 
+def branch_taps(taps, n_channels: int, device=None) -> torch.Tensor:
+    """The prototype's tap rows ``hb[p, r] = h[p*C + r]``, f32 ``[P, C]``
+    on ``device``, zero-padded to a multiple of C."""
+    C = int(n_channels)
+    taps = torch.as_tensor(taps, dtype=torch.float32, device=device)
+    P = -(-taps.shape[0] // C)
+    return torch.nn.functional.pad(
+        taps, (0, C * P - taps.shape[0])).view(P, C).contiguous()
+
+
+def channelize_rows(hb: torch.Tensor, hist: torch.Tensor, x: torch.Tensor,
+                    num: int) -> torch.Tensor:
+    """The filterbank over ``cat(hist, x)`` with the tap rows ``hb``:
+    ``num`` samples a channel, ``[..., C, num]`` (a transposed view of the
+    FFT's output).  The branch filter is K7 (``kernels/channelize.py``),
+    which reads ``hist`` and ``x`` through two pointers."""
+    v = branch_filter(hb, hist, x, num)                    # [..., m, r]
+    return torch.fft.fft(v, dim=-1).transpose(-1, -2)      # [..., C, num]
+
+
 def polyphase_channelize(taps, n_channels: int, x: torch.Tensor,
                          num: int | None = None) -> torch.Tensor:
     """Complex wideband ``[..., N]`` -> channel streams ``[..., C, M]``
     (a transposed view of the FFT's output).
 
     ``taps``: the prototype low-pass (an array, or an f32 tensor on
-    ``x``'s device, which a stream op keeps there), zero-padded to a
-    multiple of C.  Channel c is centred at +c/C cycles a sample.
-    ``num`` limits the samples a channel (default: all computable,
-    ``M = N // C - P + 1`` with P taps a branch)."""
-    C = int(n_channels)
-    taps = torch.as_tensor(taps, dtype=torch.float32, device=x.device)
-    P = -(-taps.shape[0] // C)
-    hb = torch.nn.functional.pad(taps, (0, C * P - taps.shape[0])).view(P, C)
-    m_total = x.shape[-1] // C
-    x = x[..., : m_total * C]
+    ``x``'s device), zero-padded to a multiple of C.  Channel c is centred
+    at +c/C cycles a sample.  ``num`` limits the samples a channel
+    (default: all computable, ``M = N // C - P + 1`` with P taps a
+    branch)."""
+    hb = branch_taps(taps, n_channels, x.device)
+    P, C = hb.shape
     if num is None:
-        num = m_total - P + 1
+        num = x.shape[-1] // C - P + 1
     num = int(num)
     if num < 1:
         raise ValueError("input shorter than one filterbank window")
-    x2 = x.reshape(x.shape[:-1] + (m_total, C))           # [..., m, r]
-    v = x2[..., 0:num, :] * hb[0]
-    for p in range(1, P):
-        v += x2[..., p:p + num, :] * hb[p]
-    return torch.fft.fft(v, dim=-1).transpose(-1, -2)      # [..., C, num]
+    x = x.contiguous()
+    return channelize_rows(hb, x.new_empty(x.shape[:-1] + (0,)), x, num)

@@ -14,6 +14,7 @@
                         into its taps (K3); ``fused=True``: both in K5
   ``Iir``               cascaded biquads (ops/iir.py), e.g. de-emphasis
   ``Mix``               multiply by a local oscillator, phase carried
+                        (planar: K8)
   ``Agc``               automatic gain control (linear, or sequential on
                         K6)
   ``AmDemod``           AM envelope
@@ -22,10 +23,12 @@
   ``Map``               any elementwise function
   ``FftStream``         windowed overlapping FFT frames (the waterfall)
   ``Channelize``        polyphase DFT filterbank: wideband -> C channels
+                        (the branch filter on K7)
   ====================  ====================================================
 
-The ops with a u8 or resampler history read it and their block through
-two pointers, so none makes a concatenated copy of a block.  K3 takes
+The ops with a u8, resampler or filterbank history read it and their
+block through two pointers, so none makes a concatenated copy of a
+block.  K3 takes
 one pointer, so ``Fir``'s filter and decimator split their outputs at
 the seam as the JAX package does: the few that read history come from a
 small ``cat(hist, x[:seam])``, the rest straight from the block.
@@ -44,11 +47,12 @@ import torch
 
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
+from sdr_tpu_torch.kernels.mix import mix_planar
 from sdr_tpu_torch.kernels.resample import resample
 from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
 from sdr_tpu_torch.ops import convert, design, fftops, scans
-from sdr_tpu_torch.ops.channelize import polyphase_channelize
+from sdr_tpu_torch.ops.channelize import branch_taps, channelize_rows
 from sdr_tpu_torch.ops.demod import (am_demod, fm_demod, fm_demod_planar,
                                      fm_mod)
 from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
@@ -696,7 +700,7 @@ class Mix(StreamOp):
     carry and the rotation all (cos, sin) pairs).
 
     Each block multiplies by the oscillator's table and the carried unit
-    phasor, then advances the phasor by the block's whole turn and
+    phasor (planar: one pass on K8, ``kernels/mix.py``), then advances the phasor by the block's whole turn and
     renormalises it, so f32 rounding cannot drift its magnitude.  The
     table is made on the host in float64 once per block length and kept
     on the device.  Block-parallel runs give the stream's block b (counted
@@ -766,12 +770,7 @@ class Mix(StreamOp):
         lo = self._table(n)
         ang = self._turn(n, 2)[1]                # the block's whole turn
         if self.planar:
-            pr, pi = _rot(lo[0], lo[1], carry[..., 0, None],
-                          carry[..., 1, None])
-            xr, xi = x[..., 0, :], x[..., 1, :]
-            y = torch.empty_like(x)         # the planes written in place
-            torch.sub(xr * pr, xi * pi, out=y[..., 0, :])
-            torch.add(xr * pi, xi * pr, out=y[..., 1, :])
+            y = mix_planar(lo, carry.contiguous(), x.contiguous())
             nr, ni = _rot(carry[..., 0], carry[..., 1],
                           float(np.float32(np.cos(ang))),
                           float(np.float32(np.sin(ang))))
@@ -1041,14 +1040,16 @@ class Channelize(StreamOp):
 
     Carry: the trailing ``(P - 1) * C`` wideband samples (P taps a
     branch), zeros at warmup, so every block emits ``n/C`` samples a
-    channel with the branch filters' history."""
+    channel with the branch filters' history.  The branch filter (K7)
+    reads the carry and the block through two pointers; the new carry is
+    a copy of the last ``(P - 1) * C`` samples only."""
 
     def __init__(self, taps, n_channels: int, device="cuda"):
         self.n_channels = int(n_channels)
         self.taps = np.asarray(taps, dtype=np.float32)
         self.taps_per_branch = -(-self.taps.shape[0] // self.n_channels)
         self.device = resolve_device(device)
-        self._taps = torch.as_tensor(self.taps, device=self.device)
+        self._hb = branch_taps(self.taps, self.n_channels, self.device)
 
     def hist_len(self) -> int:
         return (self.taps_per_branch - 1) * self.n_channels
@@ -1070,12 +1071,10 @@ class Channelize(StreamOp):
                            else torch.complex64, device=self.device)
 
     def apply(self, carry, x):
-        xext = torch.cat([carry, x], dim=-1)
         H = self.hist_len()
-        new = xext[..., xext.shape[-1] - H:].clone() if H else carry
-        y = polyphase_channelize(self._taps, self.n_channels, xext,
-                                 x.shape[-1] // self.n_channels)
-        return new, y
+        y = channelize_rows(self._hb, carry.contiguous(), x.contiguous(),
+                            x.shape[-1] // self.n_channels)
+        return (_tail(carry, x, H) if H else carry), y
 
     def shard_carry(self, xb, initial=None, group=None):
         return substitute_first(left_halo(xb, self.hist_len(), group=group),

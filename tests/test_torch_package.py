@@ -18,6 +18,8 @@ import sdr_tpu_torch.stream as tstream
 from sdr_tpu_torch.apps import am, chains, channelizer, fm, fm_tx, waterfall
 from sdr_tpu_torch.kernels import (KERNELS, agc, backhalf, fir, resample,
                                    u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import channelize as kchannelize
+from sdr_tpu_torch.kernels import mix as kmix
 from sdr_tpu_torch.kernels._build import CSRC
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.parallel.sharded import run_time_batched
@@ -213,6 +215,13 @@ def _wrapper_calls(device):
         lambda: agc.agc_scan(
             torch.ones((2, 100), dtype=torch.complex64, device=device),
             0.005, 1.0, torch.ones(2, **f32)),
+        lambda: kchannelize.branch_filter(
+            torch.ones((3, 4), **f32),
+            torch.ones((2, 8), dtype=torch.complex64, device=device),
+            torch.ones((2, 40), dtype=torch.complex64, device=device), 10),
+        lambda: kmix.mix_planar(
+            torch.ones((2, 100), **f32), torch.ones((2, 2), **f32),
+            torch.ones((2, 2, 100), **f32)),
     ]
 
 
@@ -222,13 +231,14 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
     plain = [u8_front_demod.u8_front_demod_reference,
              resample.resample_reference, fir.fir_strided_reference,
              u8_front.u8_front_reference, backhalf.resample_fir_reference,
-             agc.agc_scan_reference]
+             agc.agc_scan_reference, kchannelize.branch_filter_reference,
+             kmix.mix_planar_reference]
     calls = _wrapper_calls("cpu")
-    assert len(calls) == len(plain) == len(KERNELS) == 6
+    assert len(calls) == len(plain) == len(KERNELS) == 8
     for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0] * 6
+    assert [k.launches for k in KERNELS] == [0] * 8
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
@@ -257,12 +267,13 @@ def test_tpu_only_names_are_not_ported():
 
 def test_six_kernels_each_with_its_source():
     """K1-K5 replace the JAX package's Pallas kernels, K6 its sequential
-    AGC scan; each is built from its own CUDA source in csrc/, and so are
+    AGC scan, K7 and K8 the channelizer's stencil and the planar mix that
+    XLA fuses; each is built from its own CUDA source in csrc/, and so are
     the ceilings probes (not a kernel of any path)."""
     from sdr_tpu_torch import measure_ceilings
     names = [k.name for k in KERNELS]
     assert names == ["u8_front_demod", "resample", "fir", "u8_front",
-                     "backhalf", "agc_scan"]
+                     "backhalf", "agc_scan", "channelize", "mix"]
     assert measure_ceilings.KERNEL not in KERNELS
     for k in KERNELS + (measure_ceilings.KERNEL,):
         assert k.source.parent == CSRC and k.source.suffix == ".cu"
