@@ -12,7 +12,7 @@ archive``) over the given process-group backend, to compare two trees'
 spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K8 from ``sdr_tpu_torch/csrc`` (one nvcc
+It builds the CUDA kernels K1-K9 from ``sdr_tpu_torch/csrc`` (one nvcc
 per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit, and
@@ -107,14 +107,26 @@ per source, all at once), then:
    1e-3); and the round trip, its i16 IQ as u8 through ``fm_chain()``
    block-parallel in 32 blocks (K1, K2, K3): the tone within 5 Hz;
 8. the waterfall path, ``waterfall_chain()`` (planar convert, then
-   ``FftStream``: Blackman-windowed 1,024-point frames at hop 512 on
-   cuFFT; none of the port's kernels) on the mono broadcast: the rows'
-   shape, the mean row's power inside Carson's band, no kernel launched,
-   the streamed run at the CLI's 1,048,576-byte blocks bitwise equal to
-   the block-parallel call, the plain CPU chain on 4 blocks within 1e-5
-   of each frame's peak, 20 timed calls and peak memory; the complex
-   form, ``waterfall_chain(planar=False)``, against the planar rows
-   (within 1e-5 of each frame's peak) and timed beside them;
+   ``FftStream``: Blackman-windowed 1,024-point frames at hop 512 on K9,
+   which frames, windows, transforms and writes ``|X|`` with the shift
+   in one pass) on the mono broadcast: K9 at the path's [32, 2,
+   5,242,880] planes with each row's carry and over the same samples as
+   complex64, within 1e-5 of each frame's peak of its plain version
+   (cuFFT; the max printed), the two forms bitwise equal, peak memory of
+   a call of each beside the plain version's, a size outside its plan
+   (96, 32,768) raising, and 85 extra geometries (sizes 64 to 16,384 x
+   four hops, one odd, x histories 0 and size - hop, both forms, bases
+   1-3 samples off 16-byte alignment, leading dims [3] and [2, 3],
+   ``magnitude`` and ``shift`` on and off; a block of one frame's span),
+   timed with its bound, cuFFT alone on frames made beforehand
+   (``library_ms``) and ``torch.stft`` -> ``abs`` -> ``fftshift`` (three
+   calls); then the chain: the rows' shape, the mean row's power inside
+   Carson's band, launches {fft_stream: 1}, the streamed run at the
+   CLI's 1,048,576-byte blocks bitwise equal to the block-parallel call,
+   the plain CPU chain on 4 blocks within 1e-5 of each frame's peak, 20
+   timed calls and peak memory; the complex form,
+   ``waterfall_chain(planar=False)`` (launches {fft_stream: 1}), bitwise
+   the planar rows and timed beside them;
 9. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
    (``Channelize``, its branch filter on K7, then per channel the 51-tap
    decimate-by-8 ``Fir`` on K3, the complex demod, the 3/10 ``Fir``
@@ -1692,19 +1704,188 @@ def run_fm_tx(kernels, device):
     return launches, rows
 
 
+def peak_rel(a, b) -> float:
+    """The largest difference in a frame relative to that frame's peak
+    magnitude (the waterfall's limit: cuFFT, pocketfft and K9's own FFT
+    round differently)."""
+    return ((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max().item()
+
+
+def check_fft_stream_kernel(fft_op, x, seed: int):
+    """K9 as ``FftStream`` launches it over the waterfall's planes ``x``
+    [32, 2, 5,242,880] with each row's carry from the halo (the previous
+    row's last 512 samples; row 0 zeros), and over the same samples as
+    complex64 (the CLI's form): within 1e-5 of each frame's peak of the
+    plain version (cuFFT), the two forms bitwise equal; peak memory of
+    one call of each (above the inputs); a size outside the plan raises;
+    then the extra geometries (:func:`fft_stream_geometries`).  Timed with
+    its bound; the yardsticks: cuFFT alone on frames made beforehand
+    (``library_ms``, the transform only) and ``torch.stft`` -> ``abs`` ->
+    ``fftshift`` (three calls)."""
+    from sdr_tpu_torch.kernels import fft_stream
+    w, hop = fft_op._window, fft_op.hop
+    N = w.numel()
+    hist = fft_op.shard_carry(x)
+    a = (hist, x, w, hop)
+    ac = (torch.complex(hist[:, 0], hist[:, 1]),
+          torch.complex(x[:, 0], x[:, 1]), w, hop)
+    peaks = {}
+    for name, fn, args in (("K9", fft_stream.fft_stream, a),
+                           ("K9 complex", fft_stream.fft_stream, ac),
+                           ("plain", fft_stream.fft_stream_reference, a)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        if name == "K9":
+            y = out
+        elif name == "K9 complex":
+            yc = out
+        else:
+            ref = out
+    require(torch.isfinite(y).all().item(), "K9 output finite")
+    require(torch.equal(yc, y), "K9 complex form != planar form bitwise "
+                                f"(max abs diff {max_err(yc, y)})")
+    err, rel = max_err(y, ref), peak_rel(y, ref)
+    require(rel <= 1e-5, f"K9 vs plain {rel} > 1e-5 of a frame's peak")
+    refc = fft_stream.fft_stream_reference(*ac)
+    relc = peak_rel(yc, refc)
+    require(relc <= 1e-5, f"K9 complex vs plain {relc} > 1e-5 of a "
+                          "frame's peak")
+    del ref, refc, yc
+    for bad in (96, 32_768):
+        try:
+            fft_stream.fft_stream(hist, x[..., :bad], torch.ones(
+                bad, device=x.device), bad)
+        except ValueError as e:
+            require("power-of-two size" in str(e), f"K9 at size {bad}: {e}")
+        else:
+            require(False, f"K9 at size {bad} ran")
+    count = fft_stream_geometries(x.device, seed)
+    frames = y.shape[0] * y.shape[1]
+    ops = frames * (5 * N * np.log2(N) + 5 * N)   # FFT, window, |X|
+    b, by = bound(nbytes(hist, x, w, y), int(ops), "f32")
+    ms = time_ms(lambda: fft_stream.fft_stream(*a), 20)
+    ms_c = time_ms(lambda: fft_stream.fft_stream(*ac), 20)
+    plain_ms = time_ms(lambda: fft_stream.fft_stream_reference(*a), 3, 1)
+    z = torch.cat([ac[0], ac[1]], dim=-1)
+    pre = (z.unfold(-1, N, hop) * w).contiguous()     # [32, 10,240, N]
+    lib_ms = time_ms(lambda: torch.fft.fft(pre), 10)
+    del pre
+
+    def stft():
+        S = torch.stft(z, N, hop, window=w, center=False, onesided=False,
+                       return_complex=True)
+        return torch.fft.fftshift(S.abs(), dim=-2)
+
+    stft_diff = peak_rel(stft().transpose(-1, -2), y)
+    stft_ms = time_ms(stft, 3, 1)
+    del z
+    print(f"K9 fft_stream: within {rel} of each frame's peak of its plain "
+          f"version (cuFFT; max abs diff {err}) at {list(x.shape)}, the "
+          f"complex form bitwise the planar one ({relc} of the peak of its "
+          f"plain version), and at {count} extra geometries; peak memory "
+          f"above the inputs: K9 {peaks['K9']} bytes (complex "
+          f"{peaks['K9 complex']}), plain {peaks['plain']}; K9 {ms} ms "
+          f"(complex {ms_c}), cuFFT alone {lib_ms}, stft -> abs -> fftshift "
+          f"{stft_ms} ({stft_diff} of a frame's peak from K9)")
+    return dict(
+        name=f"K9 fft_stream (waterfall, planar {list(x.shape)} f32 + "
+             f"carry {list(hist.shape)}, N = {N}, hop = {hop})",
+        kernel="fft_stream", route="cuda",
+        source="sdr_tpu_torch/csrc/fft_stream.cu",
+        replaces="none: sdr_tpu/stream/ops.py:1268-1295 (FftStream: frame, "
+                 "window, XLA's FFT or fft_mxu_planar, |X|, fftshift in XLA "
+                 "fusions)",
+        shape=f"hist {list(hist.shape)}, x {list(x.shape)} -> "
+              f"{list(y.shape)} f32",
+        plan=fft_stream.plan(N, hop), max_abs_err=err,
+        max_peak_rel_err=rel, complex_bitwise_planar=True,
+        complex_ms=ms_c, geometries=count, ms=ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        peak_bytes_above_inputs=peaks, library_ms=lib_ms,
+        library_note=f"torch.fft.fft (cuFFT) on the windowed frames made "
+                     f"beforehand, complex64 {list(y.shape)}: the transform "
+                     "only",
+        stft_ms=stft_ms,
+        stft_note="three calls: torch.stft(onesided=False, center=False, "
+                  "return_complex=True) -> abs -> fftshift, over the "
+                  "complex64 rows with their carry; its [frames, bins] "
+                  f"transpose within {stft_diff} of K9's frame peaks")
+
+
+def fft_stream_geometries(device, seed: int) -> int:
+    """K9 within 1e-5 of each frame's peak of its plain version at sizes
+    64, 256, 1,024, 4,096 and 16,384 x hops size, size / 2, size / 4 and
+    size / 4 + 1 (odd) x histories 0 and size - hop, each in both forms
+    (planar and complex64 bitwise equal), the rows 1-3 samples off
+    16-byte alignment, leading dims [3] and [2, 3], and ``magnitude`` and
+    ``shift`` each on and off in turn; and at each size a block of one
+    frame's span; returns the count (each form one)."""
+    from sdr_tpu_torch.kernels import fft_stream
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    count, i = 0, 0
+    for N in (64, 256, 1024, 4096, 16_384):
+        w = torch.rand(N, generator=g, device=device)
+        for hop in (N, N // 2, N // 4, N // 4 + 1):
+            for H in (0, N - hop):
+                lead = ((3,), (2, 3))[i % 2]
+                mag, shift = ((True, True), (False, True), (True, False),
+                              (False, False))[i % 4]
+                off = 1 + i % 3
+                i += 1
+                n = 5 * hop + N
+                xc = torch.randn(lead + (n,), generator=g, device=device,
+                                 dtype=torch.complex64)
+                hc = torch.randn(lead + (H,), generator=g, device=device,
+                                 dtype=torch.complex64)
+                outs = []
+                for planar in (True, False):
+                    if planar:
+                        xs = misaligned(torch.view_as_real(xc).movedim(
+                            -1, -2).contiguous(), off)
+                        hs = misaligned(torch.view_as_real(hc).movedim(
+                            -1, -2).contiguous(), off)
+                    else:
+                        xs, hs = misaligned(xc, off), misaligned(hc, off)
+                    args = (hs, xs, w, hop, mag, shift)
+                    out = fft_stream.fft_stream(*args)
+                    rel = peak_rel(out, fft_stream.fft_stream_reference(
+                        *args))
+                    require(rel <= 1e-5, f"K9 at N {N}, hop {hop}, history "
+                                         f"{H}, lead {lead}, offset {off}, "
+                                         f"planar {planar}, magnitude {mag}, "
+                                         f"shift {shift}: {rel}")
+                    outs.append(out)
+                    count += 1
+                require(torch.equal(outs[0], outs[1]),
+                        f"K9 at N {N}, hop {hop}: planar != complex")
+        # a block of one frame's span, no carry
+        x = misaligned(torch.randn((3, 2, N), generator=g, device=device), 1)
+        args = (x.new_empty((3, 2, 0)), x, w, N // 2)
+        out = fft_stream.fft_stream(*args)
+        require(out.shape == (3, 1, N) and peak_rel(
+            out, fft_stream.fft_stream_reference(*args)) <= 1e-5,
+            f"K9 at N {N}: one frame")
+        count += 1
+    return count
+
+
 def run_waterfall(raw, ops, kernels):
-    """The waterfall path block-parallel (no kernel of the port: the
-    launch counts, the rows' shape, the power inside Carson's band, peak
-    memory, 20 timed calls), streamed at the CLI's blocks and against the
-    plain CPU chain."""
+    """The waterfall path block-parallel (K9: the launch counts, the rows'
+    shape, the power inside Carson's band, peak memory, 20 timed calls),
+    its complex form (bitwise the planar rows), streamed at the CLI's
+    blocks and against the plain CPU chain."""
     from sdr_tpu_torch.apps.chains import waterfall_chain
     from sdr_tpu_torch.stream import Pipeline
 
-    counted_call(ops, raw, kernels)                 # warm-up: cuFFT's plan
+    counted_call(ops, raw, kernels)                 # warm-up
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    require_launches(launches, {}, "waterfall path")
+    require_launches(launches, {"fft_stream": 1}, "waterfall path")
     frames = raw.numel() // 2 // WF_HOP
     require(tuple(y.shape) == (frames, WF_SIZE), f"waterfall rows {y.shape}")
     require(torch.isfinite(y).all().item(), "waterfall rows finite")
@@ -1723,17 +1904,18 @@ def run_waterfall(raw, ops, kernels):
           f"{carson}, inside +-64 bins {wide}; peak memory {peak} bytes; "
           f"launches in one call {launches}")
     time_chain(ops, raw, "waterfall block-parallel chain")
-    # the complex form: the same rows without the planes' torch.complex
-    # rebuild ahead of cuFFT
+    # the complex form, the CLI's: K9 reads complex64 rows, the same
+    # frames bit for bit
     cops = waterfall_chain(planar=False, device=ops[0].device)
+    torch.cuda.reset_peak_memory_stats()
     yc, claunches = counted_call(cops, raw, kernels)
-    require_launches(claunches, {}, "waterfall complex form")
-    rel = ((yc - y).abs().amax(dim=-1) / y.abs().amax(dim=-1)).max().item()
-    require(rel <= 1e-5, f"waterfall complex form vs planar {rel} > 1e-5 "
-                         "of a frame's peak")
-    print(f"waterfall complex form (planar=False): max diff {rel} of a "
-          f"frame's peak to the planar rows (bitwise equal: "
-          f"{torch.equal(yc, y)})")
+    cpeak = torch.cuda.max_memory_allocated()
+    require_launches(claunches, {"fft_stream": 1}, "waterfall complex form")
+    require(torch.equal(yc, y), "waterfall complex form != planar rows "
+                                f"(max diff {peak_rel(yc, y)} of a frame's "
+                                "peak)")
+    print(f"waterfall complex form (planar=False): bitwise the planar rows; "
+          f"peak memory {cpeak} bytes; launches in one call {claunches}")
     del yc
     time_chain(cops, raw, "waterfall complex-form block-parallel chain")
 
@@ -1752,7 +1934,7 @@ def run_waterfall(raw, ops, kernels):
           f"equal to block-parallel; {raw.numel() // 2 / t_stream:.6e} "
           "complex input samples/s")
 
-    # cuFFT and pocketfft round differently: relative to each frame's peak
+    # K9 and pocketfft round differently: relative to each frame's peak
     _, ref = Pipeline(waterfall_chain(device="cpu"), block_in=WF_BLOCK,
                       device="cpu").process(raw[:4 * WF_BLOCK].cpu())
     got = streamed[:ref.shape[0]].cpu()
@@ -3155,10 +3337,15 @@ def main(argv=None) -> int:
     fm_tx_path, trows = run_fm_tx(KERNELS, device)
     print_rows(trows, card)
 
-    # the waterfall: planar convert, FftStream on cuFFT; no kernel of ours
+    # the waterfall: planar convert, FftStream on K9
     raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
-    waterfall = run_waterfall(raw, waterfall_chain(device=device), KERNELS)
-    del raw
+    ops = waterfall_chain(device=device)
+    _, xp = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
+    wrows = [check_fft_stream_kernel(ops[1], xp, args.seed)]
+    del xp
+    print_rows(wrows, card)
+    waterfall = run_waterfall(raw, ops, KERNELS)
+    del raw, ops
 
     # the wideband channel bank: the filterbank on K7, K3 at f = 8, K2, K3
     x = synth_wideband_bank(ROWS * CH_BLOCK, args.seed, device)
@@ -3214,7 +3401,9 @@ def main(argv=None) -> int:
         r["launches"] = am_approx[r["kernel"]]
     for r in trows:
         r["launches"] = fm_tx_path[r["kernel"]]
-    rows += srows + erows + arows + qrows + trows + crows + nrows
+    for r in wrows:
+        r["launches"] = waterfall[r["kernel"]]
+    rows += srows + erows + arows + qrows + trows + wrows + crows + nrows
     for r in rows:
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, "

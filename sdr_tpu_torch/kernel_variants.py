@@ -1,4 +1,4 @@
-"""What binds K1, K4, K3, K2 and K5 on the card: each kernel beside
+"""What binds K1, K4, K3, K2, K5 and K9 on the card: each kernel beside
 source variants of itself, timed in turns in one process.
 
     python -m sdr_tpu_torch.kernel_variants [--kernels fir ...]
@@ -11,8 +11,12 @@ summed; ``no_demod``: K1 writes a sum of the products instead of the
 atan2; ``resample_no_stores``: K2 sums but stores (almost) nothing;
 ``backhalf_no_stage1`` / ``no_stage2``: K5 without its resample or its
 FIR sums; ``fir_dec_no_sums``: K3's staged f > 1 branch stages and
-splits its tiles into phase rows but sums nothing) shows what the rest
-costs; ``fma`` and ``fir_dec_fma`` contract K3's (and K5's second
+splits its tiles into phase rows but sums nothing; ``fft_no_stores``,
+``fft_no_stage``, ``fft_no_dft``, ``fft_no_twiddles``: K9 without its
+stores of ``|X|``, its staging loads, its register DFTs or its
+twiddles) shows what the rest costs; ``fft_sqrt_approx`` writes ``|X|``
+through the approximate square root (within about an ulp, not the
+committed rounding); ``fma`` and ``fir_dec_fma`` contract K3's (and K5's second
 stage's) multiply and add (not the plain version's rounding) and show
 what the no-FMA order costs; the others change a design choice (the
 runtime loop in place of a compiled geometry, the phase rows unpadded,
@@ -21,8 +25,10 @@ the paths': 32 rows of 10,485,760 random u8 bytes with an 86-byte history
 (K1, K4: 51 s8 taps, decimation 8), f32 rows of 196,671 (K3, 64 taps)
 and 655,552 (K3, 65 taps from 128), [32, 2] planes of 5,242,880 (K3's
 f > 1 branch: 51 taps at f = 8 from 5, the exact front's, and 64 at
-f = 16, the AM channel filter's), and rows of 655,360 with an 82-float
-history, 3/10
+f = 16, the AM channel filter's; K9 over them with a 512-sample carry,
+the waterfall's 1,024-point Blackman frames at hop 512, and
+``fft_occ2``, two blocks an SM in place of three, must equal it
+bitwise), and rows of 655,360 with an 82-float history, 3/10
 with 11 taps a phase (K2 over [32] and [32, 2] rows to 196,671 outputs,
 K5 over [32, 2] to 196,608 through 64 FIR taps).  Times
 are the mean of 20 launches by CUDA events, queued behind a device-side
@@ -31,8 +37,8 @@ variants, committed.  A ``clone`` of each input is the copy yardstick.
 Prints the card's name and power limit, each build's registers and
 spills as ``ptxas`` reports them, and one JSON line.  ``--kernels``
 limits the run to some kernels (the sources' names: ``u8_front_demod``,
-``u8_front``, ``fir``, ``resample``, ``backhalf``).  Needs a CUDA GPU and
-``nvcc``.
+``u8_front``, ``fir``, ``resample``, ``backhalf``, ``fft_stream``).
+Needs a CUDA GPU and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -44,9 +50,9 @@ import subprocess
 
 import torch
 
-from sdr_tpu_torch.kernels import (_build, backhalf, fir, resample, u8_front,
-                                   u8_front_demod)
-from sdr_tpu_torch.ops.design import hamming, windowed_sinc
+from sdr_tpu_torch.kernels import (_build, backhalf, fft_stream, fir,
+                                   resample, u8_front, u8_front_demod)
+from sdr_tpu_torch.ops.design import blackman, hamming, windowed_sinc
 from sdr_tpu_torch.ops.fir import prepare_phase_table
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 
@@ -127,10 +133,31 @@ VARIANTS = {
     "backhalf_fma": (("backhalf",), [(
         "acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));",
         "acc[r] = __fmaf_rn(tj[jj], w[OFF + jj + r], acc[r]);")]),
+    "fft_no_stores": (("fft_stream",), [(
+        "slot < fc, magnitude", "slot < fc && H < 0, magnitude")]),
+    "fft_no_stage": (("fft_stream",), [(
+        "  if (cnt <= 0) return;",
+        "  if (cnt <= 0 || nthreads > 0) return;")]),
+    "fft_no_dft": (("fft_stream",), [
+        ("  dft<G::E>(re, im);\n  __syncthreads();", "  __syncthreads();"),
+        ("    dft<R>(re + q * R, im + q * R);\n", "")]),
+    "fft_no_twiddles": (("fft_stream",), [(
+        "    if (NS > 1) {", "    if (NS < 0) {")]),
+    "fft_sqrt_approx": (("fft_stream",), [(
+        "sqrtf(re[v] * re[v] + im[v] * im[v]);",
+        "sqrt_approx(re[v] * re[v] + im[v] * im[v]);"), (
+        "// (a + ib) times exp(-i pi k / 16), 0 <= k < 16",
+        "__device__ __forceinline__ float sqrt_approx(float v) {\n"
+        "  float r;\n"
+        "  asm(\"sqrt.approx.f32 %0, %1;\" : \"=f\"(r) : \"f\"(v));\n"
+        "  return r;\n}\n\n"
+        "// (a + ib) times exp(-i pi k / 16), 0 <= k < 16")]),
+    "fft_occ2": (("fft_stream",), [(
+        "kPasses == 2 ? 3 : 2;", "kPasses == 2 ? 2 : 2;")]),
 }
 EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "fir_dec_rc4", "fir_dec_occ3", "fir_dec_occ4", "fir_dec_span4096", "resample_runtime_geometry",
-         "resample_tile1536", "resample_unroll2"}
+         "resample_tile1536", "resample_unroll2", "fft_occ2"}
 CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
                "resample_stereo": "resample"}
 
@@ -178,7 +205,8 @@ def time_ms(fn) -> float:
 
 def main(argv=None) -> int:
     mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
-            "fir": fir, "resample": resample, "backhalf": backhalf}
+            "fir": fir, "resample": resample, "backhalf": backhalf,
+            "fft_stream": fft_stream}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", nargs="+", choices=sorted(mods),
                     default=sorted(mods))
@@ -222,6 +250,8 @@ def main(argv=None) -> int:
     hr = torch.randn(ROWS, 82, generator=g, device=dev)
     xr2 = torch.randn(ROWS, 2, 655_360, generator=g, device=dev)
     hr2 = torch.randn(ROWS, 2, 82, generator=g, device=dev)
+    hd = torch.randn(ROWS, 2, 512, generator=g, device=dev)
+    wb = torch.as_tensor(blackman(1024), device=dev)
     calls = {
         "u8_front_demod": lambda: u8_front_demod.u8_front_demod(
             tq, scale, 8, x, hist, liq, num)[0],
@@ -236,6 +266,7 @@ def main(argv=None) -> int:
                                                      0, 196_671),
         "backhalf": lambda: backhalf.resample_fir(table, 3, 10, t64, xr2, hr2,
                                                   0, 196_608),
+        "fft_stream": lambda: fft_stream.fft_stream(hd, xd, wb, 512),
     }
     out = {"card": card, "clone_ms": {
         "u8 [32, 10485760]": time_ms(x.clone),

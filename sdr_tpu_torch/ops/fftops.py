@@ -1,9 +1,14 @@
 """Spectral analysis: FFTs, windowed frames, spectrogram and waterfall
 image (counterpart of sdr_tpu/ops/fftops.py).
 
-The FFTs are ``torch.fft`` (cuFFT on the card, pocketfft on the CPU),
-as the JAX package's are XLA's FFT call; frames of every block are
-batched into one transform, which keeps them in order.  Not ported:
+The FFTs here are ``torch.fft`` (cuFFT on the card, pocketfft on the
+CPU), as the JAX package's are XLA's FFT call; frames of every block are
+batched into one transform, which keeps them in order.  The waterfall's
+``FftStream`` does not come here on the card: at a power-of-two frame
+size from 64 to 16,384 it runs K9 (``kernels/fft_stream.py``), the port's
+own FFT fused with the framing, window, ``|X|`` and shift; at any other
+size it comes back to ``frame`` and ``fft`` (cuFFT).  ``spectrogram``
+is the next user K9 could take (ROADMAP).  Not ported:
 ``fft_mxu``, ``fft_mxu_planar``, ``fft_precision`` and their crossover
 policy, which exist for the TPU's matrix unit.
 """

@@ -1,13 +1,16 @@
 """Where the time of a block-parallel chain goes on the card.
 
     python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|exact|am|
-                                        am_approx|waterfall|channelizer|
+                                        am_approx|waterfall|
+                                        waterfall_complex|channelizer|
                                         channelizer_nb]
 
 Runs ``run_time_batched`` over the chain's input (the main path's 32
 blocks of 10,485,760 bytes of random u8 IQ; for the channelizers random
 complex64: 32 blocks of 4,096,000 wideband samples, or [64, 2,621,440]
-channel basebands in 4 blocks) once to warm up, then in one process:
+channel basebands in 4 blocks) once to warm up (its peak device memory
+read around it, ``torch.cuda.max_memory_allocated``), then in one
+process:
 
 1. ``REPS`` calls unprofiled, each between CUDA events: the call's span on
    the device's clock, host gaps included; then ``SPLIT_REPS`` calls each
@@ -29,15 +32,22 @@ channel basebands in 4 blocks) once to warm up, then in one process:
    time), as the JAX package's ``bench.py`` records its stages.
 
 The idle share is ``1 - busy / span``, busy from 2 and the unprofiled
-median span from 1.  The chain (``--chain``) is ``fm_chain()`` (mono,
-the fused front, the default), ``stereo``: ``fm_chain(front='quantized',
-stereo=True, deemphasis=75e-6)``, ``exact``: ``fm_chain(front='exact')``
-(the complex f32 front), ``am``: ``am_chain()``, ``am_approx``:
+median span from 1; the stage-sum share is the chain's floor
+(``chain_roofline``, the data sheet) over the device time from 1.  The
+chain (``--chain``) is ``fm_chain()`` (mono, the fused front, the
+default), ``stereo``: ``fm_chain(front='quantized', stereo=True,
+deemphasis=75e-6)``, ``exact``: ``fm_chain(front='exact')`` (the complex
+f32 front), ``am``: ``am_chain()``, ``am_approx``:
 ``am_chain(agc_approx=1)`` (the sequential AGC on K6), ``waterfall``:
-``waterfall_chain()``, ``channelizer``: ``channelizer_chain(64,
-wideband=True)``, or ``channelizer_nb``: ``channelizer_chain(64)``.  No
+``waterfall_chain()``, ``waterfall_complex``:
+``waterfall_chain(planar=False)`` (the CLI's form), ``channelizer``:
+``channelizer_chain(64, wideband=True)``, or ``channelizer_nb``:
+``channelizer_chain(64)``.  No
 chain's work depends on the data but through the stereo pilot lock,
-which gates no kernel.  Needs a CUDA GPU.
+which gates no kernel.  Needs a CUDA GPU.  The script reads only the
+package's public chains and runners, so a copy of it in another
+checkout (an earlier commit's, unpacked with ``git archive``) times that
+package with the same measurement.
 """
 
 from __future__ import annotations
@@ -84,6 +94,7 @@ CHAINS = {
     "am": (am_chain, _u8, ROWS),
     "am_approx": (lambda: am_chain(agc_approx=1), _u8, ROWS),
     "waterfall": (waterfall_chain, _u8, ROWS),
+    "waterfall_complex": (lambda: waterfall_chain(planar=False), _u8, ROWS),
     "channelizer": (lambda: channelizer_chain(64, wideband=True),
                     lambda: _complex(ROWS * 4_096_000), ROWS),
     "channelizer_nb": (lambda: channelizer_chain(64),
@@ -168,8 +179,11 @@ def main(argv=None) -> int:
     card = card_line()
     make_ops, make_input, nblocks = CHAINS[args.chain]
     ops, raw = make_ops(), make_input()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     run_time_batched(ops, raw, nblocks)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
 
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
@@ -210,6 +224,10 @@ def main(argv=None) -> int:
     s = io.StringIO()
     pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(15)
     stages = stage_times(ops, raw, nblocks)
+    floor_ms = chain_roofline(
+        ops, raw.shape[-1] // nblocks, raw.dtype,
+        nblocks * int(np.prod(raw.shape[:-1], dtype=np.int64))
+    )["total_floor_s"] * 1e3
 
     print(f"card: {card}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
@@ -233,7 +251,9 @@ def main(argv=None) -> int:
                       "idle_share": 1 - busy / span, "queued": split,
                       "profiled_wall_ms": wall, "ops_ms": by_op,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
-                      "stages": stages,
+                      "stages": stages, "peak_bytes": peak,
+                      "stage_sum_floor_ms": floor_ms,
+                      "stage_sum_share": floor_ms / split["device_ms"],
                       "card": card}))
     return 0
 

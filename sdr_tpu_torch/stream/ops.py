@@ -21,13 +21,14 @@
   ``DcBlocker``         DC blocking IIR
   ``Scale``             y = k * x
   ``Map``               any elementwise function
-  ``FftStream``         windowed overlapping FFT frames (the waterfall)
+  ``FftStream``         windowed overlapping FFT frames (the waterfall;
+                        K9 at power-of-two sizes 64-16,384)
   ``Channelize``        polyphase DFT filterbank: wideband -> C channels
                         (the branch filter on K7)
   ====================  ====================================================
 
-The ops with a u8, resampler or filterbank history read it and their
-block through two pointers, so none makes a concatenated copy of a
+The ops with a u8, resampler, filterbank or frame history read it and
+their block through two pointers, so none makes a concatenated copy of a
 block.  K3 takes
 one pointer, so ``Fir``'s filter and decimator split their outputs at
 the seam as the JAX package does: the few that read history come from a
@@ -45,13 +46,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sdr_tpu_torch.kernels import fft_stream
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.mix import mix_planar
 from sdr_tpu_torch.kernels.resample import resample
 from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
-from sdr_tpu_torch.ops import convert, design, fftops, scans
+from sdr_tpu_torch.ops import convert, design, scans
 from sdr_tpu_torch.ops.channelize import branch_taps, channelize_rows
 from sdr_tpu_torch.ops.demod import (am_demod, fm_demod, fm_demod_planar,
                                      fm_mod)
@@ -958,17 +960,25 @@ class Map(StreamOp):
 
 class FftStream(StreamOp):
     """Windowed overlapping FFT frames: ``[..., n]`` -> ``[..., n/hop,
-    size]``, every frame of a block in one batched ``torch.fft`` call (the
-    frame axis is the stream: ``time_axis_out = -2``).
+    size]``, every frame of a block in one call (the frame axis is the
+    stream: ``time_axis_out = -2``).
 
     ``window`` defaults to Hann; ``shift`` centres DC; ``magnitude``
     emits ``|X|`` (f32), else the complex64 spectrum.  ``planar=True``
     takes planar I/Q ``[..., 2, n]`` f32 (consuming the plane axis); it
-    requires ``magnitude=True``.  cuFFT takes complex input, so the planes
-    become complex64 before framing (the JAX package keeps them apart for
-    the TPU's matrix-unit FFT); the windowed frames are the same numbers,
-    and ``|X|`` is the complex form's (the JAX package's planar form
-    writes ``sqrt(re^2 + im^2)``, within an ulp of it).
+    requires ``magnitude=True``.
+
+    Route, by shape before any launch (``kernels.fft_stream.
+    kernel_route``): on the card a power-of-two ``size`` from 64 to
+    16,384 runs K9 (``kernels/fft_stream.py``), which frames the carry and
+    the block through two pointers, windows, transforms and writes ``|X|``
+    or ``X`` with the shift in one pass, the planes never made complex64;
+    any other size takes the plain version on cuFFT (the planes made
+    complex64, framed, ``torch.fft``, ``abs``, ``fftshift``), as do CPU
+    tensors on pocketfft.  K9's own FFT agrees with cuFFT within 1e-5 of
+    each frame's peak, and its planar and complex forms are bitwise equal
+    (the JAX package's planar form writes ``sqrt(re^2 + im^2)``, within an
+    ulp of its complex form's ``|X|``).  A failed build or launch raises.
 
     Carry: the trailing ``size - hop`` input samples, zeros at warmup."""
 
@@ -1010,22 +1020,19 @@ class FftStream(StreamOp):
                            device=self.device)
 
     def apply(self, carry, x):
-        xext = torch.cat([carry, x], dim=-1)
-        H = self.size - self.hop
-        new = xext[..., xext.shape[-1] - H:].clone() if H else carry
-        if self.planar:
-            xext = torch.complex(xext[..., 0, :], xext[..., 1, :])
-        # each intermediate is dropped as soon as the next exists: the
-        # frames of a 32 x 10 MiB batch take 2.7 GB
-        frames = fftops.frame(xext, self.size, self.hop, self._window)
-        del xext
-        F = fftops.fft(frames)
-        del frames
-        if self.magnitude:
-            F = F.abs()
-        if self.shift:
-            F = torch.fft.fftshift(F, dim=-1)
-        return new, F
+        H, n = self.size - self.hop, x.shape[-1]
+        if not H:
+            new = carry
+        elif n >= H:
+            new = x[..., n - H:].clone()
+        else:                           # a block shorter than the carry
+            new = torch.cat([carry[..., n:], x], dim=-1)
+        args = (carry.contiguous(), x.contiguous(), self._window, self.hop,
+                self.magnitude, self.shift)
+        if x.device.type == "cuda" and \
+                fft_stream.kernel_route(self.size) == "k9":
+            return new, fft_stream.fft_stream(*args)
+        return new, fft_stream.fft_stream_reference(*args)
 
     def shard_carry(self, xb, initial=None, group=None):
         return substitute_first(

@@ -22,7 +22,6 @@ of the CUDA built-ins they use and run block by block, thread by thread.
 
 import ctypes
 import itertools
-import subprocess
 
 import numpy as np
 import pytest
@@ -30,6 +29,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+
+import torch_host_shim as host_shim
 
 from sdr_tpu.ops import channelize as jchannelize
 from sdr_tpu.stream import Channelize as JaxChannelize
@@ -308,46 +309,6 @@ def test_build_digest_follows_the_source(tmp_path, name):
 
 # -- the CUDA sources, built for the host --------------------------------
 
-# What the two sources use of CUDA, on the host: a block's threads are
-# std::threads meeting at a std::barrier, its shared memory one buffer
-# filled with NaNs; the rounded intrinsics are plain f32 operations
-# (built with -ffp-contract=off), the vector types aligned structs.
-SHIM = r"""
-#include <cstdint>
-#include <cstdlib>
-#include <cmath>
-#include <algorithm>
-#include <barrier>
-#include <thread>
-#include <vector>
-using std::min; using std::max;
-struct uint3_ { unsigned x, y, z; };
-inline thread_local uint3_ threadIdx, blockIdx;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__ __restrict
-#define __align__(n) alignas(n)
-struct alignas(16) float4 { float x, y, z, w; };
-struct alignas(8) float2 { float x, y; };
-inline float4 make_float4(float a, float b, float c, float d) {
-  return {a, b, c, d}; }
-inline float2 make_float2(float a, float b) { return {a, b}; }
-inline float __fmul_rn(float a, float b) { return a * b; }
-inline float __fadd_rn(float a, float b) { return a + b; }
-inline float __fsub_rn(float a, float b) { return a - b; }
-inline thread_local float* g_smem;
-inline std::barrier<>* g_bar;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
-typedef int cudaError_t;
-constexpr int cudaSuccess = 0;
-constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
-inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, int, int) {
-  *v = 232448; return 0; }   // an H100's block
-"""
-
 K7_HOST_RUN = r"""
 template <int V>
 void run(const float* hb, const float* hist, const float* x, float* v,
@@ -401,47 +362,18 @@ extern "C" void host_mix_planar(const float* lo, const float* c,
 """
 
 
-def _device_part(name, cut):
-    """The source's device code and plan, up to ``cut`` (its launch
-    code), its CUDA header swapped for the shim."""
-    src = (CSRC / f"{name}.cu").read_text()
-    assert src.count("#include <cuda_runtime.h>") == 1
-    assert src.count(cut) == 1
-    src = src.replace("#include <cuda_runtime.h>", SHIM)
-    src = src.replace("extern __shared__ __align__(16) float smem[];",
-                      "float* const smem = g_smem;")
-    return src[:src.index(cut)]
-
-
 @pytest.fixture(scope="module")
 def host_builds(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernels")
-    libs = {}
-    for name, cut, runner in (
-            ("channelize", "template <int V>\nint launch(", K7_HOST_RUN),
-            ("mix", "}  // namespace", K8_HOST_RUN)):
-        cpp = d / f"{name}.cpp"
-        cpp.write_text(_device_part(name, cut) + runner)
-        so = d / f"lib{name}.so"
-        subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                        "-fPIC", "-shared", "-pthread", "-o", str(so),
-                        str(cpp)], check=True, capture_output=True)
-        libs[name] = ctypes.CDLL(str(so))
+    libs = {name: host_shim.build(d, name, cut, runner)
+            for name, cut, runner in (
+                ("channelize", "template <int V>\nint launch(", K7_HOST_RUN),
+                ("mix", "}  // namespace", K8_HOST_RUN))}
     P_, LL, I_ = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     libs["channelize"].host_branch_filter.argtypes = [
         P_, P_, P_, P_, LL, LL, LL, LL, I_, I_, ctypes.POINTER(I_)]
     libs["mix"].host_mix_planar.argtypes = [P_, P_, P_, P_, LL, LL]
     return libs
-
-
-def _offset(t, off):
-    """A contiguous copy of ``t`` whose data starts ``off`` elements past
-    a 16-byte boundary."""
-    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
-    skip = (-buf.data_ptr() % 16) // t.element_size() + off
-    out = buf[skip: skip + t.numel()].view(t.shape)
-    out.copy_(t)
-    return out
 
 
 @pytest.mark.parametrize("C,P", list(itertools.product((1, 8, 64, 100),
@@ -458,8 +390,8 @@ def test_k7_source_on_the_host_equals_plain(host_builds, rng, C, P):
         if num is None:
             num = tile.value + 1
         n = (num + P - 1) * C - H + 1
-        hist = _offset(_complex(rng, (2, H)), off)
-        x = _offset(_complex(rng, (2, n)), off)
+        hist = host_shim.offset(_complex(rng, (2, H)), off)
+        x = host_shim.offset(_complex(rng, (2, n)), off)
         v = torch.full((2, num, C), complex(np.nan, np.nan),
                        dtype=torch.complex64)
         assert lib.host_branch_filter(
@@ -476,12 +408,12 @@ def test_k8_source_on_the_host_equals_plain_bitwise(host_builds, rng, n,
                                                     lead):
     lib = host_builds["mix"]
     for off in range(4):
-        lo = _offset(torch.from_numpy(
+        lo = host_shim.offset(torch.from_numpy(
             rng.normal(size=(2, n)).astype(np.float32)), off)
         ang = rng.uniform(0, 2 * np.pi, lead)
         carry = torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)],
                                           axis=-1).astype(np.float32))
-        x = _offset(torch.from_numpy(
+        x = host_shim.offset(torch.from_numpy(
             rng.normal(size=lead + (2, n)).astype(np.float32)), off)
         y = torch.full(lead + (2, n), np.nan)
         lib.host_mix_planar(lo.data_ptr(), carry.data_ptr(), x.data_ptr(),

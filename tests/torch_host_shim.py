@@ -1,0 +1,95 @@
+"""The port's CUDA sources compiled for the host, to test them without a
+card: ``SHIM`` stands in for ``<cuda_runtime.h>`` and :func:`build`
+compiles a source's device code and plan under it, with a runner that
+calls its kernel block by block, thread by thread; :func:`offset` places
+a test's input off 16-byte alignment.
+
+What the sources use of CUDA, on the host: a block's threads are
+std::threads meeting at a std::barrier, its shared memory one buffer
+(which a runner fills with NaNs, so that a read of an unstaged word
+shows); the rounded intrinsics are plain f32 operations (built with
+-ffp-contract=off), ``__ldg`` a plain load, the vector types aligned
+structs.
+"""
+
+import ctypes
+import subprocess
+
+import torch
+
+from sdr_tpu_torch.kernels._build import CSRC
+
+__all__ = ["SHIM", "device_part", "build", "offset"]
+
+SHIM = r"""
+#include <cstdint>
+#include <cstdlib>
+#include <cmath>
+#include <algorithm>
+#include <barrier>
+#include <thread>
+#include <vector>
+using std::min; using std::max;
+struct uint3_ { unsigned x, y, z; };
+inline thread_local uint3_ threadIdx, blockIdx;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+#define __align__(n) alignas(n)
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline thread_local float* g_smem;
+inline std::barrier<>* g_bar;
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0;
+constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 232448; return 0; }   // an H100's block
+"""
+
+
+def device_part(name, cut):
+    """The source's device code and plan, up to ``cut`` (its launch
+    code), its CUDA header swapped for the shim."""
+    src = (CSRC / f"{name}.cu").read_text()
+    assert src.count("#include <cuda_runtime.h>") == 1
+    assert src.count(cut) == 1
+    src = src.replace("#include <cuda_runtime.h>", SHIM)
+    src = src.replace("extern __shared__ __align__(16) float smem[];",
+                      "float* const smem = g_smem;")
+    return src[:src.index(cut)]
+
+
+def build(directory, name, cut, runner):
+    """``csrc/<name>.cu`` up to ``cut``, then ``runner``, compiled with
+    ``g++`` into a library under ``directory`` and loaded."""
+    cpp = directory / f"{name}.cpp"
+    cpp.write_text(device_part(name, cut) + runner)
+    so = directory / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-fPIC", "-shared", "-pthread", "-o", str(so),
+                    str(cpp)], check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def offset(t, off):
+    """A contiguous copy of ``t`` whose data starts ``off`` elements past
+    a 16-byte boundary (a row base off the alignment a kernel's 16-byte
+    loads want)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
+    skip = (-buf.data_ptr() % 16) // t.element_size() + off
+    out = buf[skip: skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
