@@ -12,8 +12,8 @@ archive``) over the given process-group backend, to compare two trees'
 spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K9 from ``sdr_tpu_torch/csrc`` (one nvcc
-per source, all at once), then:
+It builds the CUDA kernels K1-K11 from ``sdr_tpu_torch/csrc`` (one
+nvcc per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit, and
    measures the card's ceilings (``measure_ceilings``: the probes of
@@ -58,22 +58,42 @@ per source, all at once), then:
    broadcast (L = 1 kHz, R = 400 Hz, a 10 % pilot, 75 kHz deviation) at
    the same 32 x 10,485,760 bytes: K4 (bitwise, K1's geometries plus byte
    offsets 0, 1 and 10 and leading dims [B, C]) and K5 (bitwise, K2's
-   geometries with 64 and 33 FIR taps) against their plain versions, K3
+   geometries with 64 and 33 FIR taps) against their plain versions; K11
+   over K4's [32, 2, 655,360] planes with the halo's carries and seeded
+   ones, the polynomial bitwise and atan2f bitwise its plain
+   ``torch.atan2`` (or within an ulp of pi, recorded), and at 540 extra
+   geometries in its three forms (n in {0, 1, 7, 8, 9, 1,023, 1,025,
+   2,053, 65,537}, leading dims [], [3], [2, 3], bases 0-3 floats or 0-1
+   complex samples off 16-byte alignment, zero and random carries; the
+   complex form within 2e-6 rad of angular distance), timed beside
+   ``torch.angle`` on the product made beforehand and ``fast_atan2``
+   alone; K3
    at StereoDecode's 65-tap shape and K2 over the [32, 2] L/R planes
    (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); the
-   block-parallel chain with the counters read around one call, its L/R
+   block-parallel chain with the counters read around one call
+   ({u8_front: 1, fir: 7, resample: 1, fm_demod: 1}), its L/R
    separation, the pilot lock of every row, 20 timed calls and peak
-   memory; the same chain with ``ResampleFirScale(fused=True)`` (K5)
-   against it; the streamed run against the block-parallel one and the
+   memory; the same chain with ``ResampleFirScale(fused=True)`` (K5;
+   {u8_front: 1, fir: 6, backhalf: 1, fm_demod: 1}) against it; the
+   streamed run (K4 and K11 once a block) against the block-parallel one
+   and the
    plain CPU chain; and the stereo CLI;
 4. the exact mono path, ``fm_chain(front='exact')`` (the complex f32
-   front the JAX package runs off a TPU: IqConvertU8, the 51-tap
+   front the JAX package runs off a TPU: IqConvertU8 on K10, the 51-tap
    decimate-by-8 ``Fir`` on K3 over the [32, 2] real planes of the
-   complex batch, split at the seam, the complex demod, K2 -> K3) on the
-   mono broadcast: K3 at f = 8 (seam and main launches, bitwise) with its
-   ``conv1d`` yardstick; the block-parallel chain (launches {fir: 3,
-   resample: 1}, the tone, peak memory, 20 timed calls), the streamed run
-   (equal), the plain CPU chain and the fused mono chain; ``planar=True``,
+   complex batch, split at the seam, the complex demod on K11, K2 -> K3)
+   on the mono broadcast: K10 at [32, 10,485,760] u8 -> planar f32 and
+   complex64, and seeded int16 of the same shape both ways, bitwise its
+   plain version, and at 1,152 extra geometries (n in {0, 1, 7, 8, 9,
+   2,047, 2,049, 65,537} pairs, leading dims [], [3], [2, 3], bases 0-15
+   bytes or 0-7 int16 off 16-byte alignment), timed beside the cast
+   ``x.to(float32)`` alone; K3 at f = 8 (seam and main launches, bitwise)
+   with its ``conv1d`` yardstick; K11 complex at [32, 655,360] within 2e-6
+   rad of its plain version (the largest distance and the samples that
+   differ printed); the block-parallel chain (launches {fir: 3, resample:
+   1, iq_convert: 1, fm_demod: 1}, the tone, peak memory, 20 timed
+   calls), the streamed run (equal; K10 and K11 once a block), the plain
+   CPU chain and the fused mono chain; ``planar=True``,
    ``fuse_back=False`` and the FIR de-emphasis at 4 blocks against the
    plain CPU chain; and the CLI with ``--front exact``;
 5. the AM path, ``am_chain()`` (planar: convert, Mix on K8, the 64-tap
@@ -84,7 +104,7 @@ per source, all at once), then:
    4, bases 0-3 floats off 16-byte alignment, leading dims [3] and [2,
    3]), timed with its bound (no library call computes it); K3 at f = 16
    (bitwise) with its ``conv1d`` yardstick; the block-parallel chain
-   (launches {fir: 2, mix: 1}, the tone at 80 kS/s, peak
+   (launches {fir: 2, mix: 1, iq_convert: 1}, the tone at 80 kS/s, peak
    memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
    (within 1e-4) and the plain CPU chain; and ``apps.am``;
 6. the AM path with the sequential AGC, ``am_chain(agc_approx=1)`` (the
@@ -94,7 +114,8 @@ per source, all at once), then:
    4,096 samples of all 32 rows (card), two whole rows of 327,680 (their
    CPU copy) and the whole batch (card), with its bytes and latency
    bounds and the linear form's time beside it; the block-parallel chain
-   (launches {fir: 2, agc_scan: 2}, the tone, peak memory, 20 timed
+   (launches {fir: 2, agc_scan: 2, iq_convert: 1}, the tone, peak
+   memory, 20 timed
    calls), the streamed run at 1,048,576-byte blocks (within 1e-3) and
    the linear complex chain (within 1e-4);
 7. the transmitter, ``apps.fm_tx`` (10/3 and 8/1 ``Fir`` resamplers on
@@ -121,11 +142,13 @@ per source, all at once), then:
    timed with its bound, cuFFT alone on frames made beforehand
    (``library_ms``) and ``torch.stft`` -> ``abs`` -> ``fftshift`` (three
    calls); then the chain: the rows' shape, the mean row's power inside
-   Carson's band, launches {fft_stream: 1}, the streamed run at the
+   Carson's band, launches {fft_stream: 1, iq_convert: 1}, the streamed
+   run (K10 and K9 once a block) at the
    CLI's 1,048,576-byte blocks bitwise equal to the block-parallel call,
    the plain CPU chain on 4 blocks within 1e-5 of each frame's peak, 20
    timed calls and peak memory; the complex form,
-   ``waterfall_chain(planar=False)`` (launches {fft_stream: 1}), bitwise
+   ``waterfall_chain(planar=False)`` (launches {fft_stream: 1,
+   iq_convert: 1}), bitwise
    the planar rows and timed beside them;
 9. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
    (``Channelize``, its branch filter on K7, then per channel the 51-tap
@@ -141,8 +164,9 @@ per source, all at once), then:
    1,384 raises from its plan), timed with its bound and a grouped ``conv1d`` yardstick; K3 at f = 8
    (seam and main), K2 and K3 at f = 1 (seam and main) bitwise against
    their plain versions at the bank's shapes, each timed with its bound
-   and its ``conv1d`` yardstick; the launches of one call ({fir: 4,
-   resample: 1, channelize: 1}), every channel's tone inside the audio
+   and its ``conv1d`` yardstick, and K11 complex at [32, 64, 8,000]
+   within 2e-6 rad; the launches of one call ({fir: 4, resample: 1,
+   channelize: 1, fm_demod: 1}), every channel's tone inside the audio
    passband, the streamed run within 1e-6, the plain CPU chain on 4
    blocks within 1e-4, 20 timed calls (wideband complex input
    samples/s) and peak memory;
@@ -150,7 +174,9 @@ per source, all at once), then:
    2,621,440] basebands (the CLI's synthetic formula) in 4 blocks: K3 at
    f = 8 (seam and main), K2 and K3 at f = 1 (seam and main) bitwise
    against their plain versions at the [4, 64] batch the path gives them,
-   each timed with its bound and its ``conv1d`` yardstick; the launches,
+   each timed with its bound and its ``conv1d`` yardstick, and K11
+   complex at [4, 64, 81,920] within 2e-6 rad; the launches ({fir: 4,
+   resample: 1, fm_demod: 1}),
    the tones, 4 blocks against 1 (the CLI's form) and the streamed run
    over [64, 655,360] blocks within 1e-6, the plain CPU chain within
    1e-5, 20 timed calls; then
@@ -256,6 +282,10 @@ CEILINGS = {}
 CHAIN_TIMINGS = []
 TX_SECONDS, TX_RATE, TX_TONE = 60, 48_000, 1_000.0   # the transmitter's WAV
 TX_BLOCK = 46_080                     # fm_tx's default block
+# the stereo chain with the fused back half, one call: K4, StereoDecode's
+# six K3 launches, K5, K11
+STEREO_FUSED_LAUNCHES = {"u8_front": 1, "fir": 6, "backhalf": 1,
+                         "fm_demod": 1}
 
 
 def require(cond, msg: str) -> None:
@@ -885,9 +915,10 @@ def run_cli(raw, stereo: bool, front: str = "auto"):
               "batched")
 
 
-def check_stereo_kernels(raw, ops):
-    """K4, K3 at StereoDecode's 65-tap shape, and K5, each vs its plain
-    version at the stereo path's shapes and at extra geometries."""
+def check_stereo_kernels(raw, ops, seed: int):
+    """K4, K11 over K4's planes, K3 at StereoDecode's 65-tap shape, and
+    K5, each vs its plain version at the stereo path's shapes and at extra
+    geometries."""
     from sdr_tpu_torch.kernels import backhalf, fir, resample, u8_front
     from sdr_tpu_torch.kernels.u8_front import tap_words
     from sdr_tpu_torch.ops.quantized import u8_front_plan
@@ -933,6 +964,20 @@ def check_stereo_kernels(raw, ops):
         library_ms=time_ms(lib4, 20), library_max_abs_diff=lib_err4,
         library_note="conv1d(groups=2, stride=8) over the (u8 - 128) f32 "
                      "planes, the scale applied outside the timed call"))
+
+    # K11 over K4's planes: the polynomial (the path's) and atan2f, and
+    # its extra geometries
+    k11 = check_fm_demod_kernel(
+        "K11 fm_demod (stereo planar [32, 2, 655,360])", demod, y4, seed,
+        forms=["poly", "exact"])
+    count = fm_demod_geometries(x.device, seed)
+    for r in k11:
+        r["geometries"] = count
+    rows += k11
+    print(f"K11 fm_demod: the polynomial bitwise its plain version, atan2f "
+          f"{'bitwise' if ATAN2F['bitwise'] else 'within an ulp of pi of'} "
+          f"torch.atan2 (max {ATAN2F['max_rad']} rad), the complex form "
+          f"within {ANGLE} rad, at {count} extra geometries")
 
     # K3 at StereoDecode's shape: 65 taps over concat(hist, composite)
     _, comp = demod.apply(demod.shard_carry(y4), y4)
@@ -1084,8 +1129,7 @@ def counted(fn, kernels):
     """``fn()`` once with every launch counter set to 0 just before it and
     read just after."""
     torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
+    reset_launches(kernels)
     y = fn()
     torch.cuda.synchronize()
     return y, {k.name: k.launches for k in kernels}
@@ -1108,9 +1152,9 @@ def run_stereo_chain(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    for name in ("u8_front", "resample", "fir"):
-        require(launches[name] > 0,
-                f"kernel {name} not launched on the stereo path")
+    # K4; StereoDecode's six K3 launches and the audio FIR's; K2; K11
+    require_launches(launches, {"u8_front": 1, "fir": 7, "resample": 1,
+                                "fm_demod": 1}, "stereo path")
     per_row = ops[3].out_len(ops[0].out_len(ROW_BYTES))
     require(tuple(y.shape) == (2, ROWS * per_row), f"output {y.shape}")
     out = y.cpu().numpy()
@@ -1134,8 +1178,8 @@ def run_stereo_chain(raw, ops, kernels):
     fops = stereo_ops(True, ops[0].device)
     counted_call(fops, raw, kernels)                    # warm-up
     yf, launches_f = counted_call(fops, raw, kernels)
-    require(launches_f["backhalf"] > 0 and launches_f["resample"] == 0,
-            f"fused stereo path launches {launches_f}")
+    require_launches(launches_f, STEREO_FUSED_LAUNCHES,
+                     "stereo path, fused back half")
     dfused = (yf - y).abs().max().item()
     require(dfused <= 2e-5, f"fused vs unfused back half {dfused} > 2e-5")
     print(f"stereo chain, ResampleFirScale(fused=True): max abs diff to "
@@ -1147,11 +1191,14 @@ def run_stereo_chain(raw, ops, kernels):
     # recurrence itself streamed, and the two round differently
     pipe = Pipeline(ops, block_in=STREAM_BLOCK)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     blocks = list(pipe.run(raw[i:i + STREAM_BLOCK] for i in
                            range(0, raw.numel(), STREAM_BLOCK)))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"u8_front": 1, "fm_demod": 1},
+                      raw.numel() // STREAM_BLOCK, "stereo streamed")
     streamed = torch.cat(blocks, dim=-1)
     dstream = (streamed - y).abs().max().item()
     require(dstream <= 1e-5, f"stereo streamed vs block-parallel {dstream}")
@@ -1232,6 +1279,21 @@ def require_launches(launches: dict, want: dict, what: str) -> None:
                 f"{want.get(name, 0)} ({launches})")
 
 
+def reset_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def require_per_block(kernels, want: dict, blocks: int, what: str) -> None:
+    """Each kernel of ``want`` launched ``want[name]`` times a block over a
+    streamed run of ``blocks`` blocks, its counter set to 0 before it."""
+    for k in kernels:
+        if k.name in want:
+            require(k.launches == want[k.name] * blocks,
+                    f"{what}: {k.name} launched {k.launches} times in "
+                    f"{blocks} blocks, expected {want[k.name]} a block")
+
+
 def run_exact_chain(raw, ops, kernels):
     """The exact mono path (complex f32 front) block-parallel (launches,
     tone, peak memory, 20 timed calls), streamed, against the plain CPU
@@ -1246,7 +1308,8 @@ def run_exact_chain(raw, ops, kernels):
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
     # the decimator's seam and main launches, the audio FIR; the resampler
-    require_launches(launches, {"fir": 3, "resample": 1}, "exact mono path")
+    require_launches(launches, {"fir": 3, "resample": 1, "iq_convert": 1,
+                                "fm_demod": 1}, "exact mono path")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 160 * 3,),
             f"output shape {out.shape}")
@@ -1260,11 +1323,14 @@ def run_exact_chain(raw, ops, kernels):
 
     pipe = Pipeline(ops, block_in=STREAM_BLOCK)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     streamed = torch.cat(list(pipe.run(raw[i:i + STREAM_BLOCK] for i in
                                        range(0, raw.numel(), STREAM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"iq_convert": 1, "fm_demod": 1},
+                      raw.numel() // STREAM_BLOCK, "exact streamed")
     # every kernel's sums and every elementwise op are per sample, so the
     # two agree but for the elementwise ops' rounding where a block edge
     # changes the code path that computes a sample (1 ulp on the CPU)
@@ -1290,14 +1356,15 @@ def run_exact_chain(raw, ops, kernels):
                           block_in=STREAM_BLOCK, device="cpu").process(
                               small.cpu())
         torch.cuda.synchronize()
-        for k in kernels:
-            k.launches = 0
+        reset_launches(kernels)
         _, got = Pipeline(fm_chain(front="exact", device=device, **kw),
                           block_in=STREAM_BLOCK).process(small)
         torch.cuda.synchronize()
         diff = max_err(got.cpu(), ref)
         require(diff <= 1e-5, f"exact chain {kw}: card vs CPU plain chain "
                               f"{diff} > 1e-5")
+        require_per_block(kernels, {"iq_convert": 1, "fm_demod": 1}, 4,
+                          f"exact chain {kw} streamed")
         print(f"exact chain {kw or '(complex)'} streamed on 4 blocks: card "
               f"vs CPU plain chain max abs diff {diff}; launches "
               f"{ {k.name: k.launches for k in kernels} }")
@@ -1372,6 +1439,273 @@ def mix_geometries(device, seed: int) -> int:
     return count
 
 
+ANGLE = 2e-6                          # PERF.md's demod limit, rad
+ULP_PI = float(np.spacing(np.float32(np.pi)))   # an ulp of pi in f32
+IQ_FORMS = (("u8", True), ("u8", False), ("i16", True), ("i16", False))
+# K11's planar atan2f form against the card's torch.atan2: bitwise at
+# every sample checked, and the largest distance (set by check_exact)
+ATAN2F = {"bitwise": True, "max_rad": 0.0}
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s f32 words as int32 (complex: its real and imaginary
+    parts)."""
+    return (torch.view_as_real(t) if t.is_complex() else t).contiguous() \
+        .view(torch.int32)
+
+
+def angular(a: torch.Tensor, b: torch.Tensor):
+    """(largest angular distance ``|remainder(a - b + pi, 2 pi) - pi|`` in
+    float64, where a flip from -pi to +pi is 0; how many samples differ
+    at all)."""
+    if a.numel() == 0:
+        return 0.0, 0
+    d = torch.remainder(a.double() - b.double() + np.pi, 2 * np.pi) - np.pi
+    return d.abs().max().item(), int((a != b).sum().item())
+
+
+def check_exact(y, ref, what: str) -> float:
+    """K11's planar atan2f form against the plain ``torch.atan2``: bitwise
+    where the card's ``torch.atan2`` is ``atan2f``, else within an ulp of
+    pi (recorded in ATAN2F); returns the distance."""
+    dist, differ = angular(y, ref)
+    if differ:
+        ATAN2F["bitwise"] = False
+        ATAN2F["max_rad"] = max(ATAN2F["max_rad"], dist)
+    require(dist <= ULP_PI, f"{what}: K11 atan2f vs torch.atan2 {dist} rad "
+                            f"> an ulp of pi ({differ} samples differ)")
+    return dist
+
+
+def iq_int(shape, fmt: str, g, device) -> torch.Tensor:
+    """Seeded interleaved IQ: u8 over 0-255, or int16 over its range."""
+    lo, hi = (0, 256) if fmt == "u8" else (-32768, 32768)
+    return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32,
+                         device=device).to(
+        torch.uint8 if fmt == "u8" else torch.int16)
+
+
+def check_iq_convert_kernel(raw, seed: int):
+    """K10 at the paths' batch, u8 [32, 10,485,760] from ``raw``: planar
+    [32, 2, 5,242,880] (AM, the waterfall) and complex64 [32, 5,242,880]
+    (exact, the complex waterfall, AM sequential); and seeded int16 IQ of
+    the same shape both ways (no path reads int16).  Each bitwise its
+    plain version, timed with its bound beside the cast ``x.to(float32)``
+    alone (no single PyTorch call computes the conversion); then the
+    extra geometries (:func:`iq_convert_geometries`).  Returns the u8
+    rows."""
+    from sdr_tpu_torch.kernels import iq_convert
+    g = torch.Generator(device=raw.device).manual_seed(seed + 2)
+    inputs = {"u8": raw.view(ROWS, ROW_BYTES),
+              "i16": iq_int((ROWS, ROW_BYTES), "i16", g, raw.device)}
+    rows = []
+    for fmt, planar in IQ_FORMS:
+        x = inputs[fmt]
+        y = iq_convert.iq_convert(x, planar)
+        ref = iq_convert.iq_convert_reference(x, planar)
+        torch.cuda.synchronize()
+        require(y.shape == ref.shape and y.dtype == ref.dtype,
+                f"K10 {fmt} planar={planar}: {y.shape} {y.dtype}")
+        require(torch.equal(bits(y), bits(ref)),
+                f"K10 {fmt} planar={planar} vs plain not bitwise")
+        del ref
+        b, by = bound(nbytes(x, y), x.numel(), "f32")
+        ms = time_ms(lambda: iq_convert.iq_convert(x, planar), 20)
+        row = dict(
+            name=f"K10 iq_convert ({fmt} -> "
+                 f"{'planar f32' if planar else 'complex64'}, "
+                 f"{list(x.shape)} -> {list(y.shape)})",
+            kernel="iq_convert", route="cuda",
+            source="sdr_tpu_torch/csrc/iq_convert.cu",
+            replaces="none: sdr_tpu/stream/ops.py:46 IqConvertU8, :77 "
+                     "IqConvertI16 (sdr_tpu/ops/convert.py:30-94, one "
+                     "elementwise expression XLA fuses into one pass)",
+            max_abs_err=0.0, bitwise=True, ms=ms,
+            plain_ms=time_ms(lambda: iq_convert.iq_convert_reference(
+                x, planar), 3, 1),
+            bound_ms=b, bound_by=by, bound_fraction=b / ms,
+            library_ms=time_ms(lambda: x.to(torch.float32), 20),
+            library_note="the cast x.to(float32) alone: no single PyTorch "
+                         "call converts interleaved IQ")
+        del y
+        if fmt == "u8":
+            rows.append(row)
+        else:
+            print(f"{row['name']}: bitwise its plain version, {ms} ms, "
+                  f"plain {row['plain_ms']} ms, cast alone "
+                  f"{row['library_ms']} ms, bound {b} ms ({by}), "
+                  f"bound_fraction {b / ms} (not on a path)")
+    count = iq_convert_geometries(raw.device, seed)
+    for r in rows:
+        r["geometries"] = count
+    print(f"K10 iq_convert: bitwise its plain version in all four forms at "
+          f"{[ROWS, ROW_BYTES]} and at {count} extra geometries")
+    return rows
+
+
+def iq_convert_geometries(device, seed: int) -> int:
+    """K10 bitwise against its plain version in its four forms at n in
+    {0, 1, 7, 8, 9, 2,047, 2,049, 65,537} pairs, leading dims [], [3] and
+    [2, 3], the input's base 0-15 bytes off 16-byte alignment (u8; int16
+    0-7 elements); returns the count."""
+    from sdr_tpu_torch.kernels import iq_convert
+    g = torch.Generator(device=device).manual_seed(seed + 4)
+    count = 0
+    for fmt, planar in IQ_FORMS:
+        for n in (0, 1, 7, 8, 9, 2_047, 2_049, 65_537):
+            for lead in ((), (3,), (2, 3)):
+                v = iq_int(lead + (2 * n,), fmt, g, device)
+                for off in range(16 if fmt == "u8" else 8):
+                    x = misaligned(v, off)
+                    y = iq_convert.iq_convert(x, planar)
+                    ref = iq_convert.iq_convert_reference(x, planar)
+                    require(y.shape == ref.shape and torch.equal(
+                        bits(y), bits(ref)),
+                        f"K10 {fmt} planar={planar} at n {n}, lead {lead},"
+                        f" offset {off}: not bitwise")
+                    count += 1
+    return count
+
+
+def _demod_call(form: str, plain: bool):
+    """K11's wrapper (or its plain version) for ``form``: 'poly' and
+    'exact' planar, or 'complex'."""
+    from sdr_tpu_torch.kernels import fm_demod
+    if form == "complex":
+        return (fm_demod.fm_demod_complex_reference if plain
+                else fm_demod.fm_demod_complex)
+    fn = (fm_demod.fm_demod_planar_reference if plain
+          else fm_demod.fm_demod_planar)
+    return lambda x, c: fn(x, c, atan2=form)
+
+
+def _demod_agrees(form: str, y, ref, what: str) -> float:
+    """The form's agreement: the polynomial bitwise, atan2f by
+    :func:`check_exact`, the complex form within ANGLE."""
+    if form == "poly":
+        require(torch.equal(bits(y), bits(ref)),
+                f"{what}: K11 vs plain not bitwise")
+        return 0.0
+    if form == "exact":
+        return check_exact(y, ref, what)
+    dist, differ = angular(y, ref)
+    require(dist <= ANGLE, f"{what}: K11 vs plain {dist} rad > {ANGLE} "
+                           f"({differ} samples differ)")
+    return dist
+
+
+def check_fm_demod_kernel(name: str, demod_op, x, seed: int, forms=None):
+    """K11 as ``FmDemod`` launches it over the batch ``x`` (planar
+    [..., 2, n] or complex64 [..., n]) with each row's carry from the
+    halo and with seeded random carries, in the op's form (and the planar
+    forms in ``forms``): the polynomial bitwise its plain version, atan2f
+    bitwise or within an ulp of pi (:func:`check_exact`), the complex
+    form within 2e-6 rad of angular distance (H15: the plain product may
+    contract to FMA; the largest distance and the samples that differ at
+    all are printed); the new carry bitwise.  Timed with its bound,
+    beside ``torch.angle`` on the product made beforehand (the yardstick)
+    and ``fast_atan2`` alone.  Returns one row a form."""
+    from sdr_tpu_torch.ops.demod import fast_atan2
+    planar = demod_op.planar
+    forms = forms or ([demod_op.atan2] if planar else ["complex"])
+    carry = demod_op.shard_carry(x).contiguous()
+    g = torch.Generator(device=x.device).manual_seed(seed + 3)
+    rnd = torch.randn(carry.shape, generator=g, dtype=carry.dtype,
+                      device=x.device)
+    # the product x[m] * conj(x[m - 1]) made beforehand, and its parts
+    if planar:
+        prev = torch.cat([carry[..., None], x[..., :-1]], dim=-1)
+        re, im, pre, pim = x[..., 0, :], x[..., 1, :], prev[..., 0, :], \
+            prev[..., 1, :]
+        bq, a = im * pre - re * pim, re * pre + im * pim
+        prod = torch.complex(a, bq)
+        del prev
+    else:
+        prod = x * torch.cat([carry[..., None], x[..., :-1]], dim=-1).conj()
+        bq, a = prod.imag.contiguous(), prod.real.contiguous()
+    rows = []
+    for form in forms:
+        run, plain = _demod_call(form, False), _demod_call(form, True)
+        err = 0.0
+        for c in (carry, rnd):
+            y, new = run(x, c)
+            ref, rnew = plain(x, c)
+            torch.cuda.synchronize()
+            require(torch.isfinite(y).all().item(), f"{name} output finite")
+            err = max(err, _demod_agrees(form, y, ref, f"{name} {form}"))
+            require(torch.equal(bits(new), bits(rnew)),
+                    f"{name} {form}: new carry != plain")
+            differ = int((y != ref).sum().item())
+            del ref
+        y, _ = run(x, carry)
+        b, by = bound(nbytes(x, carry, y), 28 * y.numel(), "f32")
+        ms = time_ms(lambda: run(x, carry), 20)
+        lib_ms = time_ms(lambda: torch.angle(prod), 20)
+        fast_ms = time_ms(lambda: fast_atan2(bq, a), 3, 1)
+        agree = {"poly": "bitwise",
+                 "exact": f"atan2f vs torch.atan2: {err} rad, {differ} "
+                          "samples differ (random carry)",
+                 "complex": f"angular {err} rad, {differ} samples differ "
+                            "(random carry)"}[form]
+        print(f"{name} {form}: {agree}; {ms} ms; torch.angle on the product "
+              f"made beforehand {lib_ms} ms; fast_atan2 alone {fast_ms} ms")
+        rows.append(dict(
+            name=f"{name} ({form})", kernel="fm_demod", route="cuda",
+            source="sdr_tpu_torch/csrc/fm_demod.cu",
+            replaces="none: sdr_tpu/stream/ops.py:585-617 FmDemod "
+                     "(sdr_tpu/ops/demod.py:29-44, 70-121: shifted views "
+                     "through one fusion root, one pass in XLA)",
+            shape=f"{list(x.shape)} -> {list(y.shape)}",
+            max_abs_err=err, error_metric="angular distance, rad",
+            agreement=agree, ms=ms,
+            plain_ms=time_ms(lambda: plain(x, carry), 3, 1),
+            bound_ms=b, bound_by=by, bound_fraction=b / ms,
+            library_ms=lib_ms, fast_atan2_ms=fast_ms,
+            library_note="torch.angle on the product x[m] * conj(x[m-1]) "
+                         "made beforehand: no single PyTorch call "
+                         "demodulates"))
+        del y
+    del prod, bq, a
+    return rows
+
+
+def fm_demod_geometries(device, seed: int) -> int:
+    """K11 in its three forms at n in {0, 1, 7, 8, 9, 1,023, 1,025, 2,053,
+    65,537} (a row's later tiles start one sample into their window: H3),
+    leading dims [], [3] and [2, 3], bases 0-3 floats (complex 0-1
+    samples) off 16-byte alignment, zero and random carries, against its
+    plain version as :func:`_demod_agrees` holds it; an empty block
+    passes its carry through.  Returns the count."""
+    g = torch.Generator(device=device).manual_seed(seed + 5)
+    count = 0
+    for form in ("poly", "exact", "complex"):
+        run, plain = _demod_call(form, False), _demod_call(form, True)
+        dt = torch.complex64 if form == "complex" else torch.float32
+        for n in (0, 1, 7, 8, 9, 1_023, 1_025, 2_053, 65_537):
+            for lead in ((), (3,), (2, 3)):
+                shape = lead + ((n,) if form == "complex" else (2, n))
+                cshape = lead + (() if form == "complex" else (2,))
+                for off in range(2 if form == "complex" else 4):
+                    for zero in (True, False):
+                        x = misaligned(torch.randn(shape, generator=g,
+                                                   dtype=dt, device=device),
+                                       off)
+                        c = (torch.zeros(cshape, dtype=dt, device=device)
+                             if zero else torch.randn(
+                                 cshape, generator=g, dtype=dt,
+                                 device=device))
+                        y, new = run(x, c)
+                        what = (f"K11 {form} at n {n}, lead {lead}, offset "
+                                f"{off}, {'zero' if zero else 'random'} "
+                                "carry")
+                        ref, rnew = plain(x, c)
+                        require(y.shape == ref.shape, f"{what}: {y.shape}")
+                        _demod_agrees(form, y, ref, what)
+                        require(torch.equal(bits(new), bits(rnew)),
+                                f"{what}: new carry")
+                        count += 1
+    return count
+
 def run_am_chain(raw, ops, kernels):
     """The AM path block-parallel (launches, tone, peak memory, 20 timed
     calls), streamed at the CLI's blocks, and against the plain CPU
@@ -1384,7 +1718,8 @@ def run_am_chain(raw, ops, kernels):
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
     # the planar mix; the channel decimator's seam and main launches
-    require_launches(launches, {"fir": 2, "mix": 1}, "AM path")
+    require_launches(launches, {"fir": 2, "mix": 1, "iq_convert": 1},
+                     "AM path")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,), f"AM output {out.shape}")
     require(np.isfinite(out).all(), "AM output finite")
@@ -1397,11 +1732,14 @@ def run_am_chain(raw, ops, kernels):
 
     pipe = Pipeline(ops, block_in=AM_BLOCK)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     streamed = torch.cat(list(pipe.run(raw[i:i + AM_BLOCK] for i in
                                        range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"iq_convert": 1, "mix": 1},
+                      raw.numel() // AM_BLOCK, "AM streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-4, f"AM streamed vs block-parallel {dstream}")
     print(f"AM streamed Pipeline.run at {AM_BLOCK}-byte blocks: max abs diff "
@@ -1526,7 +1864,7 @@ def run_am_approx(raw, ops, kernels):
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
     # the decimator's seam and main launches; the sweep and the apply
-    require_launches(launches, {"fir": 2, "agc_scan": 2},
+    require_launches(launches, {"fir": 2, "agc_scan": 2, "iq_convert": 1},
                      "AM path, sequential AGC")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,),
@@ -1541,11 +1879,14 @@ def run_am_approx(raw, ops, kernels):
 
     pipe = Pipeline(ops, block_in=AM_BLOCK)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     streamed = torch.cat(list(pipe.run(raw[i:i + AM_BLOCK] for i in
                                        range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"iq_convert": 1}, raw.numel() // AM_BLOCK,
+                      "AM sequential-AGC streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-3,
             f"AM sequential-AGC streamed vs block-parallel {dstream}")
@@ -1885,7 +2226,8 @@ def run_waterfall(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    require_launches(launches, {"fft_stream": 1}, "waterfall path")
+    require_launches(launches, {"fft_stream": 1, "iq_convert": 1},
+                     "waterfall path")
     frames = raw.numel() // 2 // WF_HOP
     require(tuple(y.shape) == (frames, WF_SIZE), f"waterfall rows {y.shape}")
     require(torch.isfinite(y).all().item(), "waterfall rows finite")
@@ -1910,7 +2252,8 @@ def run_waterfall(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     yc, claunches = counted_call(cops, raw, kernels)
     cpeak = torch.cuda.max_memory_allocated()
-    require_launches(claunches, {"fft_stream": 1}, "waterfall complex form")
+    require_launches(claunches, {"fft_stream": 1, "iq_convert": 1},
+                     "waterfall complex form")
     require(torch.equal(yc, y), "waterfall complex form != planar rows "
                                 f"(max diff {peak_rel(yc, y)} of a frame's "
                                 "peak)")
@@ -1921,12 +2264,15 @@ def run_waterfall(raw, ops, kernels):
 
     pipe = Pipeline(ops, block_in=WF_BLOCK)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     streamed = torch.cat(list(pipe.run(raw[i:i + WF_BLOCK] for i in
                                        range(0, raw.numel(), WF_BLOCK))),
                          dim=-2)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"iq_convert": 1, "fft_stream": 1},
+                      raw.numel() // WF_BLOCK, "waterfall streamed")
     require(torch.equal(streamed, y),
             "waterfall streamed Pipeline.run != block-parallel (max diff "
             f"{max_err(streamed, y)})")
@@ -2144,8 +2490,8 @@ def channelize_geometries(device, seed: int) -> int:
 
 def check_bank_kernels(x, ops, seed: int):
     """K7 at the wideband channel bank's [32, 4,096,000] input, then K3 at
-    f = 8, K2 and K3 at f = 1 at its shapes: the filterbank's [32, 64]
-    channels of 64,000 samples, their demod's 8,000, the resampler's
+    f = 8, K11, K2 and K3 at f = 1 at its shapes: the filterbank's [32,
+    64] channels of 64,000 samples, their demod's 8,000, the resampler's
     2,400."""
     xb = x.view(ROWS, CH_BLOCK)
     rows = [check_channelize_kernel(ops[0], xb, seed)]
@@ -2155,6 +2501,9 @@ def check_bank_kernels(x, ops, seed: int):
         "planes, f = 8, 51 taps)", ops[1], xc))
     _, yd = ops[1].apply(ops[1].shard_carry(xc), xc)
     del xc
+    rows += check_fm_demod_kernel(
+        "K11 fm_demod (wideband bank complex [32, 64, 8,000])", ops[2], yd,
+        seed)
     _, dm = ops[2].apply(ops[2].shard_carry(yd), yd)
     rows.append(check_resampler_kernel(
         "K2 resample (channel bank [32, 64], 8,000 -> 2,400)", ops[3], dm))
@@ -2165,17 +2514,20 @@ def check_bank_kernels(x, ops, seed: int):
     return rows
 
 
-def check_narrowband_kernels(x, ops):
-    """K3 at f = 8, K2 and K3 at f = 1 at the narrowband channel bank's
-    shapes: ``run_time_batched``'s batch of NB_BLOCKS consecutive blocks
-    of every channel, [4, 64] rows of 655,360 samples, their demod's
-    81,920, the resampler's 24,576."""
+def check_narrowband_kernels(x, ops, seed: int):
+    """K3 at f = 8, K11, K2 and K3 at f = 1 at the narrowband channel
+    bank's shapes: ``run_time_batched``'s batch of NB_BLOCKS consecutive
+    blocks of every channel, [4, 64] rows of 655,360 samples, their
+    demod's 81,920, the resampler's 24,576."""
     xb = x.view(CH_C, NB_BLOCKS, -1).movedim(1, 0).contiguous()
     rows = [check_decimator_kernel(
         "K3 fir (narrowband bank decimator, complex [4, 64] as [4, 64, 2] "
         "planes, f = 8, 51 taps)", ops[0], xb)]
     _, yd = ops[0].apply(ops[0].shard_carry(xb), xb)
     del xb
+    rows += check_fm_demod_kernel(
+        "K11 fm_demod (narrowband bank complex [4, 64, 81,920])", ops[1],
+        yd, seed)
     _, dm = ops[1].apply(ops[1].shard_carry(yd), yd)
     del yd
     rows.append(check_resampler_kernel(
@@ -2216,8 +2568,8 @@ def run_channelizer_wideband(x, ops, kernels):
     # seam and main launches, and the resampler: each Fir filter or
     # decimator splits its outputs at the seam (the few that read history,
     # then the rest from the block)
-    require_launches(launches, {"fir": 4, "resample": 1, "channelize": 1},
-                     "wideband channelizer path")
+    require_launches(launches, {"fir": 4, "resample": 1, "channelize": 1,
+                                "fm_demod": 1}, "wideband channelizer path")
     per_row = CH_BLOCK // CH_C * 3 // 80
     require(tuple(y.shape) == (CH_C, ROWS * per_row), f"bank {y.shape}")
     out = y.cpu().numpy()
@@ -2232,12 +2584,15 @@ def run_channelizer_wideband(x, ops, kernels):
 
     pipe = Pipeline(ops, block_in=CH_BLOCK, in_dtype=torch.complex64)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     streamed = torch.cat(list(pipe.run(x[i:i + CH_BLOCK] for i in
                                        range(0, x.numel(), CH_BLOCK))),
                          dim=-1)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"channelize": 1, "fm_demod": 1},
+                      x.numel() // CH_BLOCK, "wideband channelizer streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-6, f"bank streamed vs block-parallel {dstream}")
     print(f"wideband channelizer streamed Pipeline.run at {CH_BLOCK}-sample "
@@ -2267,7 +2622,7 @@ def run_channelizer_narrowband(x, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, x, kernels, NB_BLOCKS)
     peak = torch.cuda.max_memory_allocated()
-    require_launches(launches, {"fir": 4, "resample": 1},
+    require_launches(launches, {"fir": 4, "resample": 1, "fm_demod": 1},
                      "narrowband channelizer path")
     require(tuple(y.shape) == (CH_C, NB_SAMPLES * 3 // 80),
             f"narrowband bank {y.shape}")
@@ -2288,11 +2643,14 @@ def run_channelizer_narrowband(x, ops, kernels):
     pipe = Pipeline(ops, block_in=blk, batch_shape=(CH_C,),
                     in_dtype=torch.complex64)
     torch.cuda.synchronize()
+    reset_launches(kernels)
     t0 = time.perf_counter()
     streamed = torch.cat(list(pipe.run(x[:, i:i + blk] for i in
                                        range(0, NB_SAMPLES, blk))), dim=-1)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
+    require_per_block(kernels, {"fm_demod": 1}, NB_BLOCKS,
+                      "narrowband channelizer streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-6,
             f"narrowband streamed vs block-parallel {dstream}")
@@ -2548,7 +2906,7 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
                 ("mono", synth_broadcast, fm_chain(device=device),
                  {"u8_front_demod": 2, "resample": 1, "fir": 1}),
                 ("stereo_fused", synth_stereo_broadcast,
-                 stereo_ops(True, device), None)):
+                 stereo_ops(True, device), STEREO_FUSED_LAUNCHES)):
             raw = synth(ROWS * ROW_BYTES, seed, device)
             one = lambda: run_time_batched(  # noqa: E731
                 ops, raw, ROWS, device=device)
@@ -2763,13 +3121,13 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
 # bitwise; the kernels a rank must launch in one call)
 SHARD_CHECKS = {
     "mono": (0.0, ("u8_front_demod", "resample", "fir")),
-    "stereo": (1e-5, ("u8_front", "resample", "fir")),
-    "stereo_fused": (1e-5, ("u8_front", "backhalf", "fir")),
-    "wideband": (1e-4, ("channelize", "fir", "resample")),
-    "channel": (0.0, ("fir", "resample")),
-    "grid": (0.0, ("fir", "resample")),
-    "am_approx": (1e-4, ("fir", "agc_scan")),
-    "am_approx_demod": (0.0, ("fir", "agc_scan")),
+    "stereo": (1e-5, ("u8_front", "fm_demod", "resample", "fir")),
+    "stereo_fused": (1e-5, ("u8_front", "fm_demod", "backhalf", "fir")),
+    "wideband": (1e-4, ("channelize", "fir", "fm_demod", "resample")),
+    "channel": (0.0, ("fir", "fm_demod", "resample")),
+    "grid": (0.0, ("fir", "fm_demod", "resample")),
+    "am_approx": (1e-4, ("iq_convert", "fir", "agc_scan")),
+    "am_approx_demod": (0.0, ("iq_convert", "fir", "agc_scan")),
 }
 
 
@@ -3203,8 +3561,12 @@ def run_live(seed: int, device, kernels, card: str):
                                        "live stereo")
                 print(f"live stereo: the file CLI's WAV byte for byte, "
                       f"separation L {sep[0]:.1f}x R {sep[1]:.1f}x")
-                paths["live_stereo"] = live_in_process(
+                launches = live_in_process(
                     payload, extra, tmp / "u_stereo.wav", kernels, device)
+                require(launches["fm_demod"] == launches["u8_front"] > 0,
+                        f"live stereo: K11 not launched once a block, as "
+                        f"K4 is ({launches})")
+                paths["live_stereo"] = launches
         paths["scan"] = check_surface(mono, device, kernels, tmp, card)
     print(f"live phase ran in {time.perf_counter() - t0:.1f} s")
     return paths
@@ -3288,20 +3650,26 @@ def main(argv=None) -> int:
     raw = synth_stereo_broadcast(ROWS * ROW_BYTES, args.seed, device)
     ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6,
                    device=device)
-    srows = check_stereo_kernels(raw, ops)
+    srows = check_stereo_kernels(raw, ops, args.seed)
     print_rows(srows, card)
     stereo, fused = run_stereo_chain(raw, ops, KERNELS)
     run_cli(raw, stereo=True)
     del raw, ops
 
-    # the exact mono path, the complex f32 front: K3 at f = 8, K2 -> K3
+    # the exact mono path, the complex f32 front: K10, K3 at f = 8, K11,
+    # K2 -> K3
     raw = synth_broadcast(ROWS * ROW_BYTES, args.seed, device)
     ops = fm_chain(front="exact", device=device)
+    erows = check_iq_convert_kernel(raw, args.seed)
     _, xc = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
-    erows = [check_decimator_kernel(
+    erows.append(check_decimator_kernel(
         "K3 fir (exact front decimator, complex as [32, 2] planes, f = 8, "
-        "51 taps)", ops[1], xc)]
+        "51 taps)", ops[1], xc))
+    _, xd = ops[1].apply(ops[1].shard_carry(xc), xc)
     del xc
+    erows += check_fm_demod_kernel(
+        "K11 fm_demod (exact complex [32, 655,360])", ops[2], xd, args.seed)
+    del xd
     print_rows(erows, card)
     exact = run_exact_chain(raw, ops, KERNELS)
     run_cli(raw, stereo=False, front="exact")
@@ -3358,7 +3726,7 @@ def main(argv=None) -> int:
     # the narrowband bank: [64, N] basebands, the CLI's synthetic formula
     x = synthesize(CH_C, NB_SAMPLES, FS_IN, device)
     ops = channelizer_chain(CH_C, device=device)
-    nrows = check_narrowband_kernels(x, ops)
+    nrows = check_narrowband_kernels(x, ops, args.seed)
     print_rows(nrows, card)
     narrowband = run_channelizer_narrowband(x, ops, KERNELS)
     del x, ops

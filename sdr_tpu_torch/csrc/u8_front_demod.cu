@@ -48,31 +48,13 @@
 
 #include <algorithm>
 
+#include "fm_demod.cuh"
 #include "u8_window.cuh"
 
 namespace {
 
 using u8w::NT;
-
-__device__ __forceinline__ float poly_atan2(float b, float a) {
-  // sdr_tpu/ops/demod.py:fast_atan2; coefficients rounded to f32 as
-  // numpy rounds them (double literal, then float)
-  const float ab = fabsf(b), aa = fabsf(a);
-  const float hi = fmaxf(aa, ab);
-  const float z = __fdiv_rn(fminf(aa, ab), hi == 0.f ? 1.f : hi);
-  const float z2 = __fmul_rn(z, z);
-  float p = static_cast<float>(0.00809729493);
-  p = __fadd_rn(__fmul_rn(p, z2), static_cast<float>(-0.0377517076));
-  p = __fadd_rn(__fmul_rn(p, z2), static_cast<float>(0.0847596977));
-  p = __fadd_rn(__fmul_rn(p, z2), static_cast<float>(-0.135376751));
-  p = __fadd_rn(__fmul_rn(p, z2), static_cast<float>(0.198950258));
-  p = __fadd_rn(__fmul_rn(p, z2), static_cast<float>(-0.33327976));
-  p = __fadd_rn(__fmul_rn(p, z2), static_cast<float>(0.999999715));
-  float r = __fmul_rn(p, z);
-  if (ab > aa) r = __fsub_rn(static_cast<float>(1.5707963267948966), r);
-  if (a < 0.f) r = __fsub_rn(static_cast<float>(3.141592653589793), r);
-  return b < 0.f ? -r : r;
-}
+using fmd::poly_atan2;   // fm_demod.cuh, shared with K11
 
 template <int NW, bool S16>
 __global__ void __launch_bounds__(NT)

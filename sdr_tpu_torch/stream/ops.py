@@ -49,14 +49,16 @@ import torch
 from sdr_tpu_torch.kernels import fft_stream
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
+from sdr_tpu_torch.kernels.fm_demod import (fm_demod_complex,
+                                             fm_demod_planar)
+from sdr_tpu_torch.kernels.iq_convert import iq_convert
 from sdr_tpu_torch.kernels.mix import mix_planar
 from sdr_tpu_torch.kernels.resample import resample
 from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
-from sdr_tpu_torch.ops import convert, design, scans
+from sdr_tpu_torch.ops import design, scans
 from sdr_tpu_torch.ops.channelize import branch_taps, channelize_rows
-from sdr_tpu_torch.ops.demod import (am_demod, fm_demod, fm_demod_planar,
-                                     fm_mod)
+from sdr_tpu_torch.ops.demod import am_demod, fm_mod
 from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
                                    as_real_batch, fir_decimate, fir_filter)
 from sdr_tpu_torch.ops.iir import companion_power, linear_recurrence
@@ -108,9 +110,8 @@ def resampler_hist_len(spec: FirSpec, offset: int, n_in: int) -> int:
 class _IqConvert(StreamOp):
     """Interleaved I/Q ``[..., 2n]`` -> complex64 ``[..., n]``, or planar
     f32 ``[..., 2, n]`` with ``planar=True`` (a [2] plane axis the ops
-    after it batch over).  Stateless."""
-
-    _convert = {}               # planar -> conversion (ops/convert.py)
+    after it batch over), in one pass (K10; ops/convert.py's conversions
+    on the CPU).  Stateless."""
 
     def __init__(self, planar: bool = False, device="cuda"):
         self.planar = bool(planar)
@@ -128,20 +129,24 @@ class _IqConvert(StreamOp):
         return tuple(batch_shape) + ((2,) if self.planar else ())
 
     def apply(self, carry, x):
-        return carry, self._convert[self.planar](x)
+        return carry, iq_convert(x.contiguous(), self.planar)
 
 
 class IqConvertU8(_IqConvert):
     """RTL-SDR u8 I/Q: ``(v - 128) / 128`` per component."""
 
-    _convert = {False: convert.iq_u8_to_cfloat, True: convert.iq_u8_to_planar}
+    def apply(self, carry, x):
+        if x.dtype != torch.uint8:
+            raise ValueError(f"IqConvertU8 takes uint8 IQ, not {x.dtype}")
+        return super().apply(carry, x)
 
 
 class IqConvertI16(_IqConvert):
-    """BladeRF i16 I/Q: ``v / 2048`` per component."""
+    """BladeRF i16 I/Q: ``v / 2048`` per component; other integer types
+    are cast to int16 first, as ops/convert.py casts them."""
 
-    _convert = {False: convert.iq_i16_to_cfloat,
-                True: convert.iq_i16_to_planar}
+    def apply(self, carry, x):
+        return super().apply(carry, x.to(torch.int16))
 
 
 class _U8Front(StreamOp):
@@ -375,10 +380,12 @@ class FmDemod(StreamOp):
                            dtype=_F32 if self.planar else torch.complex64)
 
     def apply(self, carry, x):
+        # K11 on the card (ops/demod.py's plain forms on the CPU)
         if self.planar:
-            y, last = fm_demod_planar(x, carry, atan2=self.atan2)
+            y, last = fm_demod_planar(x.contiguous(), carry.contiguous(),
+                                      atan2=self.atan2)
         else:
-            y, last = fm_demod(x, carry)
+            y, last = fm_demod_complex(x.contiguous(), carry.contiguous())
         return last, y
 
     def shard_carry(self, xb, initial=None, group=None):

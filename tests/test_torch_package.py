@@ -20,6 +20,8 @@ from sdr_tpu_torch.kernels import (KERNELS, agc, backhalf, fir, resample,
                                    u8_front, u8_front_demod)
 from sdr_tpu_torch.kernels import channelize as kchannelize
 from sdr_tpu_torch.kernels import fft_stream as kfft_stream
+from sdr_tpu_torch.kernels import fm_demod as kfm_demod
+from sdr_tpu_torch.kernels import iq_convert as kiq_convert
 from sdr_tpu_torch.kernels import mix as kmix
 from sdr_tpu_torch.kernels._build import CSRC
 from sdr_tpu_torch.ops.quantized import u8_front_plan
@@ -226,6 +228,10 @@ def _wrapper_calls(device):
         lambda: kfft_stream.fft_stream(
             torch.ones((2, 2, 32), **f32), torch.ones((2, 2, 128), **f32),
             torch.ones(64, **f32), 32),
+        lambda: kiq_convert.iq_convert(torch.full((2, 64), 0x80, **u8),
+                                       True),
+        lambda: kfm_demod.fm_demod_planar(torch.ones((2, 2, 64), **f32),
+                                          torch.ones((2, 2), **f32)),
     ]
 
 
@@ -236,13 +242,15 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
              resample.resample_reference, fir.fir_strided_reference,
              u8_front.u8_front_reference, backhalf.resample_fir_reference,
              agc.agc_scan_reference, kchannelize.branch_filter_reference,
-             kmix.mix_planar_reference, kfft_stream.fft_stream_reference]
+             kmix.mix_planar_reference, kfft_stream.fft_stream_reference,
+             kiq_convert.iq_convert_reference,
+             kfm_demod.fm_demod_planar_reference]
     calls = _wrapper_calls("cpu")
-    assert len(calls) == len(plain) == len(KERNELS) == 9
+    assert len(calls) == len(plain) == len(KERNELS) == 11
     for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0] * 9
+    assert [k.launches for k in KERNELS] == [0] * 11
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
@@ -272,14 +280,15 @@ def test_tpu_only_names_are_not_ported():
 def test_six_kernels_each_with_its_source():
     """K1-K5 replace the JAX package's Pallas kernels, K6 its sequential
     AGC scan, K7 and K8 the channelizer's stencil and the planar mix that
-    XLA fuses, K9 the waterfall's fused FFT; each is built from its own
-    CUDA source in csrc/, and so are the ceilings probes (not a kernel of
-    any path)."""
+    XLA fuses, K9 the waterfall's fused FFT, K10 and K11 the IQ converts
+    and the FM demod that XLA fuses; each is built from its own CUDA
+    source in csrc/, and so are the ceilings probes (not a kernel of any
+    path)."""
     from sdr_tpu_torch import measure_ceilings
     names = [k.name for k in KERNELS]
     assert names == ["u8_front_demod", "resample", "fir", "u8_front",
                      "backhalf", "agc_scan", "channelize", "mix",
-                     "fft_stream"]
+                     "fft_stream", "iq_convert", "fm_demod"]
     assert measure_ceilings.KERNEL not in KERNELS
     for k in KERNELS + (measure_ceilings.KERNEL,):
         assert k.source.parent == CSRC and k.source.suffix == ".cu"

@@ -1,15 +1,16 @@
 """The port's CUDA sources compiled for the host, to test them without a
 card: ``SHIM`` stands in for ``<cuda_runtime.h>`` and :func:`build`
-compiles a source's device code and plan under it, with a runner that
-calls its kernel block by block, thread by thread; :func:`offset` places
-a test's input off 16-byte alignment.
+compiles a source's device code and plan under it (its own ``csrc``
+headers on the include path), with a runner that calls its kernel block
+by block, thread by thread; :func:`offset` places a test's input off
+16-byte alignment.
 
 What the sources use of CUDA, on the host: a block's threads are
 std::threads meeting at a std::barrier, its shared memory one buffer
 (which a runner fills with NaNs, so that a read of an unstaged word
 shows); the rounded intrinsics are plain f32 operations (built with
 -ffp-contract=off), ``__ldg`` a plain load, the vector types aligned
-structs.
+structs, the math functions (``atan2f``, ``fabsf``, ...) the C library's.
 """
 
 import ctypes
@@ -41,12 +42,14 @@ inline thread_local uint3_ threadIdx, blockIdx;
 #define __align__(n) alignas(n)
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline thread_local float* g_smem;
 inline std::barrier<>* g_bar;
@@ -79,8 +82,8 @@ def build(directory, name, cut, runner):
     cpp.write_text(device_part(name, cut) + runner)
     so = directory / f"lib{name}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-fPIC", "-shared", "-pthread", "-o", str(so),
-                    str(cpp)], check=True, capture_output=True)
+                    "-fPIC", "-shared", "-pthread", "-I", str(CSRC), "-o",
+                    str(so), str(cpp)], check=True, capture_output=True)
     return ctypes.CDLL(str(so))
 
 
@@ -88,7 +91,8 @@ def offset(t, off):
     """A contiguous copy of ``t`` whose data starts ``off`` elements past
     a 16-byte boundary (a row base off the alignment a kernel's 16-byte
     loads want)."""
-    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
+    buf = torch.empty(t.numel() + 16 // t.element_size() + off,
+                      dtype=t.dtype)
     skip = (-buf.data_ptr() % 16) // t.element_size() + off
     out = buf[skip: skip + t.numel()].view(t.shape)
     out.copy_(t)
