@@ -12,7 +12,7 @@ archive``) over the given process-group backend, to compare two trees'
 spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K11 from ``sdr_tpu_torch/csrc`` (one
+It builds the CUDA kernels K1-K13 from ``sdr_tpu_torch/csrc`` (one
 nvcc per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit, and
@@ -69,15 +69,20 @@ nvcc per source, all at once), then:
    ``torch.angle`` on the product made beforehand and ``fast_atan2``
    alone; K3
    at StereoDecode's 65-tap shape and K2 over the [32, 2] L/R planes
-   (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); the
-   block-parallel chain with the counters read around one call
-   ({u8_front: 1, fir: 7, resample: 1, fm_demod: 1}), its L/R
-   separation, the pilot lock of every row, 20 timed calls and peak
-   memory; the same chain with ``ResampleFirScale(fused=True)`` (K5;
-   {u8_front: 1, fir: 6, backhalf: 1, fm_demod: 1}) against it; the
-   streamed run (K4 and K11 once a block) against the block-parallel one
-   and the
-   plain CPU chain; and the stereo CLI;
+   (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); K13 as the
+   de-emphasis ``Iir`` runs over the back half's [32, 2, 196,608] output,
+   from the entering states its ``shard_carry`` gives and from seeded
+   ones, within 1e-5 of each row's peak |y| of its plain version (the
+   worst row printed), its final-state launch bitwise the full launch's
+   state, timed beside ``torch.cumsum`` over the same rows (a one-pass
+   scan, not the same function); the block-parallel chain with the
+   counters read around one call ({u8_front: 1, fir: 7, resample: 1,
+   fm_demod: 1, iir: 2}), its L/R separation, the pilot lock of every
+   row, 20 timed calls and peak memory; the same chain with
+   ``ResampleFirScale(fused=True)`` (K5; {u8_front: 1, fir: 6, backhalf:
+   1, fm_demod: 1, iir: 2}) against it; the streamed run (K4, K11 and
+   K13 once a block) against the block-parallel one and the plain CPU
+   chain; and the stereo CLI;
 4. the exact mono path, ``fm_chain(front='exact')`` (the complex f32
    front the JAX package runs off a TPU: IqConvertU8 on K10, the 51-tap
    decimate-by-8 ``Fir`` on K3 over the [32, 2] real planes of the
@@ -103,10 +108,25 @@ nvcc per source, all at once), then:
    a seeded phasor a row and at 48 extra geometries (n not a multiple of
    4, bases 0-3 floats off 16-byte alignment, leading dims [3] and [2,
    3]), timed with its bound (no library call computes it); K3 at f = 16
-   (bitwise) with its ``conv1d`` yardstick; the block-parallel chain
-   (launches {fir: 2, mix: 1, iq_convert: 1}, the tone at 80 kS/s, peak
+   (bitwise) with its ``conv1d`` yardstick; K12 over the channel
+   filter's [32, 2, 327,680] planes in both modes (the reduce of
+   ``Agc.shard_carry``, the scan of ``Agc.apply`` from the path's and
+   from seeded entering gains) and over the complex form's envelopes
+   ``|x|``, bitwise its plain version, and at 156 extra geometries (rows
+   1-5 and 32, n in {0, 1, 2, 127, 128, 129, 255} and 2*128*k +- 1 for k
+   in {1, 4, 20}, bases 0-3 floats off 16-byte alignment, seeded gains,
+   ``mu*|x|`` typical and near 1); K13 as the ``DcBlocker`` runs over the
+   envelope [32, 327,680], within 1e-5 of each row's peak, and at 236
+   extra geometries (the DC blocker's, a de-emphasis and an a_2 != 0
+   section at rows 1-5 and 32, n in {0, 1, 2, 31, 32, 33, 4,095, 4,096,
+   4,097} and 2*4,096*k +- 1 for k in {1, 3}, misaligned bases, seeded
+   entering inputs and states; a two-section ``Iir`` streamed and
+   block-parallel against the CPU); each timed with its bound beside
+   ``torch.cumsum``; the block-parallel chain (launches {fir: 2, mix: 1,
+   iq_convert: 1, agc_linear: 2, iir: 2}, the tone at 80 kS/s, peak
    memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
-   (within 1e-4) and the plain CPU chain; and ``apps.am``;
+   (K12 and K13 once a block; within 1e-4) and the plain CPU chain; and
+   ``apps.am``;
 6. the AM path with the sequential AGC, ``am_chain(agc_approx=1)`` (the
    complex form; the 64-tap decimate-by-16 ``Fir`` on K3, then K6 twice:
    one sweep for each row's entering gain, then the AGC itself) on the
@@ -114,10 +134,10 @@ nvcc per source, all at once), then:
    4,096 samples of all 32 rows (card), two whole rows of 327,680 (their
    CPU copy) and the whole batch (card), with its bytes and latency
    bounds and the linear form's time beside it; the block-parallel chain
-   (launches {fir: 2, agc_scan: 2, iq_convert: 1}, the tone, peak
-   memory, 20 timed
-   calls), the streamed run at 1,048,576-byte blocks (within 1e-3) and
-   the linear complex chain (within 1e-4);
+   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2}, the tone,
+   peak memory, 20 timed calls), the streamed run at 1,048,576-byte
+   blocks (K13 once a block; within 1e-3) and the linear complex chain
+   (within 1e-4);
 7. the transmitter, ``apps.fm_tx`` (10/3 and 8/1 ``Fir`` resamplers on
    K2, ``FmMod``) on a 60 s, 1 kHz WAV: K2 at both stages on a streamed
    block and on the whole recording as one block (bitwise, timed beside
@@ -198,7 +218,10 @@ nvcc per source, all at once), then:
    compose in another order), the wideband bank (1e-4; K7, K3 and K2
    each launched on every rank), the narrowband
    bank channel-sharded 16 channels a rank and on a 2 x 2 grid
-   (bitwise), ``am_chain(agc_approx=1)`` (through the envelope bitwise,
+   (bitwise), ``am_chain()`` (1e-4: the AGC's and the DC blocker's
+   affine prefixes compose across the ranks; K12 and K13 launched on
+   every rank, and K13 in the stereo scenarios),
+   ``am_chain(agc_approx=1)`` (through the envelope bitwise,
    the R sweeps' gains crossing ranks; the whole chain 1e-4, its
    ``DcBlocker`` prefix); and the channelizer CLI under ``torchrun``
    (four gloo ranks, ``--wideband``), its WAVs the one-process CLI's.
@@ -218,7 +241,8 @@ nvcc per source, all at once), then:
    separation); ``main`` in this process against an unpaced radio under
    the port's ``Timer`` (samples/s against real time, blocks dropped and
    launches: a figure, not a check) for mono, ``--batched 8`` and
-   stereo; the native loader (its g++ build time, ``--native`` giving
+   stereo (K11 and K13 launched once a block, as K4 is: checked); the
+   native loader (its g++ build time, ``--native`` giving
    the file CLI's WAV, ``native_file_source(repeat=True)`` the file twice
    over, 64 UDP datagrams of 65,440 bytes through ``fm_chain()`` on the
    card bitwise the same blocks from a file); ``Pipeline.scan`` over
@@ -283,9 +307,9 @@ CHAIN_TIMINGS = []
 TX_SECONDS, TX_RATE, TX_TONE = 60, 48_000, 1_000.0   # the transmitter's WAV
 TX_BLOCK = 46_080                     # fm_tx's default block
 # the stereo chain with the fused back half, one call: K4, StereoDecode's
-# six K3 launches, K5, K11
+# six K3 launches, K5, K11, K13 (the de-emphasis's final state and output)
 STEREO_FUSED_LAUNCHES = {"u8_front": 1, "fir": 6, "backhalf": 1,
-                         "fm_demod": 1}
+                         "fm_demod": 1, "iir": 2}
 
 
 def require(cond, msg: str) -> None:
@@ -1083,6 +1107,10 @@ def check_stereo_kernels(raw, ops, seed: int):
                      "K2 -> K3 pair on the same input is pair_ms",
         pair_ms=time_ms(pair, 20), pair_max_abs_diff=pair_err))
     print_no_fma_floor("K5 backhalf", Kp + Kf, y5.numel())
+
+    # K13 as the de-emphasis Iir runs over the back half's output
+    rows.append(check_iir_kernel(
+        "K13 iir (stereo de-emphasis, [32, 2, 196,608])", ops[4], y5, seed))
     return rows
 
 
@@ -1152,9 +1180,10 @@ def run_stereo_chain(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # K4; StereoDecode's six K3 launches and the audio FIR's; K2; K11
+    # K4; StereoDecode's six K3 launches and the audio FIR's; K2; K11;
+    # K13: the de-emphasis's final state (shard_carry) and output (apply)
     require_launches(launches, {"u8_front": 1, "fir": 7, "resample": 1,
-                                "fm_demod": 1}, "stereo path")
+                                "fm_demod": 1, "iir": 2}, "stereo path")
     per_row = ops[3].out_len(ops[0].out_len(ROW_BYTES))
     require(tuple(y.shape) == (2, ROWS * per_row), f"output {y.shape}")
     out = y.cpu().numpy()
@@ -1197,7 +1226,7 @@ def run_stereo_chain(raw, ops, kernels):
                            range(0, raw.numel(), STREAM_BLOCK)))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    require_per_block(kernels, {"u8_front": 1, "fm_demod": 1},
+    require_per_block(kernels, {"u8_front": 1, "fm_demod": 1, "iir": 1},
                       raw.numel() // STREAM_BLOCK, "stereo streamed")
     streamed = torch.cat(blocks, dim=-1)
     dstream = (streamed - y).abs().max().item()
@@ -1717,9 +1746,11 @@ def run_am_chain(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # the planar mix; the channel decimator's seam and main launches
-    require_launches(launches, {"fir": 2, "mix": 1, "iq_convert": 1},
-                     "AM path")
+    # the planar mix; the channel decimator's seam and main launches; K12's
+    # reduce (Agc.shard_carry) and scan (Agc.apply); K13's final state
+    # (DcBlocker.shard_carry) and output (DcBlocker.apply)
+    require_launches(launches, {"fir": 2, "mix": 1, "iq_convert": 1,
+                                "agc_linear": 2, "iir": 2}, "AM path")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,), f"AM output {out.shape}")
     require(np.isfinite(out).all(), "AM output finite")
@@ -1738,7 +1769,8 @@ def run_am_chain(raw, ops, kernels):
                                        range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    require_per_block(kernels, {"iq_convert": 1, "mix": 1},
+    require_per_block(kernels, {"iq_convert": 1, "mix": 1, "agc_linear": 1,
+                                "iir": 1},
                       raw.numel() // AM_BLOCK, "AM streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-4, f"AM streamed vs block-parallel {dstream}")
@@ -1850,6 +1882,267 @@ def check_agc_kernel(agc_op, x):
                      "output while the gain stays positive")
 
 
+AGC_FORMS = ((0.005, 0.0, 2.0), (0.5, 1.9, 1.999))   # (mu, |x| range)
+
+
+def peak_err(y, ref) -> tuple:
+    """(the largest ``|y - ref|`` over each row's peak ``|ref|``, the row
+    it is in): K13's and the waterfall's measure."""
+    if ref.numel() == 0:
+        return 0.0, 0
+    d = (y - ref).abs().reshape(-1, ref.shape[-1]).amax(-1)
+    peak = ref.abs().reshape(-1, ref.shape[-1]).amax(-1).clamp_min(1e-30)
+    rel = d / peak
+    row = int(rel.argmax().item())
+    return rel[row].item(), row
+
+
+def check_agc_linear_kernel(agc_op, x, seed: int):
+    """K12 at the AM path's planar batch ``x`` [32, 2, 327,677] (the
+    channel filter's output): the reduce mode (each row's map, as
+    ``Agc.shard_carry`` runs it) and the scan mode (``Agc.apply``, from
+    the path's entering gains and from seeded ones), over the planes and
+    over the complex form's envelopes ``|x|``, each bitwise its plain
+    version; then the extra geometries (:func:`agc_linear_geometries`).
+    Timed with their bounds and ``torch.cumsum`` over the same rows, a
+    one-pass scan that is not the same function (no single PyTorch call
+    computes a linear recurrence)."""
+    from sdr_tpu_torch.kernels import agc_linear as k12
+    mu, ref = agc_op.mu, agc_op.reference
+    g = torch.Generator(device=x.device).manual_seed(seed + 5)
+    enter = agc_op.shard_carry(x)
+    seeded = torch.rand(enter.shape, generator=g, device=x.device) * 1.5 \
+        + 0.5
+    m = torch.complex(x[:, 0], x[:, 1]).abs()
+    checks = 0
+    for src, planar in ((x, True), (m, False)):
+        A, B = k12.agc_affine(src, mu, ref, planar)
+        rA, rB = k12.agc_affine_reference(src, mu, ref, planar)
+        require(torch.equal(bits(A), bits(rA)) and torch.equal(bits(B),
+                                                              bits(rB)),
+                f"K12 reduce (planar={planar}) vs plain not bitwise")
+        for g0 in (enter, seeded):
+            call = k12.agc_apply if planar else k12.agc_gains
+            plain = (k12.agc_apply_reference if planar
+                     else k12.agc_gains_reference)
+            y, f = call(src, mu, ref, g0)
+            ry, rf = plain(src, mu, ref, g0)
+            require(torch.isfinite(y).all().item(), "K12 output finite")
+            require(torch.equal(bits(y), bits(ry)) and
+                    torch.equal(bits(f), bits(rf)),
+                    f"K12 scan (planar={planar}) vs plain not bitwise "
+                    f"(max abs diff {max_err(y, ry)})")
+            checks += 1
+            del y, ry
+    count = agc_linear_geometries(x.device, seed)
+    y, f = k12.agc_apply(x, mu, ref, enter)
+    A, B = k12.agc_affine(x, mu, ref, True)
+    cumsum_ms = time_ms(lambda: torch.cumsum(x, -1), 20)
+    rows = []
+    for mode, fn, plain, outs in (
+            ("scan", lambda: k12.agc_apply(x, mu, ref, enter),
+             lambda: k12.agc_apply_reference(x, mu, ref, enter), (y, f)),
+            ("reduce", lambda: k12.agc_affine(x, mu, ref, True),
+             lambda: k12.agc_affine_reference(x, mu, ref, True), (A, B))):
+        ins = (x, enter) if mode == "scan" else (x,)
+        # the envelope (4), the map (2), the recurrence (2), the scaling (2)
+        b, by = bound(nbytes(*ins, *outs),
+                      (10 if mode == "scan" else 8) * m.numel(), "f32")
+        ms = time_ms(fn, 20)
+        rows.append(dict(
+            name=f"K12 agc_linear ({mode}, AM planar {list(x.shape)})",
+            kernel="agc_linear", route="cuda",
+            source="sdr_tpu_torch/csrc/agc_linear.cu",
+            replaces="none: sdr_tpu/ops/scans.py:44-61 linear_scan "
+                     "(jax.lax.associative_scan) under agc_gains :97-114 "
+                     "and agc_affine :83-94",
+            max_abs_err=0.0, bitwise=True, checks=checks, geometries=count,
+            ms=ms, plain_ms=time_ms(plain, 3, 1), bound_ms=b, bound_by=by,
+            bound_fraction=b / ms, library_ms=None, cumsum_ms=cumsum_ms,
+            library_note="none: no single PyTorch call computes a linear "
+                         "recurrence; cumsum_ms is torch.cumsum over the "
+                         "same planes, a one-pass scan, not the same "
+                         "function"))
+    print(f"K12 agc_linear: bitwise its plain version in both modes over "
+          f"the planes and the envelopes at {list(x.shape)} ({checks} scans "
+          f"from the path's and seeded gains) and at {count} extra "
+          f"geometries")
+    return rows
+
+
+def agc_linear_geometries(device, seed: int) -> int:
+    """K12 bitwise against its plain version in both modes, over planar
+    I/Q and over envelopes, at rows 1-5 and 32, n in {0, 1, 2, 127, 128,
+    129, 255} and 2*128*k +- 1 for k in {1, 4, 20}, the input 0-3 floats
+    off 16-byte alignment, seeded entering gains, and mu*|x| typical
+    (0.005 over |x| < 2) and near 1 (0.5 over |x| in [1.9, 1.999]);
+    returns the count."""
+    from sdr_tpu_torch.kernels import agc_linear as k12
+    g = torch.Generator(device=device).manual_seed(seed + 6)
+    ns = [0, 1, 2, 127, 128, 129, 255] + [2 * 128 * k + d for k in (1, 4, 20)
+                                          for d in (-1, 1)]
+    count = 0
+    for rows in (1, 2, 3, 4, 5, 32):
+        for n in ns:
+            for mu, lo, hi in AGC_FORMS:
+                mag = torch.rand((rows, n), generator=g, device=device) \
+                    * (hi - lo) + lo
+                ang = torch.rand((rows, n), generator=g, device=device) \
+                    * 6.283
+                x = misaligned(torch.stack([mag * ang.cos(), mag * ang.sin()],
+                                           dim=-2), (rows + n) % 4)
+                mg = misaligned(mag, n % 4)
+                g0 = torch.rand(rows, generator=g, device=device) * 1.5 + 0.5
+                what = f"K12 at rows {rows}, n {n}, mu {mu}"
+                for got, want in (
+                        (k12.agc_affine(x, mu, 1.0, True),
+                         k12.agc_affine_reference(x, mu, 1.0, True)),
+                        (k12.agc_affine(mg, mu, 1.0),
+                         k12.agc_affine_reference(mg, mu, 1.0)),
+                        (k12.agc_apply(x, mu, 1.0, g0),
+                         k12.agc_apply_reference(x, mu, 1.0, g0)),
+                        (k12.agc_gains(mg, mu, 1.0, g0),
+                         k12.agc_gains_reference(mg, mu, 1.0, g0))):
+                    require(all(a.shape == b.shape and torch.equal(
+                        bits(a), bits(b)) for a, b in zip(got, want)),
+                        f"{what}: not bitwise")
+                count += 1
+    return count
+
+
+def section_of(op, x):
+    """The first IIR section ``op`` (a ``DcBlocker`` or an ``Iir``) runs
+    over the rows ``x`` block-parallel: (feed-forward taps, feedback
+    coefficients, each row's entering inputs and entering state, from the
+    op's ``shard_carry``)."""
+    carry = op.shard_carry(x)
+    if hasattr(op, "alpha"):
+        last, enter = carry
+        xin = torch.stack([torch.zeros_like(last), last], dim=-1)
+        return (1.0, -1.0), (op.alpha,), xin, enter[..., None].contiguous()
+    b, coeffs = op._section(0)
+    return (b, coeffs, carry[0][..., 0, :].contiguous(),
+            carry[1][..., 0, :].flip(-1).contiguous())
+
+
+def check_iir_kernel(name: str, op, x, seed: int):
+    """K13 as ``op`` (``DcBlocker``, or ``Iir``'s section) runs over the
+    path's rows ``x``, from the entering inputs and states its
+    ``shard_carry`` gives and from seeded ones: the outputs and the state
+    after each row within 1e-5 of each row's peak |y| of the plain version
+    (the worst row printed), the final-state launch (``store=False``)
+    bitwise the full launch's state.  Timed, both launches, with the bound
+    and ``torch.cumsum`` over the same rows (a one-pass scan, not the same
+    function)."""
+    from sdr_tpu_torch.kernels import iir
+    b, coeffs, xin, s0 = section_of(op, x)
+    g = torch.Generator(device=x.device).manual_seed(seed + 7)
+    worst = (0.0, 0)
+    for xi, si in ((xin, s0), (torch.randn(xin.shape, generator=g,
+                                           device=x.device),
+                                torch.randn(s0.shape, generator=g,
+                                            device=x.device))):
+        y, s = iir.iir_section(x, b, coeffs, xi, si)
+        ry, rs = iir.iir_section_reference(x, b, coeffs, xi, si)
+        _, s_only = iir.iir_section(x, b, coeffs, xi, si, store=False)
+        require(torch.isfinite(y).all().item(), f"{name} output finite")
+        err = max(peak_err(y, ry), peak_err(
+            torch.cat([y, s], -1), torch.cat([ry, rs], -1)))
+        require(err[0] <= 1e-5, f"{name} vs plain {err[0]} of row "
+                                f"{err[1]}'s peak > 1e-5")
+        require(torch.equal(bits(s_only), bits(s)),
+                f"{name}: the final-state launch's state differs")
+        worst = max(worst, err)
+        del y, ry
+    y, s = iir.iir_section(x, b, coeffs, xin, s0)
+    nb, by = bound(nbytes(x, xin, s0, y, s), 5 * x.numel(), "f32")
+    ms = time_ms(lambda: iir.iir_section(x, b, coeffs, xin, s0), 20)
+    ms_final = time_ms(lambda: iir.iir_section(x, b, coeffs, xin, s0,
+                                               store=False), 20)
+    print(f"{name}: within {worst[0]} of each row's peak |y| of its plain "
+          f"version (the worst row {worst[1]}; limit 1e-5); {ms} ms, the "
+          f"final-state launch {ms_final} ms")
+    return dict(
+        name=name, kernel="iir", route="cuda",
+        source="sdr_tpu_torch/csrc/iir.cu",
+        replaces="none: sdr_tpu/ops/iir.py:30-65 linear_recurrence and "
+                 "sdr_tpu/ops/scans.py:64-80 dc_blocker "
+                 "(jax.lax.associative_scan)",
+        shape=f"{list(x.shape)}, b {list(b)}, a {list(map(float, coeffs))}",
+        max_abs_err=max_err(y, iir.iir_section_reference(
+            x, b, coeffs, xin, s0)[0]),
+        max_peak_rel_err=worst[0], worst_row=worst[1], ms=ms,
+        ms_final_state=ms_final,
+        plain_ms=time_ms(lambda: iir.iir_section_reference(
+            x, b, coeffs, xin, s0), 3, 1),
+        bound_ms=nb, bound_by=by, bound_fraction=nb / ms, library_ms=None,
+        cumsum_ms=time_ms(lambda: torch.cumsum(x, -1), 20),
+        library_note="none: no single PyTorch call computes a linear "
+                     "recurrence; cumsum_ms is torch.cumsum over the same "
+                     "rows, a one-pass scan, not the same function")
+
+
+DEEMPH_75US = ((0.12195122, 0.12195122, 0.0), (0.75609756, 0.0))
+IIR_SECTIONS = (((1.0, -1.0), (0.997,)), DEEMPH_75US,
+                ((0.2, 0.3, 0.1), (1.2, -0.5)))
+
+
+def iir_geometries(device, seed: int) -> int:
+    """K13 within 1e-5 of each row's peak of its plain version, and its
+    final-state launch bitwise the full launch's state, for the DC
+    blocker's section (alpha 0.997), a de-emphasis section and one with
+    a_2 != 0, at rows 1-5 and 32, n in {0, 1, 2, 31, 32, 33, 4,095, 4,096,
+    4,097} and 2*4,096*k +- 1 for k in {1, 3}, the input 0-3 floats off
+    16-byte alignment, seeded entering inputs and states; then a
+    two-section ``Iir`` (the de-emphasis and the a_2 != 0 section) over
+    [3, 2, 50,000] in 4 blocks, streamed and block-parallel, against the
+    same op on the CPU.  Returns the count."""
+    from sdr_tpu_torch.kernels import iir
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
+    from sdr_tpu_torch.stream import Iir, Pipeline
+    g = torch.Generator(device=device).manual_seed(seed + 8)
+    ns = [0, 1, 2, 31, 32, 33, 4_095, 4_096, 4_097] + [
+        2 * 4_096 * k + d for k in (1, 3) for d in (-1, 1)]
+    count = 0
+    for b, coeffs in IIR_SECTIONS:
+        for rows in (1, 2, 3, 4, 5, 32):
+            for n in ns:
+                x = misaligned(torch.randn((rows, n), generator=g,
+                                           device=device), (rows + n) % 4)
+                xin = torch.randn((rows, 2), generator=g, device=device)
+                s0 = torch.randn((rows, len(coeffs)), generator=g,
+                                 device=device)
+                y, s = iir.iir_section(x, b, coeffs, xin, s0)
+                ry, rs = iir.iir_section_reference(x, b, coeffs, xin, s0)
+                _, s_only = iir.iir_section(x, b, coeffs, xin, s0,
+                                            store=False)
+                what = f"K13 section {b}/{coeffs} at rows {rows}, n {n}"
+                require(y.shape == ry.shape, f"{what}: {y.shape}")
+                if n == 0:
+                    require(torch.equal(s, s0), f"{what}: state")
+                else:
+                    err = peak_err(torch.cat([y, s], -1),
+                                   torch.cat([ry, rs], -1))
+                    require(err[0] <= 1e-5, f"{what}: {err[0]} of row "
+                                            f"{err[1]}'s peak > 1e-5")
+                require(torch.equal(bits(s_only), bits(s)),
+                        f"{what}: the final-state launch's state differs")
+                count += 1
+    sos = np.array([[*DEEMPH_75US[0], 1.0, -DEEMPH_75US[1][0], 0.0],
+                    [0.2, 0.3, 0.1, 1.0, -1.2, 0.5]], np.float32)
+    x = torch.randn((3, 2, 50_000), generator=g, device=device)
+    ops, cpu_ops = [Iir(sos, device=device)], [Iir(sos, device="cpu")]
+    par = run_time_batched(ops, x, 4, device=device)
+    want = run_time_batched(cpu_ops, x.cpu(), 4, device="cpu")
+    _, seq = Pipeline(ops, block_in=12_500, batch_shape=(3, 2),
+                      device=device).process(x)
+    for got, what in ((par, "block-parallel"), (seq, "streamed")):
+        err = peak_err(got.cpu(), want)
+        require(err[0] <= 1e-5, f"K13 two-section Iir {what} vs the CPU "
+                                f"block-parallel run: {err[0]} of a peak")
+    return count + 2
+
+
 def run_am_approx(raw, ops, kernels):
     """``am_chain(agc_approx=1)`` block-parallel (launches, tone, peak
     memory, 20 timed calls), streamed at the CLI's blocks (within 1e-3,
@@ -1863,9 +2156,10 @@ def run_am_approx(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # the decimator's seam and main launches; the sweep and the apply
-    require_launches(launches, {"fir": 2, "agc_scan": 2, "iq_convert": 1},
-                     "AM path, sequential AGC")
+    # the decimator's seam and main launches; the sweep and the apply; the
+    # DcBlocker's final state and output on K13
+    require_launches(launches, {"fir": 2, "agc_scan": 2, "iq_convert": 1,
+                                "iir": 2}, "AM path, sequential AGC")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,),
             f"AM sequential-AGC output {out.shape}")
@@ -1885,8 +2179,8 @@ def run_am_approx(raw, ops, kernels):
                                        range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    require_per_block(kernels, {"iq_convert": 1}, raw.numel() // AM_BLOCK,
-                      "AM sequential-AGC streamed")
+    require_per_block(kernels, {"iq_convert": 1, "iir": 1},
+                      raw.numel() // AM_BLOCK, "AM sequential-AGC streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-3,
             f"AM sequential-AGC streamed vs block-parallel {dstream}")
@@ -2049,7 +2343,7 @@ def peak_rel(a, b) -> float:
     """The largest difference in a frame relative to that frame's peak
     magnitude (the waterfall's limit: cuFFT, pocketfft and K9's own FFT
     round differently)."""
-    return ((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max().item()
+    return peak_err(a, b)[0]
 
 
 def check_fft_stream_kernel(fft_op, x, seed: int):
@@ -3020,6 +3314,8 @@ def write_shard_inputs(d: Path, seed: int, device):
     refs["grid"] = run_time_batched(ops, x, NB_BLOCKS, device=device)
     raw = synth_am(ROWS * ROW_BYTES, seed, device)
     raw.cpu().numpy().tofile(d / "am.u8")
+    refs["am"] = run_time_batched(am_chain(device=device), raw, ROWS,
+                                  device=device)
     ops = am_chain(agc_approx=1, device=device)
     refs["am_approx"] = run_time_batched(ops, raw, ROWS, device=device)
     refs["am_approx_demod"] = run_time_batched(ops[:5], raw, ROWS,
@@ -3106,6 +3402,9 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
             device=device))
         del x, xg
         raw = span("am.u8", ROWS * ROW_BYTES)
+        ops = am_chain(device=device)
+        scenario("am", lambda: run_time_sharded(ops, tmesh, raw, nblocks=per,
+                                                device=device))
         ops = am_chain(agc_approx=1, device=device)
         scenario("am_approx", lambda: run_time_sharded(
             ops, tmesh, raw, nblocks=per, device=device))
@@ -3121,12 +3420,14 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
 # bitwise; the kernels a rank must launch in one call)
 SHARD_CHECKS = {
     "mono": (0.0, ("u8_front_demod", "resample", "fir")),
-    "stereo": (1e-5, ("u8_front", "fm_demod", "resample", "fir")),
-    "stereo_fused": (1e-5, ("u8_front", "fm_demod", "backhalf", "fir")),
+    "stereo": (1e-5, ("u8_front", "fm_demod", "resample", "fir", "iir")),
+    "stereo_fused": (1e-5, ("u8_front", "fm_demod", "backhalf", "fir",
+                            "iir")),
     "wideband": (1e-4, ("channelize", "fir", "fm_demod", "resample")),
     "channel": (0.0, ("fir", "fm_demod", "resample")),
     "grid": (0.0, ("fir", "fm_demod", "resample")),
-    "am_approx": (1e-4, ("iq_convert", "fir", "agc_scan")),
+    "am": (1e-4, ("iq_convert", "mix", "fir", "agc_linear", "iir")),
+    "am_approx": (1e-4, ("iq_convert", "fir", "agc_scan", "iir")),
     "am_approx_demod": (0.0, ("iq_convert", "fir", "agc_scan")),
 }
 
@@ -3566,6 +3867,9 @@ def run_live(seed: int, device, kernels, card: str):
                 require(launches["fm_demod"] == launches["u8_front"] > 0,
                         f"live stereo: K11 not launched once a block, as "
                         f"K4 is ({launches})")
+                require(launches["iir"] == launches["u8_front"],
+                        f"live stereo: K13 not launched once a block, as "
+                        f"K4 is ({launches})")
                 paths["live_stereo"] = launches
         paths["scan"] = check_surface(mono, device, kernels, tmp, card)
     print(f"live phase ran in {time.perf_counter() - t0:.1f} s")
@@ -3685,7 +3989,21 @@ def main(argv=None) -> int:
     arows.append(check_decimator_kernel(
         "K3 fir (AM channel filter, planar [32, 2], f = 16, 64 taps)",
         ops[2], mixed))
+    # K12 over the channel filter's planes, K13 over the envelope
+    _, xd = ops[2].apply(ops[2].shard_carry(mixed), mixed)
     del mixed
+    arows += check_agc_linear_kernel(ops[3], xd, args.seed)
+    for op in ops[3:5]:
+        _, xd = op.apply(op.shard_carry(xd), xd)
+    arows.append(check_iir_kernel("K13 iir (AM DcBlocker, [32, 327,680])",
+                                  ops[5], xd, args.seed))
+    del xd
+    iir_count = iir_geometries(device, args.seed)
+    for r in srows + arows:
+        if r["kernel"] == "iir":
+            r["geometries"] = iir_count
+    print(f"K13 iir: within 1e-5 of each row's peak of its plain version "
+          f"at {iir_count} extra geometries")
     print_rows(arows, card)
     am = run_am_chain(raw, ops, KERNELS)
     run_am_cli(raw)

@@ -5,8 +5,9 @@ DC blocker (the reference's filter.c:152-161):
 
     y[n] = x[n] - x[n-1] + alpha * y[n-1],   alpha = 0.997,
 
-carrying ``(last_sample, last_output)``.  Its coefficient is constant, so
-it runs on the blocked closed form of ops/iir.py (``linear_recurrence``).
+carrying ``(last_sample, last_output)``: the IIR section ``b = (1, -1)``,
+``a = (alpha,)``, on the card kernel K13 (kernels/iir.py; its plain
+version the blocked closed form of ops/iir.py, ``linear_recurrence``).
 
 AGC (the reference's Util.hs:329-348):
 
@@ -14,12 +15,13 @@ AGC (the reference's Util.hs:329-348):
 
 With a nonnegative gain ``|x*g| = |x|*g``, so ``g[n+1] = g[n] * (1 -
 mu*|x[n]|) + mu*reference``: a first-order linear recurrence with a
-time-varying coefficient, evaluated by :func:`linear_scan`.  The premise
-fails only at loop gains ``mu*|x| > 1``, where the true AGC is unstable
-anyway (the JAX package's module docstring has the argument).
-``method='scan'`` runs the literal sequential recurrence instead, the
-oracle and the form for ``mu*|x| > 1``: a loop over samples, on the card
-kernel K6 (kernels/agc.py).
+time-varying coefficient, evaluated by :func:`linear_scan` (the gains) and
+:func:`affine_reduce` (a block's whole map), on the card kernel K12
+(kernels/agc_linear.py).  The premise fails only at loop gains
+``mu*|x| > 1``, where the true AGC is unstable anyway (the JAX package's
+module docstring has the argument).  ``method='scan'`` runs the literal
+sequential recurrence instead, the oracle and the form for ``mu*|x| >
+1``: a loop over samples, on the card kernel K6 (kernels/agc.py).
 """
 
 from __future__ import annotations
@@ -27,14 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sdr_tpu_torch.kernels import agc_linear
+from sdr_tpu_torch.kernels import iir as iir_kernel
 from sdr_tpu_torch.kernels.agc import agc_scan
-from sdr_tpu_torch.ops.iir import linear_recurrence
-from sdr_tpu_torch.parallel.halo import exclusive_affine_prefix
 
 __all__ = ["linear_scan", "affine_reduce", "dc_blocker", "agc_affine",
            "agc_gains", "agc"]
 
-CHUNK = 128
 _F32 = torch.float32
 
 
@@ -53,62 +54,31 @@ def _state(v, lead, device) -> torch.Tensor:
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, y0=0.0) -> torch.Tensor:
     """``y[n] = a[n] * y[n-1] + b[n]`` with ``y[-1] = y0``, for ``a``,
-    ``b`` ``[..., N]`` and ``y0`` broadcastable to ``[...]``.
-
-    Each sample's map ``y -> a*y + b`` is composed with those before it in
-    chunks of CHUNK samples: the exclusive prefix inside every chunk and
-    then over the chunks' whole maps, each by the doubling of
-    ``exclusive_affine_prefix`` (log2 steps of whole-tensor ops, no
-    per-sample loop)."""
-    lead, n = b.shape[:-1], b.shape[-1]
-    y0 = _state(y0, lead, b.device)
-    if n == 0:
-        return b.clone()
-    L = CHUNK
-    nc = -(-n // L)
-    a = torch.nn.functional.pad(a, (0, nc * L - n), value=1.0)
-    b = torch.nn.functional.pad(b, (0, nc * L - n))
-    ac = a.reshape(lead + (nc, L))
-    bc = b.reshape(lead + (nc, L))
-    # inside each chunk: the maps of the samples before each sample
-    EA, EB = (t.movedim(0, -1) for t in exclusive_affine_prefix(
-        ac.movedim(-1, 0), bc.movedim(-1, 0)))
-    # each chunk's whole map, and the state entering each chunk
-    CA = ac[..., -1] * EA[..., -1]
-    CB = ac[..., -1] * EB[..., -1] + bc[..., -1]
-    PA, PB = exclusive_affine_prefix(CA.movedim(-1, 0), CB.movedim(-1, 0))
-    enter = (PA * y0 + PB).movedim(0, -1)                    # [..., nc]
-    y = ac * (EA * enter[..., None] + EB) + bc
-    return y.reshape(lead + (nc * L,))[..., :n]
+    ``b`` ``[..., N]`` and ``y0`` broadcastable to ``[...]``: chunks of
+    128 samples composed by doubling (K12's plain version,
+    kernels/agc_linear.py)."""
+    return agc_linear.linear_scan(a, b, _state(y0, b.shape[:-1], b.device))
 
 
 def affine_reduce(a: torch.Tensor, b: torch.Tensor):
     """The composition of the maps ``y -> a[n]*y + b[n]`` over the last
-    axis, ``(A, B)`` with ``y[N-1] = A * y[-1] + B``: a pairwise tree,
-    halving the maps each step (about 2N map compositions, where
-    :func:`linear_scan` would make all N outputs to keep one)."""
-    while a.shape[-1] > 1:
-        if a.shape[-1] % 2:
-            a = torch.nn.functional.pad(a, (0, 1), value=1.0)
-            b = torch.nn.functional.pad(b, (0, 1))
-        # the earlier map of each pair first, then the later one
-        a, b = a[..., 1::2] * a[..., 0::2], a[..., 1::2] * b[..., 0::2] \
-            + b[..., 1::2]
-    return a[..., 0], b[..., 0]
+    axis, ``(A, B)`` with ``y[N-1] = A * y[-1] + B``, by a pairwise tree
+    (K12's plain version, kernels/agc_linear.py)."""
+    return agc_linear.affine_reduce(a, b)
 
 
 def dc_blocker(x: torch.Tensor, last_sample=0.0, last_output=0.0,
-               alpha: float = 0.997):
+               alpha: float = 0.997, store: bool = True):
     """DC blocking filter; returns ``(y, (new_last_sample,
-    new_last_output))``, each carry a new tensor."""
-    x = x.to(_F32)
+    new_last_output))``, each carry a new tensor (``y`` None unless
+    ``store``: only the carries)."""
+    x = x.to(_F32).contiguous()
     lead = x.shape[:-1]
     last_sample = _state(last_sample, lead, x.device)
-    last_output = _state(last_output, lead, x.device)
-    u = x - torch.cat([last_sample[..., None], x[..., :-1]], dim=-1)
-    y = linear_recurrence(np.array([alpha], dtype=np.float32), u,
-                          last_output[..., None])
-    return y, (x[..., -1].clone(), y[..., -1].clone())
+    xin = torch.stack([torch.zeros_like(last_sample), last_sample], dim=-1)
+    s0 = _state(last_output, lead, x.device)[..., None].contiguous()
+    y, s = iir_kernel.iir_section(x, (1.0, -1.0), (alpha,), xin, s0, store)
+    return y, (x[..., -1].clone(), s[..., 0])
 
 
 def agc_affine(x: torch.Tensor, mu: float, reference: float):
@@ -116,9 +86,8 @@ def agc_affine(x: torch.Tensor, mu: float, reference: float):
     ``(A, B)`` with ``g_out = A * g_in + B``, the carry algebra of
     block-parallel runs (composed over blocks by
     ``exclusive_affine_prefix``)."""
-    a = 1.0 - _f32(mu) * x.abs().to(_F32)
-    return affine_reduce(a, torch.full_like(
-        a, _f32(np.float32(mu) * np.float32(reference))))
+    return agc_linear.agc_affine(x.abs().to(_F32).contiguous(), mu,
+                                 reference)
 
 
 def agc_gains(m: torch.Tensor, mu: float, reference: float, state=1.0):
@@ -126,14 +95,8 @@ def agc_gains(m: torch.Tensor, mu: float, reference: float, state=1.0):
     ``(g, final)``, ``g[n]`` the gain applied to sample n and ``final``
     the gain entering the next block.  All-real: the planar chain's
     form."""
-    state = _state(state, m.shape[:-1], m.device)
-    a = 1.0 - _f32(mu) * m
-    h = linear_scan(a, torch.full_like(a, _f32(np.float32(mu)
-                                               * np.float32(reference))),
-                    state)
-    # h[n] = g[n+1]; sample n takes g[n] = (state, h[:-1])
-    g = torch.cat([state[..., None], h[..., :-1]], dim=-1)
-    return g, h[..., -1].clone()
+    state = _state(state, m.shape[:-1], m.device).contiguous()
+    return agc_linear.agc_gains(m.contiguous(), mu, reference, state)
 
 
 def agc(x: torch.Tensor, mu: float, reference: float, state=1.0,

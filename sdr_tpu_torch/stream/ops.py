@@ -12,13 +12,14 @@
   ``StereoDecode``      FM composite -> L/R planes (five FIRs on K3)
   ``ResampleFirScale``  rational resample (K2) -> FIR with the gain folded
                         into its taps (K3); ``fused=True``: both in K5
-  ``Iir``               cascaded biquads (ops/iir.py), e.g. de-emphasis
+  ``Iir``               cascaded biquads, e.g. de-emphasis (each section
+                        on K13)
   ``Mix``               multiply by a local oscillator, phase carried
                         (planar: K8)
-  ``Agc``               automatic gain control (linear, or sequential on
-                        K6)
+  ``Agc``               automatic gain control (linear on K12, or
+                        sequential on K6)
   ``AmDemod``           AM envelope
-  ``DcBlocker``         DC blocking IIR
+  ``DcBlocker``         DC blocking IIR (K13)
   ``Scale``             y = k * x
   ``Map``               any elementwise function
   ``FftStream``         windowed overlapping FFT frames (the waterfall;
@@ -46,7 +47,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdr_tpu_torch.kernels import fft_stream
+from sdr_tpu_torch.kernels import agc_linear, fft_stream
+from sdr_tpu_torch.kernels import iir as iir_kernel
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.fm_demod import (fm_demod_complex,
@@ -61,7 +63,7 @@ from sdr_tpu_torch.ops.channelize import branch_taps, channelize_rows
 from sdr_tpu_torch.ops.demod import am_demod, fm_mod
 from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
                                    as_real_batch, fir_decimate, fir_filter)
-from sdr_tpu_torch.ops.iir import companion_power, linear_recurrence
+from sdr_tpu_torch.ops.iir import companion_power
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.ops.shift import oscillator, oscillator_planar
 from sdr_tpu_torch.parallel.halo import (exclusive_affine_prefix,
@@ -133,9 +135,12 @@ class _IqConvert(StreamOp):
 
 
 class IqConvertU8(_IqConvert):
-    """RTL-SDR u8 I/Q: ``(v - 128) / 128`` per component."""
+    """RTL-SDR u8 I/Q: ``(v - 128) / 128`` per component.  int8 bytes are
+    read as their u8 bit patterns, as the JAX package reads them."""
 
     def apply(self, carry, x):
+        if x.dtype == torch.int8:
+            x = x.view(torch.uint8)
         if x.dtype != torch.uint8:
             raise ValueError(f"IqConvertU8 takes uint8 IQ, not {x.dtype}")
         return super().apply(carry, x)
@@ -600,7 +605,8 @@ class ResampleFirScale(StreamOp):
 
 class Iir(StreamOp):
     """Streaming cascaded-biquad IIR (ops/iir.py) with exact cross-block
-    state: each section carries its last two inputs and outputs.
+    state: each section carries its last two inputs and outputs, and runs
+    as one launch of K13 (kernels/iir.py).
 
     Block-parallel runs: each section is an order-2 linear recurrence, so
     a row reduces to one affine map on the state ``(y[-1], y[-2])``,
@@ -634,39 +640,38 @@ class Iir(StreamOp):
         return ([float(v) for v in b],
                 np.array([-a[1], -a[2]], dtype=np.float32))
 
-    @staticmethod
-    def _drive(b, xp):
-        return b[0] * xp[..., 2:] + b[1] * xp[..., 1:-1] + b[2] * xp[..., :-2]
-
     def apply(self, carry, x):
         xin, yout = carry
+        x = x.to(_F32).contiguous()
         new_xin, new_yout = [], []
         for s in range(self.sos.shape[0]):
             b, coeffs = self._section(s)
-            xp = torch.cat([xin[..., s, :], x], dim=-1)
+            xs = xin[..., s, :].contiguous()
             # the state is (y[-1], y[-2]); the carry stores time order
-            y = linear_recurrence(coeffs, self._drive(b, xp),
-                                  yout[..., s, :].flip(-1))
-            new_xin.append(xp[..., -2:])
-            new_yout.append(y[..., -2:])
+            y, state = iir_kernel.iir_section(x, b, coeffs, xs,
+                                              yout[..., s, :].flip(-1))
+            new_xin.append(torch.cat([xs, x[..., -2:]], dim=-1)[..., -2:])
+            new_yout.append(state.flip(-1))
             x = y
         return (torch.stack(new_xin, dim=-2),
                 torch.stack(new_yout, dim=-2)), x
 
     def shard_carry(self, xb, initial=None, group=None):
-        x = xb.to(_F32)
+        x = xb.to(_F32).contiguous()
         n = x.shape[-1]
+        zero = x.new_zeros(x.shape[:-1] + (2,))
         xin_list, yout_list = [], []
         for s in range(self.sos.shape[0]):
             b, coeffs = self._section(s)
             xin = left_halo(x, 2, group=group)
             if initial is not None:
                 xin = substitute_first(xin, initial[0][..., s, :], group)
-            drive = self._drive(b, torch.cat([xin, x], dim=-1))
-            y_zero = linear_recurrence(coeffs, drive)
+            xin = xin.contiguous()
+            # each row's final state from a zero state
+            _, v = iir_kernel.iir_section(x, b, coeffs, xin, zero,
+                                          store=False)
             Mn = companion_power(tuple(float(c) for c in coeffs), n,
                                  x.device)
-            v = y_zero[..., -2:].flip(-1)
             A, enter = exclusive_matrix_affine_prefix(
                 Mn.expand(v.shape[:-1] + (2, 2)), v, group)
             if initial is not None:
@@ -676,7 +681,8 @@ class Iir(StreamOp):
             xin_list.append(xin)
             yout_list.append(enter.flip(-1))
             if s + 1 < self.sos.shape[0]:
-                x = linear_recurrence(coeffs, drive, enter)
+                x, _ = iir_kernel.iir_section(x, b, coeffs, xin,
+                                              enter.contiguous())
         return (torch.stack(xin_list, dim=-2),
                 torch.stack(yout_list, dim=-2))
 
@@ -834,8 +840,9 @@ class Agc(StreamOp):
     (the gains from the all-real envelope, both planes scaled by them).
 
     ``method='linear'`` (the default) is exact block-parallel: each row
-    reduces to one affine map on its entering gain (``scans.agc_affine``),
-    composed over the rows by ``exclusive_affine_prefix``.
+    reduces to one affine map on its entering gain (``agc_affine`` of
+    kernels/agc_linear.py, K12), composed over the rows by
+    ``exclusive_affine_prefix``; the gains themselves are K12's scan.
 
     ``method='scan'``: the literal sequential recurrence (kernel K6 on the
     card), the oracle and the form for ``mu*|x| > 1``; complex or real
@@ -876,17 +883,21 @@ class Agc(StreamOp):
 
     def apply(self, carry, x):
         if self.planar:
-            g, final = scans.agc_gains(_envelope(x), self.mu,
-                                       self.reference, carry)
-            return final, x * g[..., None, :]
+            y, final = agc_linear.agc_apply(x.contiguous(), self.mu,
+                                            self.reference,
+                                            carry.contiguous())
+            return final, y
         y, final = scans.agc(x, self.mu, self.reference, carry,
                              method=self.method)
         return final, y
 
     def shard_carry(self, xb, initial=None, group=None):
         if self.method == "linear":
-            m = _envelope(xb) if self.planar else xb
-            A, B = scans.agc_affine(m, self.mu, self.reference)
+            if self.planar:
+                A, B = agc_linear.agc_affine(xb.contiguous(), self.mu,
+                                             self.reference, planar=True)
+            else:
+                A, B = scans.agc_affine(xb, self.mu, self.reference)
             Ap, Bp = exclusive_affine_prefix(A, B, group)
             g0 = self.initial if initial is None else torch.as_tensor(
                 initial, dtype=_F32, device=xb.device)
@@ -912,7 +923,8 @@ class Agc(StreamOp):
 
 class DcBlocker(StreamOp):
     """DC blocking filter ``y[n] = x[n] - x[n-1] + alpha * y[n-1]``
-    (ops/scans.py).  Block-parallel runs are exact up to f32 rounding:
+    (ops/scans.py; K13 on the card).  Block-parallel runs are exact up to
+    f32 rounding:
     each row reduces to ``y -> alpha^n * y + B`` (``B`` the row's last
     output from a zero state), composed over the rows by
     ``exclusive_affine_prefix``.
@@ -938,8 +950,8 @@ class DcBlocker(StreamOp):
         last = left_halo(xb, 1, group=group)[..., 0]
         if initial is not None:
             last = substitute_first(last, initial[0], group)
-        y_zero, _ = scans.dc_blocker(xb, last, 0.0, self.alpha)
-        b = y_zero[..., -1]
+        _, (_, b) = scans.dc_blocker(xb, last, 0.0, self.alpha,
+                                     store=False)
         a = torch.full_like(b, float(np.float32(self.alpha))
                             ** xb.shape[-1])
         A, enter = exclusive_affine_prefix(a, b, group)

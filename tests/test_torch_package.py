@@ -18,9 +18,11 @@ import sdr_tpu_torch.stream as tstream
 from sdr_tpu_torch.apps import am, chains, channelizer, fm, fm_tx, waterfall
 from sdr_tpu_torch.kernels import (KERNELS, agc, backhalf, fir, resample,
                                    u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import agc_linear as kagc_linear
 from sdr_tpu_torch.kernels import channelize as kchannelize
 from sdr_tpu_torch.kernels import fft_stream as kfft_stream
 from sdr_tpu_torch.kernels import fm_demod as kfm_demod
+from sdr_tpu_torch.kernels import iir as kiir
 from sdr_tpu_torch.kernels import iq_convert as kiq_convert
 from sdr_tpu_torch.kernels import mix as kmix
 from sdr_tpu_torch.kernels._build import CSRC
@@ -232,6 +234,11 @@ def _wrapper_calls(device):
                                        True),
         lambda: kfm_demod.fm_demod_planar(torch.ones((2, 2, 64), **f32),
                                           torch.ones((2, 2), **f32)),
+        lambda: kagc_linear.agc_apply(torch.ones((2, 2, 100), **f32), 0.005,
+                                      1.0, torch.ones(2, **f32)),
+        lambda: kiir.iir_section(torch.ones((2, 100), **f32), (1.0, -1.0),
+                                 (0.997,), torch.zeros((2, 2), **f32),
+                                 torch.zeros((2, 1), **f32)),
     ]
 
 
@@ -244,13 +251,14 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
              agc.agc_scan_reference, kchannelize.branch_filter_reference,
              kmix.mix_planar_reference, kfft_stream.fft_stream_reference,
              kiq_convert.iq_convert_reference,
-             kfm_demod.fm_demod_planar_reference]
+             kfm_demod.fm_demod_planar_reference,
+             kagc_linear.agc_apply_reference, kiir.iir_section_reference]
     calls = _wrapper_calls("cpu")
-    assert len(calls) == len(plain) == len(KERNELS) == 11
+    assert len(calls) == len(plain) == len(KERNELS) == 13
     for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0] * 11
+    assert [k.launches for k in KERNELS] == [0] * 13
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
@@ -281,14 +289,16 @@ def test_six_kernels_each_with_its_source():
     """K1-K5 replace the JAX package's Pallas kernels, K6 its sequential
     AGC scan, K7 and K8 the channelizer's stencil and the planar mix that
     XLA fuses, K9 the waterfall's fused FFT, K10 and K11 the IQ converts
-    and the FM demod that XLA fuses; each is built from its own CUDA
+    and the FM demod that XLA fuses, K12 and K13 the linear AGC's and the
+    IIR section's associative scans; each is built from its own CUDA
     source in csrc/, and so are the ceilings probes (not a kernel of any
     path)."""
     from sdr_tpu_torch import measure_ceilings
     names = [k.name for k in KERNELS]
     assert names == ["u8_front_demod", "resample", "fir", "u8_front",
                      "backhalf", "agc_scan", "channelize", "mix",
-                     "fft_stream", "iq_convert", "fm_demod"]
+                     "fft_stream", "iq_convert", "fm_demod", "agc_linear",
+                     "iir"]
     assert measure_ceilings.KERNEL not in KERNELS
     for k in KERNELS + (measure_ceilings.KERNEL,):
         assert k.source.parent == CSRC and k.source.suffix == ".cu"

@@ -52,7 +52,7 @@ from torch_sharded_worker import spawn
 WORLD = 4
 
 PREFIX = {"dc_blocker", "agc_linear", "iir", "fm_deemphasis",
-          "dry_wideband", "dry_stereo"}
+          "dry_wideband", "dry_stereo", "am_planar"}
 PREFIX_ATOL = 1e-5
 # chains with the complex demod: PyTorch's CPU angle runs a vector body
 # and a scalar tail over each tensor, which may round an output an ulp
@@ -246,6 +246,7 @@ JAX = {
     "grid": (lambda: [JFir.decimator(jops.windowed_sinc(
         51, 0.1, jops.hamming), 8), JFmDemod()], 1e-5),
     "agc_linear": (lambda: [JAgc(0.005, 1.0)], 1e-5),
+    "am_planar": (lambda: jchains.am_chain(planar=True), 1e-4),
     "agc_approx": (lambda: [JAgc(0.005, 1.0, method="scan",
                                  approx_time_sharding=2)], 1e-5),
     "iir": (lambda: [JIir(scipy.signal.butter(4, 0.2, output="sos")

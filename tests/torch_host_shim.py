@@ -2,8 +2,11 @@
 card: ``SHIM`` stands in for ``<cuda_runtime.h>`` and :func:`build`
 compiles a source's device code and plan under it (its own ``csrc``
 headers on the include path), with a runner that calls its kernel block
-by block, thread by thread; :func:`offset` places a test's input off
-16-byte alignment.
+by block, thread by thread; :func:`build_source` compiles a whole source,
+its C launch functions included, whose launches go through
+``KERNEL_LAUNCH`` (``LAUNCH_SHIM`` runs each grid's blocks in turn, a
+block's threads as std::threads); :func:`offset` places a test's input
+off 16-byte alignment.
 
 What the sources use of CUDA, on the host: a block's threads are
 std::threads meeting at a std::barrier, its shared memory one buffer
@@ -20,7 +23,8 @@ import torch
 
 from sdr_tpu_torch.kernels._build import CSRC
 
-__all__ = ["SHIM", "device_part", "build", "offset"]
+__all__ = ["SHIM", "LAUNCH_SHIM", "device_part", "build", "build_source",
+           "offset"]
 
 SHIM = r"""
 #include <cstdint>
@@ -63,6 +67,46 @@ inline int cudaDeviceGetAttribute(int* v, int, int) {
 """
 
 
+LAUNCH_SHIM = r"""
+#define __shared__ static
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local uint3_ blockDim, gridDim;
+typedef void* cudaStream_t;
+constexpr int cudaErrorInvalidValue = 1;
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(int) { return "host shim"; }
+inline int cudaSetDevice(int) { return 0; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+// Every block of `grid` in turn; a block's threads are std::threads that
+// run its blocks together, meeting at a barrier after each (its static
+// shared memory is reused by the next).
+template <class... P, class... A>
+void host_launch(void (*kern)(P...), dim3 grid, dim3 block, A... args) {
+  std::barrier<> bar(block.x);
+  g_bar = &bar;
+  std::vector<std::thread> th;
+  for (unsigned t = 0; t < block.x; ++t)
+    th.emplace_back([=, &bar] {
+      threadIdx = {t, 0, 0};
+      blockDim = {block.x, 1, 1};
+      gridDim = {grid.x, grid.y, 1};
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          blockIdx = {bx, by, 0};
+          kern(args...);
+          bar.arrive_and_wait();
+        }
+    });
+  for (auto& t : th) t.join();
+}
+#define KERNEL_LAUNCH(kernel, grid, block, stream, ...) \
+  host_launch(kernel, dim3(grid), dim3(block), __VA_ARGS__)
+"""
+
+
 def device_part(name, cut):
     """The source's device code and plan, up to ``cut`` (its launch
     code), its CUDA header swapped for the shim."""
@@ -80,6 +124,22 @@ def build(directory, name, cut, runner):
     ``g++`` into a library under ``directory`` and loaded."""
     cpp = directory / f"{name}.cpp"
     cpp.write_text(device_part(name, cut) + runner)
+    so = directory / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-fPIC", "-shared", "-pthread", "-I", str(CSRC), "-o",
+                    str(so), str(cpp)], check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def build_source(directory, name):
+    """The whole of ``csrc/<name>.cu`` under ``SHIM`` and ``LAUNCH_SHIM``,
+    compiled with ``g++`` into a library under ``directory`` and loaded:
+    its launch functions run on host pointers (the stream is ignored)."""
+    src = (CSRC / f"{name}.cu").read_text()
+    assert src.count("#include <cuda_runtime.h>") == 1
+    src = src.replace("#include <cuda_runtime.h>", SHIM + LAUNCH_SHIM)
+    cpp = directory / f"{name}.cpp"
+    cpp.write_text(src)
     so = directory / f"lib{name}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
                     "-fPIC", "-shared", "-pthread", "-I", str(CSRC), "-o",

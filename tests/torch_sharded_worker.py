@@ -90,6 +90,7 @@ SCENARIOS = {
         Agc(0.005, 1.0, method="scan", approx_time_sharding=2,
             device=CPU)]),
     "iir": ("time", "real", 2, lambda: [Iir(BUTTER4, device=CPU)]),
+    "am_planar": ("time", "raw", 2, lambda: chains.am_chain(device=CPU)),
     "fm_deemphasis": ("time", "raw", 2, lambda: chains.fm_chain(
         deemphasis=75e-6, deemphasis_mode="iir", device=CPU)),
     # the five scenarios of __graft_entry__.py:dryrun_multichip
