@@ -1897,6 +1897,35 @@ def peak_err(y, ref) -> tuple:
     return rel[row].item(), row
 
 
+def same_bits(a, b) -> bool:
+    """Tensors, or tuples of them, equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return all(u.shape == v.shape and torch.equal(bits(u), bits(v))
+               for u, v in zip(a, b))
+
+
+def check_repeatable(fn, what: str) -> None:
+    """Two launches back to back, bitwise equal: K12's and K13's tickets
+    order the blocks, never the arithmetic."""
+    first = fn()
+    require(same_bits(first, fn()), f"{what}: two launches differ")
+
+
+def time_steady(fn, reps: int, what: str) -> float:
+    """:func:`time_ms` over ``reps`` calls, the last call's result bitwise
+    the result of a call made before them."""
+    first, held = fn(), {}
+
+    def call():
+        held["last"] = fn()
+
+    ms = time_ms(call, reps)
+    require(same_bits(first, held["last"]),
+            f"{what}: the last of {reps} timed calls differs from the first")
+    return ms
+
+
 def check_agc_linear_kernel(agc_op, x, seed: int):
     """K12 at the AM path's planar batch ``x`` [32, 2, 327,677] (the
     channel filter's output): the reduce mode (each row's map, as
@@ -1918,8 +1947,7 @@ def check_agc_linear_kernel(agc_op, x, seed: int):
     for src, planar in ((x, True), (m, False)):
         A, B = k12.agc_affine(src, mu, ref, planar)
         rA, rB = k12.agc_affine_reference(src, mu, ref, planar)
-        require(torch.equal(bits(A), bits(rA)) and torch.equal(bits(B),
-                                                              bits(rB)),
+        require(same_bits((A, B), (rA, rB)),
                 f"K12 reduce (planar={planar}) vs plain not bitwise")
         for g0 in (enter, seeded):
             call = k12.agc_apply if planar else k12.agc_gains
@@ -1928,13 +1956,14 @@ def check_agc_linear_kernel(agc_op, x, seed: int):
             y, f = call(src, mu, ref, g0)
             ry, rf = plain(src, mu, ref, g0)
             require(torch.isfinite(y).all().item(), "K12 output finite")
-            require(torch.equal(bits(y), bits(ry)) and
-                    torch.equal(bits(f), bits(rf)),
+            require(same_bits((y, f), (ry, rf)),
                     f"K12 scan (planar={planar}) vs plain not bitwise "
                     f"(max abs diff {max_err(y, ry)})")
             checks += 1
             del y, ry
     count = agc_linear_geometries(x.device, seed)
+    check_repeatable(lambda: k12.agc_apply(x, mu, ref, enter), "K12 scan")
+    check_repeatable(lambda: k12.agc_affine(x, mu, ref, True), "K12 reduce")
     y, f = k12.agc_apply(x, mu, ref, enter)
     A, B = k12.agc_affine(x, mu, ref, True)
     cumsum_ms = time_ms(lambda: torch.cumsum(x, -1), 20)
@@ -1948,7 +1977,7 @@ def check_agc_linear_kernel(agc_op, x, seed: int):
         # the envelope (4), the map (2), the recurrence (2), the scaling (2)
         b, by = bound(nbytes(*ins, *outs),
                       (10 if mode == "scan" else 8) * m.numel(), "f32")
-        ms = time_ms(fn, 20)
+        ms = time_steady(fn, 20, f"K12 {mode}")
         rows.append(dict(
             name=f"K12 agc_linear ({mode}, AM planar {list(x.shape)})",
             kernel="agc_linear", route="cuda",
@@ -1966,7 +1995,8 @@ def check_agc_linear_kernel(agc_op, x, seed: int):
     print(f"K12 agc_linear: bitwise its plain version in both modes over "
           f"the planes and the envelopes at {list(x.shape)} ({checks} scans "
           f"from the path's and seeded gains) and at {count} extra "
-          f"geometries")
+          f"geometries; two launches bitwise equal, the last of 20 timed "
+          f"calls bitwise the first")
     return rows
 
 
@@ -1975,38 +2005,40 @@ def agc_linear_geometries(device, seed: int) -> int:
     I/Q and over envelopes, at rows 1-5 and 32, n in {0, 1, 2, 127, 128,
     129, 255} and 2*128*k +- 1 for k in {1, 4, 20}, the input 0-3 floats
     off 16-byte alignment, seeded entering gains, and mu*|x| typical
-    (0.005 over |x| < 2) and near 1 (0.5 over |x| in [1.9, 1.999]);
+    (0.005 over |x| < 2) and near 1 (0.5 over |x| in [1.9, 1.999]); then
+    more rows than one wave of the scan's tickets ([100, 40,000], 26 rows
+    a wave of planes) and rows past the scan's shared-memory doubling
+    ([7, 600,001], a row a wave, the doubling in place in scratch);
     returns the count."""
     from sdr_tpu_torch.kernels import agc_linear as k12
     g = torch.Generator(device=device).manual_seed(seed + 6)
     ns = [0, 1, 2, 127, 128, 129, 255] + [2 * 128 * k + d for k in (1, 4, 20)
                                           for d in (-1, 1)]
     count = 0
-    for rows in (1, 2, 3, 4, 5, 32):
-        for n in ns:
-            for mu, lo, hi in AGC_FORMS:
-                mag = torch.rand((rows, n), generator=g, device=device) \
-                    * (hi - lo) + lo
-                ang = torch.rand((rows, n), generator=g, device=device) \
-                    * 6.283
-                x = misaligned(torch.stack([mag * ang.cos(), mag * ang.sin()],
-                                           dim=-2), (rows + n) % 4)
-                mg = misaligned(mag, n % 4)
-                g0 = torch.rand(rows, generator=g, device=device) * 1.5 + 0.5
-                what = f"K12 at rows {rows}, n {n}, mu {mu}"
-                for got, want in (
-                        (k12.agc_affine(x, mu, 1.0, True),
-                         k12.agc_affine_reference(x, mu, 1.0, True)),
-                        (k12.agc_affine(mg, mu, 1.0),
-                         k12.agc_affine_reference(mg, mu, 1.0)),
-                        (k12.agc_apply(x, mu, 1.0, g0),
-                         k12.agc_apply_reference(x, mu, 1.0, g0)),
-                        (k12.agc_gains(mg, mu, 1.0, g0),
-                         k12.agc_gains_reference(mg, mu, 1.0, g0))):
-                    require(all(a.shape == b.shape and torch.equal(
-                        bits(a), bits(b)) for a, b in zip(got, want)),
-                        f"{what}: not bitwise")
-                count += 1
+    shapes = [(rows, n) for rows in (1, 2, 3, 4, 5, 32) for n in ns] + [
+        (100, 40_000), (7, 600_001)]
+    for rows, n in shapes:
+        for mu, lo, hi in AGC_FORMS:
+            mag = torch.rand((rows, n), generator=g, device=device) \
+                * (hi - lo) + lo
+            ang = torch.rand((rows, n), generator=g, device=device) \
+                * 6.283
+            x = misaligned(torch.stack([mag * ang.cos(), mag * ang.sin()],
+                                       dim=-2), (rows + n) % 4)
+            mg = misaligned(mag, n % 4)
+            g0 = torch.rand(rows, generator=g, device=device) * 1.5 + 0.5
+            what = f"K12 at rows {rows}, n {n}, mu {mu}"
+            for got, want in (
+                    (k12.agc_affine(x, mu, 1.0, True),
+                     k12.agc_affine_reference(x, mu, 1.0, True)),
+                    (k12.agc_affine(mg, mu, 1.0),
+                     k12.agc_affine_reference(mg, mu, 1.0)),
+                    (k12.agc_apply(x, mu, 1.0, g0),
+                     k12.agc_apply_reference(x, mu, 1.0, g0)),
+                    (k12.agc_gains(mg, mu, 1.0, g0),
+                     k12.agc_gains_reference(mg, mu, 1.0, g0))):
+                require(same_bits(got, want), f"{what}: not bitwise")
+            count += 1
     return count
 
 
@@ -2054,14 +2086,20 @@ def check_iir_kernel(name: str, op, x, seed: int):
                 f"{name}: the final-state launch's state differs")
         worst = max(worst, err)
         del y, ry
+    check_repeatable(lambda: iir.iir_section(x, b, coeffs, xin, s0), name)
+    check_repeatable(lambda: iir.iir_section(x, b, coeffs, xin, s0,
+                                             store=False)[1], name)
     y, s = iir.iir_section(x, b, coeffs, xin, s0)
     nb, by = bound(nbytes(x, xin, s0, y, s), 5 * x.numel(), "f32")
-    ms = time_ms(lambda: iir.iir_section(x, b, coeffs, xin, s0), 20)
-    ms_final = time_ms(lambda: iir.iir_section(x, b, coeffs, xin, s0,
-                                               store=False), 20)
+    nb_final, _ = bound(nbytes(x, xin, s0, s), 5 * x.numel(), "f32")
+    ms = time_steady(lambda: iir.iir_section(x, b, coeffs, xin, s0), 20,
+                     name)
+    ms_final = time_steady(lambda: iir.iir_section(
+        x, b, coeffs, xin, s0, store=False)[1], 20, name + ", final state")
     print(f"{name}: within {worst[0]} of each row's peak |y| of its plain "
-          f"version (the worst row {worst[1]}; limit 1e-5); {ms} ms, the "
-          f"final-state launch {ms_final} ms")
+          f"version (the worst row {worst[1]}; limit 1e-5); two launches "
+          f"bitwise equal, the last of 20 timed calls bitwise the first; "
+          f"{ms} ms, the final-state launch {ms_final} ms")
     return dict(
         name=name, kernel="iir", route="cuda",
         source="sdr_tpu_torch/csrc/iir.cu",
@@ -2072,7 +2110,8 @@ def check_iir_kernel(name: str, op, x, seed: int):
         max_abs_err=max_err(y, iir.iir_section_reference(
             x, b, coeffs, xin, s0)[0]),
         max_peak_rel_err=worst[0], worst_row=worst[1], ms=ms,
-        ms_final_state=ms_final,
+        ms_final_state=ms_final, bound_ms_final_state=nb_final,
+        bound_fraction_final_state=nb_final / ms_final,
         plain_ms=time_ms(lambda: iir.iir_section_reference(
             x, b, coeffs, xin, s0), 3, 1),
         bound_ms=nb, bound_by=by, bound_fraction=nb / ms, library_ms=None,
@@ -2093,7 +2132,9 @@ def iir_geometries(device, seed: int) -> int:
     blocker's section (alpha 0.997), a de-emphasis section and one with
     a_2 != 0, at rows 1-5 and 32, n in {0, 1, 2, 31, 32, 33, 4,095, 4,096,
     4,097} and 2*4,096*k +- 1 for k in {1, 3}, the input 0-3 floats off
-    16-byte alignment, seeded entering inputs and states; then a
+    16-byte alignment, seeded entering inputs and states, and at more rows
+    than one wave of tickets ([300, 40,000]: 52 rows a wave) and rows of
+    many tiles' segments ([3, 5,000,000]: a row a wave); then a
     two-section ``Iir`` (the de-emphasis and the a_2 != 0 section) over
     [3, 2, 50,000] in 4 blocks, streamed and block-parallel, against the
     same op on the CPU.  Returns the count."""
@@ -2104,30 +2145,31 @@ def iir_geometries(device, seed: int) -> int:
     ns = [0, 1, 2, 31, 32, 33, 4_095, 4_096, 4_097] + [
         2 * 4_096 * k + d for k in (1, 3) for d in (-1, 1)]
     count = 0
+    shapes = [(rows, n) for rows in (1, 2, 3, 4, 5, 32) for n in ns] + [
+        (300, 40_000), (3, 5_000_000)]
     for b, coeffs in IIR_SECTIONS:
-        for rows in (1, 2, 3, 4, 5, 32):
-            for n in ns:
-                x = misaligned(torch.randn((rows, n), generator=g,
-                                           device=device), (rows + n) % 4)
-                xin = torch.randn((rows, 2), generator=g, device=device)
-                s0 = torch.randn((rows, len(coeffs)), generator=g,
-                                 device=device)
-                y, s = iir.iir_section(x, b, coeffs, xin, s0)
-                ry, rs = iir.iir_section_reference(x, b, coeffs, xin, s0)
-                _, s_only = iir.iir_section(x, b, coeffs, xin, s0,
-                                            store=False)
-                what = f"K13 section {b}/{coeffs} at rows {rows}, n {n}"
-                require(y.shape == ry.shape, f"{what}: {y.shape}")
-                if n == 0:
-                    require(torch.equal(s, s0), f"{what}: state")
-                else:
-                    err = peak_err(torch.cat([y, s], -1),
-                                   torch.cat([ry, rs], -1))
-                    require(err[0] <= 1e-5, f"{what}: {err[0]} of row "
-                                            f"{err[1]}'s peak > 1e-5")
-                require(torch.equal(bits(s_only), bits(s)),
-                        f"{what}: the final-state launch's state differs")
-                count += 1
+        for rows, n in shapes:
+            x = misaligned(torch.randn((rows, n), generator=g,
+                                       device=device), (rows + n) % 4)
+            xin = torch.randn((rows, 2), generator=g, device=device)
+            s0 = torch.randn((rows, len(coeffs)), generator=g,
+                             device=device)
+            y, s = iir.iir_section(x, b, coeffs, xin, s0)
+            ry, rs = iir.iir_section_reference(x, b, coeffs, xin, s0)
+            _, s_only = iir.iir_section(x, b, coeffs, xin, s0,
+                                        store=False)
+            what = f"K13 section {b}/{coeffs} at rows {rows}, n {n}"
+            require(y.shape == ry.shape, f"{what}: {y.shape}")
+            if n == 0:
+                require(torch.equal(s, s0), f"{what}: state")
+            else:
+                err = peak_err(torch.cat([y, s], -1),
+                               torch.cat([ry, rs], -1))
+                require(err[0] <= 1e-5, f"{what}: {err[0]} of row "
+                                        f"{err[1]}'s peak > 1e-5")
+            require(torch.equal(bits(s_only), bits(s)),
+                    f"{what}: the final-state launch's state differs")
+            count += 1
     sos = np.array([[*DEEMPH_75US[0], 1.0, -DEEMPH_75US[1][0], 0.0],
                     [0.2, 0.3, 0.1, 1.0, -1.2, 0.5]], np.float32)
     x = torch.randn((3, 2, 50_000), generator=g, device=device)

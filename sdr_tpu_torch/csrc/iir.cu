@@ -19,29 +19,42 @@
 //
 // Bound on an H100: bytes.  The AM path's DC blocker ([32, 327,677] f32)
 // reads and writes 41.9 MB each way, 0.025 ms at 3.35 TB/s; the stereo
-// de-emphasis ([32, 2, 196,671]) 0.030 ms.  The operations (about 5 a
-// sample) take a few microseconds.
+// de-emphasis ([32, 2, 196,608]) 0.030 ms.  The final state alone reads
+// once: 0.0125 and 0.0150 ms.  The operations (about 5 a sample) take a
+// few microseconds.
 //
 // Numbers: the drive u is rounded in f32 exactly as the plain version
 // (kernels/iir.py) rounds it; the recurrence runs in float64 (FMA) and
 // each output is rounded to f32 once, so y is the recurrence of u within
 // about an ulp.  The plain version's blocked f32 products round otherwise:
 // the two agree within 1e-5 of each row's peak |y| (H7's limit), not
-// bitwise.
+// bitwise.  Every composition's order is fixed by the geometry, so two
+// launches agree bitwise, and the final-state launch's state is the full
+// launch's.
 //
-// Design: three kernels on the stream, over tiles of kTile samples, a
-// block a tile, a thread a run of kSpan samples.  (1) each tile but a
-// row's last stages its samples in shared memory (coalesced), each thread
-// runs its samples from a zero state, and one thread chains the runs'
-// final states into the tile's, S' = C^kSpan S + v; (2) a block a row
-// chains the tiles the same way by C^kTile from the entering state: the
-// state entering each tile; (3) each tile (or only each row's last, when
-// just the final state is asked for) stages its samples again, chains its
-// runs from the tile's entering state, reruns each from its own entering
-// state and stores y through shared memory.  The powers of the companion
-// matrix C come from float64 on the host.
+// Design: one launch over tiles of kTile samples, a block a tile (one
+// ticket), a thread a run of kSpan samples, the tickets in waves of rows
+// (tickets.cuh).  A first-pass block stages a tile (every tile of a row
+// but its last) in shared memory, each thread runs its samples from a
+// zero state (the drives formed ahead, only the float64 chain in turn),
+// and the runs' maps s -> C^kSpan s + w_j are scanned across the block:
+// by __shfl_up_sync within each warp, then across the 4 warps through
+// shared memory, with the powers of the companion matrix C from a float64
+// table (C^(kSpan k), C^(kTile k), k = 0..32, made on the host).  The
+// tile's end state goes to scratch; a row's last first-pass block scans
+// its tiles' ends the same way, by C^kTile, into the state entering each
+// tile.  An output block (every tile, or only each row's last when just
+// the final state is asked for) stages its tile again, waits for its row
+// and loads its entering state while those copies are in flight, scans
+// its runs from it, reruns each run from its own and stores y through
+// shared memory.  (The first design ran three kernels, read the input
+// twice from HBM and chained each tile's 128 runs in one thread.)  What is
+// left (kernel_variants on an H100): the stores, the runs, the wait and
+// the scans, a few microseconds each, over some 2,500 short blocks.
 
 #include <cuda_runtime.h>
+
+#include "tickets.cuh"
 
 // launches `kernel` on `grid` blocks of `block` threads (the host test
 // harness defines its own)
@@ -56,14 +69,15 @@ constexpr int kThreads = 128;
 constexpr int kSpan = 32;                      // samples a thread
 constexpr int kTile = kThreads * kSpan;        // samples a block
 constexpr int kPad = kTile + kThreads;         // a pad after each run
-constexpr int kSegment = 1024;                 // tiles a chaining step
+constexpr int kPowers = 33;                    // C^(step k), k = 0..32
+constexpr long long kWaveBytes = 8LL << 20;    // input a wave of rows
 
 struct Section {
   float b[3];           // feed-forward taps
   int q;                // taps used: 2 or 3
   double a[2];          // feedback a_1, a_2
-  double span[4];       // C^kSpan, row-major p x p
-  double tile[4];       // C^kTile
+  const double* span;   // C^(kSpan k), k = 0..32, 4 doubles each (p x p)
+  const double* tile;   // C^(kTile k)
 };
 
 // s' = M s + v for the p-state s (y[-1], ..., y[-p])
@@ -71,10 +85,10 @@ template <int P>
 __device__ __forceinline__ void advance(const double* M, double* s,
                                         const double* v) {
   if constexpr (P == 1) {
-    s[0] = fma(M[0], s[0], v[0]);
+    s[0] = fma(__ldg(M), s[0], v[0]);
   } else {
-    const double s0 = fma(M[0], s[0], fma(M[1], s[1], v[0]));
-    const double s1 = fma(M[2], s[0], fma(M[3], s[1], v[1]));
+    const double s0 = fma(__ldg(M), s[0], fma(__ldg(M + 1), s[1], v[0]));
+    const double s1 = fma(__ldg(M + 2), s[0], fma(__ldg(M + 3), s[1], v[1]));
     s[0] = s0;
     s[1] = s1;
   }
@@ -87,171 +101,210 @@ __device__ __forceinline__ float drive(const Section& sec, float x0,
   return u;
 }
 
+// y = a_1 y[-1] + a_2 y[-2] + u, the a_2 term first (off the chain)
 template <int P>
 __device__ __forceinline__ void step(const Section& sec, float u,
                                      double* s) {
-  double y = fma(sec.a[0], s[0], static_cast<double>(u));
-  if constexpr (P == 2) {
-    y = fma(sec.a[1], s[1], y);
+  if constexpr (P == 1) {
+    s[0] = fma(sec.a[0], s[0], static_cast<double>(u));
+  } else {
+    const double y = fma(sec.a[0], s[0],
+                         fma(sec.a[1], s[1], static_cast<double>(u)));
     s[1] = s[0];
+    s[0] = y;
   }
-  s[0] = y;
 }
 
 __device__ __forceinline__ int slot(int k) { return k + k / kSpan; }
 
-// Stage a tile's samples (cnt of them, from row r at t0) and the two
-// before it; returns x of tile-relative sample k (k >= -2).
+// A staged tile: x of tile-relative sample k (k >= -2).
 struct Tile {
   float* xs;
   float h[2];           // x[t0 - 2], x[t0 - 1]
   __device__ float at(int k) const { return k < 0 ? h[k + 2] : xs[slot(k)]; }
 };
 
-__device__ __forceinline__ void stage(const float* __restrict__ x,
+// Start staging cnt samples of row r from t0 into xs (copy4, waited for
+// by copy_wait), with the two samples before them (from the row, or the
+// row's entering inputs).
+__device__ __forceinline__ Tile stage(const float* __restrict__ x,
                                       const float* __restrict__ xin,
                                       long long r, long long n, long long t0,
-                                      int cnt, Tile* tile) {
-  const float* row = x + r * n + t0;
-  float v[kSpan];                       // every load in flight at once
-#pragma unroll
-  for (int q = 0; q < kSpan; ++q) {
-    const int k = threadIdx.x + q * kThreads;
-    v[q] = k < cnt ? row[k] : 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < kSpan; ++q) {
-    const int k = threadIdx.x + q * kThreads;
-    if (k < cnt) tile->xs[slot(k)] = v[q];
-  }
-  row = x + r * n;
+                                      int cnt, float* xs) {
+  const float* row = x + r * n;
+  for (int k = threadIdx.x; k < cnt; k += kThreads)
+    tickets::copy4(xs + slot(k), row + t0 + k);
+  Tile tile{xs, {0.f, 0.f}};
   for (int k = 0; k < 2; ++k) {
     const long long i = t0 - 2 + k;
-    tile->h[k] = i >= 0 ? row[i] : xin[2 * r + 2 + i];
+    tile.h[k] = i >= 0 ? row[i] : xin[2 * r + 2 + i];
   }
+  return tile;
 }
 
 // Run samples [base, end) of a tile (end - base <= kSpan) from the state
 // s, the inputs before base being x1 = x[base-1], x2 = x[base-2]; with
-// `out` the outputs overwrite the staged samples.
+// `out` the outputs overwrite the staged samples.  The drives are formed
+// kGroup at a time ahead of their steps, so mostly the float64 chain
+// runs in turn.
 template <int P>
 __device__ __forceinline__ void run(const Section& sec, const Tile& tile,
                                     int base, int end, float x1, float x2,
                                     double* s, bool out) {
+  constexpr int kGroup = 8;
 #pragma unroll
-  for (int q = 0; q < kSpan; ++q) {
-    const int k = base + q;
-    if (k >= end) break;
-    const float x0 = tile.xs[slot(k)];
-    step<P>(sec, drive(sec, x0, x1, x2), s);
-    x2 = x1;
-    x1 = x0;
-    if (out) tile.xs[slot(k)] = static_cast<float>(s[0]);
-  }
-}
-
-// (1) each full tile's final state from a zero state: ends [rows, tiles,
-// P].  Grid (tiles - 1, rows): a row's last tile is not needed.
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-tile_ends_kernel(const float* __restrict__ x, const float* __restrict__ xin,
-                 long long n, Section sec, double* __restrict__ ends,
-                 long long tiles) {
-  __shared__ float xs[kPad];
-  __shared__ double v[kThreads][P];
-  const long long r = blockIdx.y, tile_ix = blockIdx.x;
-  const long long t0 = tile_ix * kTile;
-  Tile tile{xs, {0.f, 0.f}};
-  stage(x, xin, r, n, t0, kTile, &tile);
-  __syncthreads();
-  const int base = threadIdx.x * kSpan;
-  double s[P] = {};
-  run<P>(sec, tile, base, base + kSpan, tile.at(base - 1),
-         tile.at(base - 2), s, false);
-  for (int k = 0; k < P; ++k) v[threadIdx.x][k] = s[k];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double e[P] = {};
-    for (int t = 0; t < kThreads; ++t) advance<P>(sec.span, e, v[t]);
-    for (int k = 0; k < P; ++k) ends[(r * tiles + tile_ix) * P + k] = e[k];
-  }
-}
-
-// (2) the state entering each tile of a row, from the row's entering
-// state s0 [rows, P] f32 and the tiles' ends: enter [rows, tiles, P].
-// Grid: rows.
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-tile_enter_kernel(const double* __restrict__ ends,
-                  const float* __restrict__ s0, Section sec,
-                  double* __restrict__ enter, long long tiles) {
-  __shared__ double seg[kSegment][P];
-  const long long r = blockIdx.x;
-  double s[P];
-  for (int k = 0; k < P; ++k) s[k] = s0[r * P + k];
-  for (long long first = 0; first < tiles; first += kSegment) {
-    const int cnt = static_cast<int>(min(static_cast<long long>(kSegment),
-                                         tiles - first));
-    for (int i = threadIdx.x; i < cnt * P; i += kThreads)
-      seg[i / P][i % P] = ends[(r * tiles + first) * P + i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int t = 0; t < cnt; ++t) {
-        double e[P];
-        for (int k = 0; k < P; ++k) e[k] = seg[t][k];
-        for (int k = 0; k < P; ++k) seg[t][k] = s[k];
-        advance<P>(sec.tile, s, e);
+  for (int g = 0; g < kSpan; g += kGroup) {
+    float u[kGroup];
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) {
+      const float x0 = tile.xs[slot(base + g + q)];   // past end: not used
+      u[q] = drive(sec, x0, x1, x2);
+      x2 = x1;
+      x1 = x0;
+    }
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) {
+      if (base + g + q < end) {
+        step<P>(sec, u[q], s);
+        if (out) tile.xs[slot(base + g + q)] = static_cast<float>(s[0]);
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt * P; i += kThreads)
-      enter[(r * tiles + first) * P + i] = seg[i / P][i % P];
-    __syncthreads();
   }
 }
 
-// (3) the outputs of tiles first.. (grid (tiles - first, rows)) from
-// their entering states, y written unless store is 0; the block of a
-// row's last tile writes the state after the row, s_out [rows, P].
+// The block's exclusive scan of the maps s -> M s + w_j, one a thread
+// (M^k at pw + 4k, k = 0..32, M the same for every thread): from the
+// state `enter` entering thread 0, `w` becomes the state entering this
+// thread; returns in `after` the state after thread kThreads - 1.  Within
+// each warp the doubling by __shfl_up_sync (step d composes by M^d), then
+// the warps' totals in turn by M^32.  Every thread of the block calls it.
+template <int P>
+__device__ __forceinline__ void block_scan(const double* pw, double* w,
+                                           const double* enter,
+                                           double* after,
+                                           double (*totals)[P]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    double o[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) o[k] = __shfl_up_sync(0xffffffffu, w[k], d);
+    if (lane >= d) {
+      double v[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) v[k] = w[k];
+      advance<P>(pw + 4 * d, o, v);
+#pragma unroll
+      for (int k = 0; k < P; ++k) w[k] = o[k];
+    }
+  }
+  if (lane == 31)
+    for (int k = 0; k < P; ++k) totals[warp][k] = w[k];
+  double ex[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    ex[k] = __shfl_up_sync(0xffffffffu, w[k], 1);
+    if (lane == 0) ex[k] = 0.0;
+  }
+  __syncthreads();
+  // the state entering each warp, then after the last, in turn
+  double e[P], mine[P];
+  for (int k = 0; k < P; ++k) e[k] = enter[k];
+  for (int v = 0; v < kThreads / 32; ++v) {
+    if (v == warp)
+      for (int k = 0; k < P; ++k) mine[k] = e[k];
+    advance<P>(pw + 4 * 32, e, totals[v]);
+  }
+  for (int k = 0; k < P; ++k) after[k] = e[k];
+  advance<P>(pw + 4 * lane, mine, ex);
+  for (int k = 0; k < P; ++k) w[k] = mine[k];
+  __syncthreads();                      // totals free for the next scan
+}
+
+// The state entering each tile of row r from the tiles' ends [rows,
+// tiles, P] (every tile but the last) and the row's entering state: the
+// tiles in segments of kThreads, each scanned by C^kTile from the state
+// entering the segment.  enter [rows, tiles, P]; tile 0's is s0's.
+template <int P>
+__device__ void row_scan(const Section& sec, const double* ends,
+                         const float* __restrict__ s0, double* enter,
+                         long long r, long long tiles,
+                         double (*totals)[P]) {
+  double e[P];
+  for (int k = 0; k < P; ++k) e[k] = s0[r * P + k];
+  for (long long first = 0; first < tiles - 1; first += kThreads) {
+    const long long i = first + threadIdx.x;
+    double w[P], after[P];
+    for (int k = 0; k < P; ++k)
+      w[k] = i < tiles - 1 ? __ldcg(ends + (r * tiles + i) * P + k) : 0.0;
+    block_scan<P>(sec.tile, w, e, after, totals);
+    // w enters tile i, so the state after tile i enters tile i + 1
+    if (i < tiles - 1) {
+      double v[P];
+      for (int k = 0; k < P; ++k)
+        v[k] = __ldcg(ends + (r * tiles + i) * P + k);
+      advance<P>(sec.tile + 4, w, v);
+      for (int k = 0; k < P; ++k) enter[(r * tiles + i + 1) * P + k] = w[k];
+    }
+    for (int k = 0; k < P; ++k) e[k] = after[k];
+  }
+}
+
 template <int P>
 __global__ void __launch_bounds__(kThreads)
-tile_out_kernel(const float* __restrict__ x, const float* __restrict__ xin,
-                long long n, Section sec, const double* __restrict__ enter,
-                long long tiles, long long first, float* __restrict__ y,
-                float* __restrict__ s_out, int store) {
+section_kernel(const float* __restrict__ x, const float* __restrict__ xin,
+               const float* __restrict__ s0, long long n, Section sec,
+               tickets::Waves waves, long long tiles, double* ends,
+               double* enter, unsigned* counters, float* __restrict__ y,
+               float* __restrict__ s_out, int store) {
   __shared__ float xs[kPad];
-  __shared__ double v[kThreads][P];
-  const long long r = blockIdx.y, tile_ix = first + blockIdx.x;
-  const long long t0 = tile_ix * kTile;
+  __shared__ double totals[kThreads / 32][P];
+  unsigned* done = counters + 2;
+  unsigned* ready = done + waves.rows;
+  const tickets::Work work = tickets::decode(waves,
+                                             tickets::take(counters));
+  const long long r = work.row;
+  // an output ticket of the final-state launch is its row's last tile
+  const long long t = work.pass == 0 || store ? work.tile : tiles - 1;
+  const long long t0 = t * kTile;
   const int cnt = static_cast<int>(min(static_cast<long long>(kTile),
                                        n - t0));
-  Tile tile{xs, {0.f, 0.f}};
-  stage(x, xin, r, n, t0, cnt, &tile);
-  __syncthreads();
-  const int base = threadIdx.x * kSpan;
-  const int end = min(base + kSpan, cnt);
-  // the run's inputs before it, read before any output overwrites them
-  const float x1 = tile.at(base - 1), x2 = tile.at(base - 2);
-  double s[P] = {};
-  run<P>(sec, tile, base, end, x1, x2, s, false);
-  for (int k = 0; k < P; ++k) v[threadIdx.x][k] = s[k];
-  __syncthreads();
-  if (threadIdx.x == 0) {       // v[t] becomes the state entering run t
-    double e[P];
-    for (int k = 0; k < P; ++k) e[k] = enter[(r * tiles + tile_ix) * P + k];
-    for (int t = 0; t < kThreads; ++t) {
-      double w[P];
-      for (int k = 0; k < P; ++k) {
-        w[k] = v[t][k];
-        v[t][k] = e[k];
-      }
-      advance<P>(sec.span, e, w);
+  const Tile tile = stage(x, xin, r, n, t0, cnt, xs);
+  // an output tile past its row's first: its entering state, while the
+  // copies are in flight
+  __shared__ double e[P];
+  if (work.pass == 1 && threadIdx.x == 0) {
+    if (t == 0) {
+      for (int k = 0; k < P; ++k) e[k] = s0[r * P + k];
+    } else {
+      tickets::wait(ready, r);
+      for (int k = 0; k < P; ++k)
+        e[k] = __ldcg(enter + (r * tiles + t) * P + k);
     }
   }
+  tickets::copy_wait();
   __syncthreads();
-  for (int k = 0; k < P; ++k) s[k] = v[threadIdx.x][k];
+  const int base = threadIdx.x * kSpan, end = min(base + kSpan, cnt);
+  // the run's inputs before it, read before any output overwrites them
+  const float x1 = tile.at(base - 1), x2 = tile.at(base - 2);
+  double s[P] = {}, after[P];
+  run<P>(sec, tile, base, end, x1, x2, s, false);   // from a zero state
+  if (work.pass == 0) {                 // the tile's end
+    const double zero[P] = {};
+    block_scan<P>(sec.span, s, zero, after, totals);
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < P; ++k) ends[(r * tiles + t) * P + k] = after[k];
+      __threadfence();
+    }
+    if (tickets::finish(done, r, waves.first)) {
+      row_scan<P>(sec, ends, s0, enter, r, tiles, totals);
+      tickets::publish(ready, r);
+    }
+    return;
+  }
+  block_scan<P>(sec.span, s, e, after, totals);
   run<P>(sec, tile, base, end, x1, x2, s, store != 0);
-  if (tile_ix == tiles - 1 && base < cnt && cnt <= base + kSpan)
+  if (t == tiles - 1 && base < cnt && cnt <= base + kSpan)
     for (int k = 0; k < P; ++k) s_out[r * P + k] = static_cast<float>(s[k]);
   if (store) {
     __syncthreads();
@@ -267,19 +320,20 @@ int launch(const float* x, const float* xin, const float* s0, float* y,
            float* s_out, double* scratch, long long rows, long long n,
            const Section& sec, int store, cudaStream_t st) {
   const long long tiles = (n + kTile - 1) / kTile;
+  const tickets::Waves waves{
+      rows, tickets::wave_rows(n * 4, kWaveBytes, rows), tiles - 1,
+      store ? tiles : 1};
+  const long long blocks = tickets::total(waves);
+  if (blocks > 0x7fffffffLL) return invalid();
   double* ends = scratch;
-  double* enter = scratch + rows * tiles * P;
-  const unsigned R = static_cast<unsigned>(rows);
-  if (tiles > 1)
-    KERNEL_LAUNCH(tile_ends_kernel<P>,
-                  dim3(static_cast<unsigned>(tiles - 1), R), kThreads, st,
-                  x, xin, n, sec, ends, tiles);
-  KERNEL_LAUNCH(tile_enter_kernel<P>, R, kThreads, st, ends, s0, sec, enter,
-                tiles);
-  const long long first = store ? 0 : tiles - 1;
-  KERNEL_LAUNCH(tile_out_kernel<P>,
-                dim3(static_cast<unsigned>(tiles - first), R), kThreads, st,
-                x, xin, n, sec, enter, tiles, first, y, s_out, store);
+  double* enter = ends + rows * tiles * P;
+  unsigned* counters = reinterpret_cast<unsigned*>(enter + rows * tiles * P);
+  const int rc = static_cast<int>(cudaMemsetAsync(
+      counters, 0, tickets::counter_words(rows) * sizeof(unsigned), st));
+  if (rc != 0) return rc;
+  KERNEL_LAUNCH(section_kernel<P>, static_cast<unsigned>(blocks), kThreads,
+                st, x, xin, s0, n, sec, waves, tiles, ends, enter, counters,
+                y, s_out, store);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,18 +341,21 @@ int launch(const float* x, const float* xin, const float* s0, float* y,
 
 // x [rows, n], xin [rows, 2] (x[-2], x[-1]), s0 [rows, p] (y[-1], ...,
 // y[-p]) f32 -> y [rows, n] (unless store is 0; y may then be null),
-// s_out [rows, p] (y[n-1], ..., y[n-p]).  params (float64): b0, b1, b2,
-// q, a1, a2, C^kSpan (4), C^kTile (4), the matrices p x p in their first
-// p*p entries.  scratch: 2 * rows * tiles * p doubles.
+// s_out [rows, p] (y[n-1], ..., y[n-p]).  params (float64, on the host):
+// b0, b1, b2, q, a1, a2; powers (float64, on the device): C^(32 k) then
+// C^(4096 k) for k = 0..32, each 4 entries, the p x p matrix in its first
+// p*p.  scratch: 2 * rows * tiles * p + rows + 1 doubles.
 extern "C" int launch_iir_section(const void* x, const void* xin,
                                   const void* s0, void* y, void* s_out,
                                   void* scratch, long long scratch_doubles,
                                   long long rows, long long n, int p,
-                                  const void* params, int store,
-                                  void* stream) {
+                                  const void* params, const void* powers,
+                                  int store, void* stream) {
   const long long tiles = (n + kTile - 1) / kTile;
   if (rows <= 0 || rows > 65535 || n <= 0 || (p != 1 && p != 2) ||
-      tiles > 0x7fffffffLL || 2 * rows * tiles * p > scratch_doubles)
+      tiles > 0x7fffffffLL ||
+      2 * rows * tiles * p + tickets::counter_words(rows) / 2 >
+          scratch_doubles)
     return invalid();
   const double* h = static_cast<const double*>(params);
   Section sec;
@@ -307,10 +364,8 @@ extern "C" int launch_iir_section(const void* x, const void* xin,
   if (sec.q != 2 && sec.q != 3) return invalid();
   sec.a[0] = h[4];
   sec.a[1] = h[5];
-  for (int k = 0; k < 4; ++k) {
-    sec.span[k] = h[6 + k];
-    sec.tile[k] = h[10 + k];
-  }
+  sec.span = static_cast<const double*>(powers);
+  sec.tile = sec.span + 4 * kPowers;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* xi = static_cast<const float*>(xin);

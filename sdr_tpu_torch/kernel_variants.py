@@ -1,5 +1,5 @@
-"""What binds K1, K4, K3, K2, K5 and K9 on the card: each kernel beside
-source variants of itself, timed in turns in one process.
+"""What binds K1, K4, K3, K2, K5, K9, K12 and K13 on the card: each kernel
+beside source variants of itself, timed in turns in one process.
 
     python -m sdr_tpu_torch.kernel_variants [--kernels fir ...]
 
@@ -30,14 +30,18 @@ the waterfall's 1,024-point Blackman frames at hop 512, and
 ``fft_occ2``, two blocks an SM in place of three, must equal it
 bitwise), and rows of 655,360 with an 82-float history, 3/10
 with 11 taps a phase (K2 over [32] and [32, 2] rows to 196,671 outputs,
-K5 over [32, 2] to 196,608 through 64 FIR taps).  Times
+K5 over [32, 2] to 196,608 through 64 FIR taps), AM's planar [32, 2,
+327,677] and envelopes [32, 327,677] (K12's scan, ``mu`` 0.005) and
+DC blocker [32, 327,677] and stereo's de-emphasis [32, 2, 196,608] (K13,
+the full and the final-state launch).  Times
 are the mean of 20 launches by CUDA events, queued behind a device-side
 sleep (device time, not the host's enqueue), in the order committed,
 variants, committed.  A ``clone`` of each input is the copy yardstick.
 Prints the card's name and power limit, each build's registers and
 spills as ``ptxas`` reports them, and one JSON line.  ``--kernels``
 limits the run to some kernels (the sources' names: ``u8_front_demod``,
-``u8_front``, ``fir``, ``resample``, ``backhalf``, ``fft_stream``).
+``u8_front``, ``fir``, ``resample``, ``backhalf``, ``fft_stream``,
+``agc_linear``, ``iir``).
 Needs a CUDA GPU and ``nvcc``.
 """
 
@@ -50,14 +54,61 @@ import subprocess
 
 import torch
 
-from sdr_tpu_torch.kernels import (_build, backhalf, fft_stream, fir,
-                                   resample, u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import (_build, agc_linear, backhalf, fft_stream,
+                                   fir, iir, resample, u8_front,
+                                   u8_front_demod)
 from sdr_tpu_torch.ops.design import blackman, hamming, windowed_sinc
 from sdr_tpu_torch.ops.fir import prepare_phase_table
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 
 ROWS, ROW_BYTES, HIST = 32, 10_485_760, 86
 DEC_N = ROW_BYTES // 2                # f32 samples a plane of a row
+AM_N, STEREO_N = 327_677, 196_608     # K12's and K13's rows
+DC = ((1.0, -1.0), (0.997,))          # the DC blocker's section
+DEEMPH = ((0.12195122, 0.12195122, 0.0), (0.75609756, 0.0))
+WAVE_K12 = "constexpr long long kWaveBytes = 32LL << 20;"
+WAVE_K13 = "constexpr long long kWaveBytes = 8LL << 20;"
+SERIAL_RUNS = """__device__ __forceinline__ void block_scan(const double* pw, double* w,
+                                           const double* enter,
+                                           double* after,
+                                           double (*totals)[P]) {
+  __shared__ double v[kThreads][P];
+  for (int k = 0; k < P; ++k) v[threadIdx.x][k] = w[k];
+  __syncthreads();
+  if (threadIdx.x == 0) {       // v[t] becomes the state entering run t
+    double e[P];
+    for (int k = 0; k < P; ++k) e[k] = enter[k];
+    for (int t = 0; t < kThreads; ++t) {
+      double u[P];
+      for (int k = 0; k < P; ++k) {
+        u[k] = v[t][k];
+        v[t][k] = e[k];
+      }
+      advance<P>(pw + 4, e, u);
+    }
+    for (int k = 0; k < P; ++k) totals[0][k] = e[k];
+  }
+  __syncthreads();
+  for (int k = 0; k < P; ++k) {
+    w[k] = v[threadIdx.x][k];
+    after[k] = totals[0][k];
+  }
+  __syncthreads();
+}
+
+template <int P>
+__device__ __forceinline__ void block_scan_shfl(const double* pw, double* w,
+"""
+SMEM_LEVEL2 = """__device__ __forceinline__ float2 shfl_up2(float2 v, int d) {
+  __shared__ float2 ex[kScanThreads];
+  ex[threadIdx.x] = v;
+  __syncthreads();
+  const float2 o = (threadIdx.x & 3) >= d ? ex[threadIdx.x - d] : v;
+  __syncthreads();
+  return o;
+}
+
+__device__ __forceinline__ float2 shfl_up2_unused(float2 v, int d) {"""
 REPS, SLEEP_CYCLES = 20, 20_000_000
 OUT = _build.BUILD.parent / "variants"
 
@@ -154,12 +205,69 @@ VARIANTS = {
         "// (a + ib) times exp(-i pi k / 16), 0 <= k < 16")]),
     "fft_occ2": (("fft_stream",), [(
         "kPasses == 2 ? 3 : 2;", "kPasses == 2 ? 2 : 2;")]),
+    "agc_no_stores": (("agc_linear",), [(
+        "row[k] = xs[p * kSlots + slot(k)];",
+        "if (k < 0) row[k] = xs[p * kSlots + slot(k)];")]),
+    "agc_stream_stores": (("agc_linear",), [(
+        "row[k] = xs[p * kSlots + slot(k)];",
+        "__stcs(row + k, xs[p * kSlots + slot(k)]);")]),
+    "agc_one_wave": (("agc_linear",), [(
+        WAVE_K12, "constexpr long long kWaveBytes = 1LL << 60;")]),
+    "agc_wave2": (("agc_linear",), [(
+        WAVE_K12, "constexpr long long kWaveBytes = 2LL << 20;")]),
+    "agc_wave8": (("agc_linear",), [(
+        WAVE_K12, "constexpr long long kWaveBytes = 8LL << 20;")]),
+    "agc_no_wait": (("agc_linear",), [(
+        "    tickets::wait(ready, r);\n", "")]),
+    "agc_bounds5": (("agc_linear",), [(
+        "__launch_bounds__(kScanThreads)\nscan_kernel",
+        "__launch_bounds__(kScanThreads, 5)\nscan_kernel")]),
+    "agc_bounds6": (("agc_linear",), [(
+        "__launch_bounds__(kScanThreads)\nscan_kernel",
+        "__launch_bounds__(kScanThreads, 6)\nscan_kernel")]),
+    "agc_no_doubling": (("agc_linear",), [(
+        "  doubling<1>(v);", "")]),
+    "agc_smem_level2": (("agc_linear",), [(
+        "__device__ __forceinline__ float2 shfl_up2(float2 v, int d) {",
+        SMEM_LEVEL2)]),
+    "iir_no_stores": (("iir",), [(
+        "out[k] = xs[slot(k)];", "if (k < 0) out[k] = xs[slot(k)];")]),
+    "iir_stream_stores": (("iir",), [(
+        "out[k] = xs[slot(k)];", "__stcs(out + k, xs[slot(k)]);")]),
+    "iir_one_wave": (("iir",), [(
+        WAVE_K13, "constexpr long long kWaveBytes = 1LL << 60;")]),
+    "iir_wave2": (("iir",), [(
+        WAVE_K13, "constexpr long long kWaveBytes = 2LL << 20;")]),
+    "iir_no_wait": (("iir",), [(
+        "tickets::wait(ready, r);\n", "\n")]),
+    "iir_wave32": (("iir",), [(
+        WAVE_K13, "constexpr long long kWaveBytes = 32LL << 20;")]),
+    "iir_bounds8": (("iir",), [(
+        "__launch_bounds__(kThreads)\nsection_kernel",
+        "__launch_bounds__(kThreads, 8)\nsection_kernel")]),
+    "iir_bounds10": (("iir",), [(
+        "__launch_bounds__(kThreads)\nsection_kernel",
+        "__launch_bounds__(kThreads, 10)\nsection_kernel")]),
+    "iir_no_runs": (("iir",), [(
+        "  run<P>(sec, tile, base, end, x1, x2, s, false);", "")]),
+    "iir_no_scan": (("iir",), [
+        ("    block_scan<P>(sec.span, s, zero, after, totals);",
+         "    for (int k = 0; k < P; ++k) after[k] = s[k];"),
+        ("  block_scan<P>(sec.span, s, e, after, totals);", "")]),
+    "iir_serial_runs": (("iir",), [(
+        "__device__ __forceinline__ void block_scan(const double* pw, "
+        "double* w,\n", SERIAL_RUNS)]),
 }
 EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "fir_dec_rc4", "fir_dec_occ3", "fir_dec_occ4", "fir_dec_span4096", "resample_runtime_geometry",
-         "resample_tile1536", "resample_unroll2", "fft_occ2"}
+         "resample_tile1536", "resample_unroll2", "fft_occ2", "agc_one_wave",
+         "agc_wave2", "agc_wave8", "agc_smem_level2", "agc_bounds5", "agc_bounds6", "agc_stream_stores",
+         "iir_one_wave", "iir_wave2", "iir_wave32", "iir_stream_stores",
+         "iir_bounds8", "iir_bounds10"}
 CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
-               "resample_stereo": "resample"}
+               "resample_stereo": "resample", "agc_gains": "agc_linear",
+               "iir_final": "iir", "iir_deemph": "iir",
+               "iir_deemph_final": "iir"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
@@ -206,7 +314,7 @@ def time_ms(fn) -> float:
 def main(argv=None) -> int:
     mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
             "fir": fir, "resample": resample, "backhalf": backhalf,
-            "fft_stream": fft_stream}
+            "fft_stream": fft_stream, "agc_linear": agc_linear, "iir": iir}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", nargs="+", choices=sorted(mods),
                     default=sorted(mods))
@@ -252,6 +360,14 @@ def main(argv=None) -> int:
     hr2 = torch.randn(ROWS, 2, 82, generator=g, device=dev)
     hd = torch.randn(ROWS, 2, 512, generator=g, device=dev)
     wb = torch.as_tensor(blackman(1024), device=dev)
+    xa = torch.randn(ROWS, 2, AM_N, generator=g, device=dev) * 0.7
+    ma = torch.complex(xa[:, 0], xa[:, 1]).abs()
+    ga = torch.rand(ROWS, generator=g, device=dev) + 0.5
+    xdc = torch.rand(ROWS, AM_N, generator=g, device=dev) + 0.5
+    xde = torch.randn(ROWS, 2, STEREO_N, generator=g, device=dev)
+    zin = (torch.zeros(ROWS, 2, device=dev), torch.zeros(ROWS, 1, device=dev))
+    zde = (torch.zeros(ROWS, 2, 2, device=dev),
+           torch.zeros(ROWS, 2, 2, device=dev))
     calls = {
         "u8_front_demod": lambda: u8_front_demod.u8_front_demod(
             tq, scale, 8, x, hist, liq, num)[0],
@@ -267,6 +383,13 @@ def main(argv=None) -> int:
         "backhalf": lambda: backhalf.resample_fir(table, 3, 10, t64, xr2, hr2,
                                                   0, 196_608),
         "fft_stream": lambda: fft_stream.fft_stream(hd, xd, wb, 512),
+        "agc_linear": lambda: agc_linear.agc_apply(xa, 0.005, 1.0, ga)[0],
+        "agc_gains": lambda: agc_linear.agc_gains(ma, 0.005, 1.0, ga)[0],
+        "iir": lambda: iir.iir_section(xdc, *DC, *zin)[0],
+        "iir_final": lambda: iir.iir_section(xdc, *DC, *zin, store=False)[1],
+        "iir_deemph": lambda: iir.iir_section(xde, *DEEMPH, *zde)[0],
+        "iir_deemph_final": lambda: iir.iir_section(xde, *DEEMPH, *zde,
+                                                    store=False)[1],
     }
     out = {"card": card, "clone_ms": {
         "u8 [32, 10485760]": time_ms(x.clone),
@@ -274,7 +397,10 @@ def main(argv=None) -> int:
         "f32 [32, 655552]": time_ms(xs.clone),
         "f32 [32, 655360]": time_ms(xr.clone),
         "f32 [32, 2, 5242880]": time_ms(xd.clone),
-        "f32 [32, 2, 655360]": time_ms(xr2.clone)}, "ms": {}}
+        "f32 [32, 2, 655360]": time_ms(xr2.clone),
+        "f32 [32, 2, 327677]": time_ms(xa.clone),
+        "f32 [32, 327677]": time_ms(xdc.clone),
+        "f32 [32, 2, 196608]": time_ms(xde.clone)}, "ms": {}}
     names = ["committed", *VARIANTS, "committed again"]
     want = {}
     for name in names:

@@ -35,11 +35,13 @@ import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 
-__all__ = ["KERNEL", "CHUNK", "linear_scan", "affine_reduce", "envelope",
-           "agc_affine", "agc_affine_reference", "agc_gains",
-           "agc_gains_reference", "agc_apply", "agc_apply_reference"]
+__all__ = ["KERNEL", "CHUNK", "SUB", "linear_scan", "affine_reduce",
+           "envelope", "agc_affine", "agc_affine_reference", "agc_gains",
+           "agc_gains_reference", "agc_apply", "agc_apply_reference",
+           "scan_scratch_floats"]
 
 CHUNK = 128                     # samples a chunk of the scan
+SUB = 32                        # samples a sub-chunk (a kernel thread's)
 REDUCE_TILE = 4096              # maps a block of the kernel's reduce folds
 _F32 = torch.float32
 
@@ -58,19 +60,31 @@ def _compose(late, early):
     return late[0] * early[0], late[0] * early[1] + late[1]
 
 
-def _exclusive_prefix(a: torch.Tensor, b: torch.Tensor):
-    """The exclusive prefix of the maps ``y -> a*y + b`` over the leading
-    axis, by the doubling of parallel/halo.py's ``exclusive_affine_prefix``
+def _doubling(a: torch.Tensor, b: torch.Tensor):
+    """The inclusive prefix of the maps ``y -> a*y + b`` over the leading
+    axis by the doubling of parallel/halo.py's ``exclusive_affine_prefix``
     (without its process group): ``log2`` steps, each composing every map
-    with the one ``d`` before it; row 0 gets the identity."""
+    after the one ``d`` before it."""
     cur = (a, b)
     d = 1
     while d < a.shape[0]:
         new = _compose(tuple(t[d:] for t in cur), tuple(t[:-d] for t in cur))
         cur = tuple(torch.cat([t[:d], u]) for t, u in zip(cur, new))
         d *= 2
-    return (torch.cat([torch.ones_like(a[:1]), cur[0][:-1]]),
-            torch.cat([torch.zeros_like(b[:1]), cur[1][:-1]]))
+    return cur
+
+
+def _exclusive(a: torch.Tensor, b: torch.Tensor):
+    """The inclusive prefix ``(a, b)`` over the leading axis shifted by
+    one: the identity first."""
+    return (torch.cat([torch.ones_like(a[:1]), a[:-1]]),
+            torch.cat([torch.zeros_like(b[:1]), b[:-1]]))
+
+
+def _inner(a: torch.Tensor, b: torch.Tensor, axis: int):
+    """:func:`_doubling` over ``axis``."""
+    return tuple(t.movedim(0, axis) for t in _doubling(a.movedim(axis, 0),
+                                                       b.movedim(axis, 0)))
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -78,29 +92,32 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     """``y[n] = a[n] * y[n-1] + b[n]`` with ``y[-1] = y0``, for ``a``,
     ``b`` ``[..., N]`` and ``y0`` ``[...]``.
 
-    Each sample's map ``y -> a*y + b`` is composed with those before it in
-    chunks of CHUNK samples: the exclusive prefix inside every chunk and
-    then over the chunks' whole maps, each by the doubling of
-    :func:`_exclusive_prefix` (log2 steps of whole-tensor ops, no
-    per-sample loop)."""
+    Each sample's map ``y -> a*y + b`` is composed with those before it by
+    the doubling of :func:`_doubling` (log2 steps of whole-tensor ops, no
+    per-sample loop) at three levels: inside each sub-chunk of SUB
+    samples (the inclusive prefixes I), over each chunk's CHUNK / SUB
+    sub-chunk maps (I at a sub-chunk's last sample; X their exclusive
+    prefixes, the chunk's whole map the level's value at its last
+    sub-chunk), and over a row's chunk maps (exclusive, P).  Then the
+    state entering each chunk ``PA*y0 + PB``, each sub-chunk ``g = XA*enter
+    + XB``, and ``y = IA*g + IB``.  Padded past N with identity maps."""
     lead, n = b.shape[:-1], b.shape[-1]
     if n == 0:
         return b.clone()
-    L = CHUNK
+    L, S = CHUNK, SUB
     nc = -(-n // L)
     a = torch.nn.functional.pad(a, (0, nc * L - n), value=1.0)
     b = torch.nn.functional.pad(b, (0, nc * L - n))
-    ac = a.reshape(lead + (nc, L))
-    bc = b.reshape(lead + (nc, L))
-    # inside each chunk: the maps of the samples before each sample
-    EA, EB = (t.movedim(0, -1) for t in _exclusive_prefix(
-        ac.movedim(-1, 0), bc.movedim(-1, 0)))
-    # each chunk's whole map, and the state entering each chunk
-    CA = ac[..., -1] * EA[..., -1]
-    CB = ac[..., -1] * EB[..., -1] + bc[..., -1]
-    PA, PB = _exclusive_prefix(CA.movedim(-1, 0), CB.movedim(-1, 0))
-    enter = (PA * y0 + PB).movedim(0, -1)                    # [..., nc]
-    y = ac * (EA * enter[..., None] + EB) + bc
+    shape = lead + (nc, L // S, S)
+    IA, IB = _inner(a.reshape(shape), b.reshape(shape), -1)
+    QA, QB = _inner(IA[..., -1], IB[..., -1], -1)        # [..., nc, L // S]
+    XA, XB = (t.movedim(0, -1) for t in _exclusive(QA.movedim(-1, 0),
+                                                   QB.movedim(-1, 0)))
+    PA, PB = _exclusive(*_doubling(QA[..., -1].movedim(-1, 0),
+                                   QB[..., -1].movedim(-1, 0)))
+    enter = (PA * y0 + PB).movedim(0, -1)                 # [..., nc]
+    g = XA * enter[..., None] + XB                        # [..., nc, L // S]
+    y = IA * g[..., None] + IB
     return y.reshape(lead + (nc * L,))[..., :n]
 
 
@@ -230,6 +247,13 @@ def agc_affine(x: torch.Tensor, mu: float, reference: float,
     return A, B
 
 
+def scan_scratch_floats(rows: int, n: int) -> int:
+    """The scan launch's scratch: its counters (a ticket, each row's
+    completion count and ready flag), each chunk's map and entering
+    state."""
+    return 2 * rows + 2 + 3 * rows * -(-n // CHUNK)
+
+
 def _scan(x: torch.Tensor, mu: float, reference: float, g0: torch.Tensor,
           planar: bool):
     _check(x, planar, g0)
@@ -242,7 +266,7 @@ def _scan(x: torch.Tensor, mu: float, reference: float, g0: torch.Tensor,
     if n == 0 or rows == 0:
         final.copy_(g0)
         return out, final
-    floats = 5 * rows * -(-n // CHUNK)
+    floats = scan_scratch_floats(rows, n)
     scratch = torch.empty(floats, dtype=_F32, device=x.device)
     mu, muref = _coeffs(mu, reference)
     KERNEL.launch("launch_agc_linear_scan", x.device, ptr(x), ptr(g0),

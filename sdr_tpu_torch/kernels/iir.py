@@ -18,7 +18,11 @@ The plain version is the drive in f32 and ``ops.iir.linear_recurrence``
 (the blocked closed form in f32 matrix products).  The kernel rounds the
 drive the same way but runs the recurrence in float64 and rounds each
 output once, so the two agree within 1e-5 of each row's peak |y| (H7's
-limit), not bitwise.
+limit), not bitwise.  The kernel's order of composition is fixed by the
+geometry, so two launches agree bitwise and the final-state launch
+(``store=False``) gives the full launch's state; its float64 powers of
+the companion matrix come from :func:`_params`, copied to each device
+once (:func:`_powers`).
 """
 
 from __future__ import annotations
@@ -32,16 +36,18 @@ import torch
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 from sdr_tpu_torch.ops.iir import companion, linear_recurrence
 
-__all__ = ["KERNEL", "SPAN", "TILE", "iir_section", "iir_section_reference"]
+__all__ = ["KERNEL", "SPAN", "TILE", "iir_section", "iir_section_reference",
+           "scratch_doubles"]
 
 SPAN = 32                       # samples a thread runs in turn
 TILE = 128 * SPAN               # samples a block
+POWERS = 33                     # C^(SPAN k) and C^(TILE k), k = 0..32
 _F32 = torch.float32
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("iir", {
     "launch_iir_section": [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P,
-                           _I],
+                           _P, _I],
 })
 
 
@@ -92,17 +98,36 @@ def iir_section_reference(x: torch.Tensor, b, coeffs, xin: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def _params(b: tuple, coeffs: tuple) -> np.ndarray:
     """The launch's float64 parameters: b0, b1, b2, the taps used, a_1,
-    a_2, then C^SPAN and C^TILE (p x p, in their first p*p entries), the
-    powers from float64."""
+    a_2, then the powers C^(SPAN k) and C^(TILE k) of the companion
+    matrix for k = 0..32, 4 entries each (p x p in the first p*p), each
+    from float64 by repeated products."""
     C = companion(coeffs)
     p = C.shape[0]
-    out = np.zeros(14)
+    out = np.zeros(6 + 2 * POWERS * 4)
     out[:len(b)] = b
     out[3] = len(b)
     out[4:4 + p] = coeffs
-    out[6:6 + p * p] = np.linalg.matrix_power(C, SPAN).ravel()
-    out[10:10 + p * p] = np.linalg.matrix_power(C, TILE).ravel()
+    for t, step in enumerate((SPAN, TILE)):
+        M, Mk = np.linalg.matrix_power(C, step), np.eye(p)
+        for k in range(POWERS):
+            at = 6 + (t * POWERS + k) * 4
+            out[at:at + p * p] = Mk.ravel()
+            Mk = Mk @ M
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _powers(b: tuple, coeffs: tuple, device: torch.device) -> torch.Tensor:
+    """:func:`_params`' power tables on ``device``, made once (the kernel
+    reads them per lane)."""
+    return torch.from_numpy(_params(b, coeffs)[6:]).to(device)
+
+
+def scratch_doubles(rows: int, n: int, p: int) -> int:
+    """The launch's scratch: each tile's end state and entering state,
+    then the counters (a ticket, each row's completion count and ready
+    flag) in ``rows + 1`` doubles."""
+    return 2 * rows * -(-n // TILE) * p + rows + 1
 
 
 def iir_section(x: torch.Tensor, b, coeffs, xin: torch.Tensor,
@@ -128,11 +153,13 @@ def iir_section(x: torch.Tensor, b, coeffs, xin: torch.Tensor,
     if n == 0 or rows == 0:
         s_out.copy_(s0)
         return y, s_out
-    params = _params(b, tuple(float(c) for c in coeffs))
-    doubles = 2 * rows * -(-n // TILE) * p
+    key = (b, tuple(float(c) for c in coeffs))
+    params, powers = _params(*key), _powers(*key, x.device)
+    doubles = scratch_doubles(rows, n, p)
     scratch = torch.empty(doubles, dtype=torch.float64, device=x.device)
     KERNEL.launch("launch_iir_section", x.device, ptr(x), ptr(xin), ptr(s0),
                   ptr(y) if store else ctypes.c_void_p(0), ptr(s_out),
                   ptr(scratch), doubles, rows, n, p,
-                  params.ctypes.data_as(ctypes.c_void_p), int(store))
+                  params.ctypes.data_as(ctypes.c_void_p), ptr(powers),
+                  int(store))
     return y, s_out

@@ -1,7 +1,7 @@
 """Where the time of a block-parallel chain goes on the card.
 
-    python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|exact|am|
-                                        am_approx|waterfall|
+    python -m sdr_tpu_torch.profile_fm [--chain mono|stereo|stereo_fused|
+                                        exact|am|am_approx|waterfall|
                                         waterfall_complex|channelizer|
                                         channelizer_nb]
 
@@ -36,8 +36,9 @@ median span from 1; the stage-sum share is the chain's floor
 (``chain_roofline``, the data sheet) over the device time from 1.  The
 chain (``--chain``) is ``fm_chain()`` (mono, the fused front, the
 default), ``stereo``: ``fm_chain(front='quantized', stereo=True,
-deemphasis=75e-6)``, ``exact``: ``fm_chain(front='exact')`` (the complex
-f32 front), ``am``: ``am_chain()``, ``am_approx``:
+deemphasis=75e-6)``, ``stereo_fused``: the same with its back half on K5
+(``ResampleFirScale(fused=True)``), ``exact``: ``fm_chain(front='exact')``
+(the complex f32 front), ``am``: ``am_chain()``, ``am_approx``:
 ``am_chain(agc_approx=1)`` (the sequential AGC on K6), ``waterfall``:
 ``waterfall_chain()``, ``waterfall_complex``:
 ``waterfall_chain(planar=False)`` (the CLI's form), ``channelizer``:
@@ -66,9 +67,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
-                                       fm_chain, waterfall_chain)
+                                       fm_chain, fm_taps, waterfall_chain)
 from sdr_tpu_torch.measure_ceilings import card_line
 from sdr_tpu_torch.parallel.sharded import run_time_batched
+from sdr_tpu_torch.stream import ResampleFirScale
 from sdr_tpu_torch.utils.roofline import chain_roofline
 
 ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
@@ -85,11 +87,21 @@ def _complex(*shape):
     return torch.randn(shape, dtype=torch.complex64, device="cuda")
 
 
+def _fused(ops):
+    """The stereo chain's back half on K5 (``ResampleFirScale(fused=
+    True)``) in place of K2 -> K3."""
+    _, taps, audio = fm_taps()
+    return [*ops[:3], ResampleFirScale(taps, 3, 10, audio, 1.0, fused=True),
+            *ops[4:]]
+
+
 # name: (the chain's ops, its input, its blocks)
 CHAINS = {
     "mono": (fm_chain, _u8, ROWS),
     "stereo": (lambda: fm_chain(front="quantized", stereo=True,
                                 deemphasis=75e-6), _u8, ROWS),
+    "stereo_fused": (lambda: _fused(fm_chain(front="quantized", stereo=True,
+                                             deemphasis=75e-6)), _u8, ROWS),
     "exact": (lambda: fm_chain(front="exact"), _u8, ROWS),
     "am": (am_chain, _u8, ROWS),
     "am_approx": (lambda: am_chain(agc_approx=1), _u8, ROWS),

@@ -9,7 +9,8 @@
   integer.
 * ``u8_front.tap_words`` keeps the words of each taps tensor and makes
   them anew when the tensor changes in place.
-* ``kernel_variants`` (what binds K1, K4, K3, K2, K5 and K9 on the card)
+* ``kernel_variants`` (what binds K1, K4, K3, K2, K5, K9, K12 and K13 on
+  the card)
   patches each snippet of each variant exactly once, and raises otherwise.
 
 Inputs come from a numpy seed; no JAX here.
@@ -20,8 +21,8 @@ import pytest
 import torch
 
 from sdr_tpu_torch import kernel_variants
-from sdr_tpu_torch.kernels import (backhalf, fft_stream, fir, resample,
-                                   u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import (agc_linear, backhalf, fft_stream, fir,
+                                   iir, resample, u8_front, u8_front_demod)
 from sdr_tpu_torch.kernels.u8_front import pack_taps, tap_words
 from sdr_tpu_torch.ops.quantized import front_acc, u8_front_plan
 
@@ -145,7 +146,8 @@ def test_tap_words_cache_is_bounded():
 
 
 MODS = {"u8_front_demod": u8_front_demod, "u8_front": u8_front, "fir": fir,
-        "resample": resample, "backhalf": backhalf, "fft_stream": fft_stream}
+        "resample": resample, "backhalf": backhalf, "fft_stream": fft_stream,
+        "agc_linear": agc_linear, "iir": iir}
 
 
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))

@@ -10,12 +10,19 @@ routing of ``Agc``, ``DcBlocker`` and ``Iir`` through the wrappers; and
   and 2 and the de-emphasis ``biquad`` 1e-5 (tests/test_torch_am.py,
   tests/test_torch_stereo.py).
 * The host builds of ``csrc/agc_linear.cu`` and ``csrc/iir.cu`` through
-  their own launch functions, at ``chip_smoke.py``'s geometries (rows
-  1-5 and 32, n from 0 to past two reduce folds, inputs off 16-byte
-  alignment, seeded entering states, ``mu*|x|`` near 1, sections with
-  ``a_2 != 0``): K12 bitwise its plain version, K13 within 1e-5 of each
-  row's peak |y| (its recurrence runs in float64, the plain version's in
-  blocked f32 products).
+  their own launch functions (one launch each: tickets in waves of rows,
+  tests/torch_host_shim.py running a block's threads and shuffles), at
+  ``chip_smoke.py``'s geometries (rows 1-5 and 32, n from 1 to past two
+  reduce folds and below a sub-chunk or a multiple of none of 32, 128
+  and a tile, inputs off 16-byte alignment, seeded entering states,
+  ``mu*|x|`` near 1, sections with ``a_2 != 0``), over more rows than a
+  wave (a build with waves of 32 KB), K12's row doubling past shared
+  memory, and 65,536 rows (refused): K12 bitwise its plain version, K13
+  within 1e-5 of each row's peak |y| (its recurrence runs in float64,
+  the plain version's in blocked f32 products) with its final-state
+  launch bitwise the full launch's state; each bitwise across two runs
+  and across wave sizes.  Every K12 and K13 variant of
+  ``kernel_variants`` builds and runs for the host.
 * A block-parallel AM call reaches K12 twice (the reduce in
   ``Agc.shard_carry``, the scan in ``Agc.apply``) and K13 twice (the
   ``DcBlocker``'s final state and its output), a streamed block once
@@ -41,6 +48,7 @@ from sdr_tpu.ops import scans as jscans
 from sdr_tpu.parallel.sharded import run_time_batched as jax_run_time_batched
 from sdr_tpu.stream import IqConvertU8 as JaxIqConvertU8
 
+from sdr_tpu_torch import kernel_variants
 from sdr_tpu_torch.apps import chains
 from sdr_tpu_torch.kernels import KERNELS, agc_linear, iir
 from sdr_tpu_torch.kernels._build import CSRC
@@ -274,54 +282,92 @@ def test_kernels_hold_k12_and_k13():
 # -- the CUDA sources, built for the host --------------------------------
 
 
+# The wave constants of the sources, and a wave of 32 KB of input in their
+# place: waves of one to a few short rows, whose tickets interleave one
+# wave's first pass with the output pass of the wave before
+WAVE = {"agc_linear": kernel_variants.WAVE_K12,
+        "iir": kernel_variants.WAVE_K13}
+SMALL_WAVE = "constexpr long long kWaveBytes = 1LL << 15;"
+# chunk maps K12's row doubling holds in shared memory (kRowCap)
+ROW_CAP = 4_096 + 4_096 // 32 + 1
+
+
+def _bind(lib, kernel):
+    for fn, types in kernel.functions.items():
+        getattr(lib, fn).argtypes = [*types, ctypes.c_void_p]
+    return lib
+
+
 @pytest.fixture(scope="module")
 def host_builds(tmp_path_factory):
+    """K12's and K13's sources as committed (``agc_linear``, ``iir``) and
+    with waves of 32 KB (``..._waves``), built for the host."""
     d = tmp_path_factory.mktemp("host_recurrences")
-    libs = {name: host_shim.build_source(d, name)
-            for name in ("agc_linear", "iir")}
-    P, LL, I, F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_float)
-    for fn, types in agc_linear.KERNEL.functions.items():
-        getattr(libs["agc_linear"], fn).argtypes = [*types, P]
-    for fn, types in iir.KERNEL.functions.items():
-        getattr(libs["iir"], fn).argtypes = [*types, P]
+    libs = {}
+    for name, mod in (("agc_linear", agc_linear), ("iir", iir)):
+        libs[name] = _bind(host_shim.build_source(d, name), mod.KERNEL)
+        libs[name + "_waves"] = _bind(host_shim.build_source(
+            d, name, [(WAVE[name], SMALL_WAVE)], "_waves"), mod.KERNEL)
     return libs
 
 
-def _host_k12(lib, x, mu, g0=None, planar=False):
+def _host_k12(lib, x, mu, g0=None, planar=False, rows=None):
     """The host build through its launch functions, as the wrapper calls
-    them: ``(A, B)`` without ``g0``, else the scan's outputs."""
+    them: ``(A, B)`` without ``g0``, else the scan's outputs.  ``rows``
+    overrides the launch's row count (the return code is then returned,
+    not checked)."""
     lead = x.shape[:-2] if planar else x.shape[:-1]
-    rows, n = int(np.prod(lead, dtype=np.int64)), x.shape[-1]
+    n = x.shape[-1]
+    real = int(np.prod(lead, dtype=np.int64))
+    count = real if rows is None else rows
     mu32, muref = agc_linear._coeffs(mu, 1.0)
     if g0 is None:
         A, B = torch.full(lead, np.nan), torch.full(lead, np.nan)
-        floats, count = 0, -(-n // agc_linear.REDUCE_TILE)
-        while count > 1:
-            floats += 2 * rows * count
-            count = -(-count // agc_linear.REDUCE_TILE)
+        floats, tiles = 0, -(-n // agc_linear.REDUCE_TILE)
+        while tiles > 1:
+            floats += 2 * real * tiles
+            tiles = -(-tiles // agc_linear.REDUCE_TILE)
         scratch = torch.full((max(floats, 1),), np.nan)
         rc = lib.launch_agc_linear_reduce(
             x.data_ptr(), A.data_ptr(), B.data_ptr(), scratch.data_ptr(),
-            floats, rows, n, mu32, muref, int(planar), None)
+            floats, count, n, mu32, muref, int(planar), None)
+        if rows is not None:
+            return rc
         assert rc == 0
         return A, B
     out, final = torch.full_like(x, np.nan), torch.full_like(g0, np.nan)
-    floats = 5 * rows * -(-n // agc_linear.CHUNK)
+    floats = agc_linear.scan_scratch_floats(real, n)
     scratch = torch.full((floats,), np.nan)
     rc = lib.launch_agc_linear_scan(
         x.data_ptr(), g0.data_ptr(), out.data_ptr(), final.data_ptr(),
-        scratch.data_ptr(), floats, rows, n, mu32, muref, int(planar), None)
+        scratch.data_ptr(), floats, count, n, mu32, muref, int(planar), None)
+    if rows is not None:
+        return rc
     assert rc == 0
     return out, final
 
 
 # chip_smoke.py's K12 geometries, cut to the shim's pace: rows 1, 2, 5
-# and 32, n about the chunk (128) and past one and two reduce tiles
-# (4,096)
+# and 32, n about the sub-chunk (32), the chunk (128), a block's tile
+# (4,096) and past one and two reduce tiles (4,096), and n below a
+# sub-chunk or a multiple of none of them
 K12_GEOMETRIES = ([(r, n) for r in (1, 2, 5)
                    for n in (1, 2, 127, 128, 129, 255, 257)]
-                  + [(32, 129), (3, 4_097), (1, 2 * 128 * 20 + 1)])
+                  + [(32, 129), (3, 4_097), (1, 2 * 128 * 20 + 1),
+                     (1, 5), (2, 33), (3, 77), (2, 4_096 + 33), (1, 8_193)])
+
+
+def _k12_inputs(rng, rows, n, lo=0.0, hi=2.0):
+    """Planar I/Q and envelopes ``[rows, (2,) n]`` of magnitudes in [lo,
+    hi), and entering gains."""
+    xp = torch.from_numpy(_planar_iq(rng, (rows, n), lo, hi))
+    m = torch.from_numpy(rng.uniform(lo, hi, (rows, n)).astype(np.float32))
+    g0 = torch.from_numpy(rng.uniform(0.5, 2, rows).astype(np.float32))
+    return xp, m, g0
+
+
+def _same_bits(got, want):
+    return all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("mu,lo,hi,geometries", [
@@ -337,22 +383,32 @@ def test_k12_source_on_the_host_equals_plain_bitwise(host_builds, mu, lo,
     rng = np.random.default_rng(16)
     for rows, n in geometries:
         off = (rows + n) % 4
-        xp = torch.from_numpy(_planar_iq(rng, (rows, n), lo, hi))
-        m = torch.from_numpy(rng.uniform(lo, hi, (rows, n)).astype(
-            np.float32))
-        g0 = torch.from_numpy(rng.uniform(0.5, 2, rows).astype(np.float32))
+        xp, m, g0 = _k12_inputs(rng, rows, n, lo, hi)
         for x, planar in ((xp, True), (m, False)):
             xo = host_shim.offset(x, off)
             got = _host_k12(lib, xo, mu, planar=planar)
             want = agc_linear.agc_affine_reference(x, mu, 1.0, planar)
-            assert all(torch.equal(_bits(a), _bits(b))
-                       for a, b in zip(got, want)), ("reduce", rows, n)
+            assert _same_bits(got, want), ("reduce", rows, n)
             got = _host_k12(lib, xo, mu, g0, planar)
             plain = (agc_linear.agc_apply_reference if planar
                      else agc_linear.agc_gains_reference)
             want = plain(x, mu, 1.0, g0)
-            assert all(torch.equal(_bits(a), _bits(b))
-                       for a, b in zip(got, want)), ("scan", rows, n)
+            assert _same_bits(got, want), ("scan", rows, n)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+def test_k12_source_on_the_host_row_doubling_in_scratch(host_builds,
+                                                        planar):
+    """A row of more chunk maps than the shared-memory doubling holds:
+    the row's doubling runs in place in scratch, bitwise the plain
+    version."""
+    rng = np.random.default_rng(19)
+    xp, m, g0 = _k12_inputs(rng, 1, 128 * ROW_CAP + 77)
+    x = xp if planar else m
+    plain = (agc_linear.agc_apply_reference if planar
+             else agc_linear.agc_gains_reference)
+    got = _host_k12(host_builds["agc_linear"], x, 0.005, g0, planar)
+    assert _same_bits(got, plain(x, 0.005, 1.0, g0))
 
 
 def _peak_rel(y, ref):
@@ -360,41 +416,51 @@ def _peak_rel(y, ref):
     return ((y - ref).abs() / peak).max().item()
 
 
-def _host_k13(lib, x, b, coeffs, xin, s0, store=True):
+def _host_k13(lib, x, b, coeffs, xin, s0, store=True, rows=None):
+    """The host build as the wrapper calls it: ``(y, s_out)``; ``rows``
+    overrides the launch's row count (the return code is then
+    returned)."""
     b, coeffs = iir._taps(b, coeffs)
     p, n = coeffs.shape[0], x.shape[-1]
-    rows = int(np.prod(x.shape[:-1], dtype=np.int64))
+    real = int(np.prod(x.shape[:-1], dtype=np.int64))
     y = torch.full_like(x, np.nan) if store else None
     s_out = torch.full_like(s0, np.nan)
-    doubles = 2 * rows * -(-n // iir.TILE) * p
+    doubles = iir.scratch_doubles(real, n, p)
     scratch = torch.full((doubles,), np.nan, dtype=torch.float64)
     params = iir._params(b, tuple(float(c) for c in coeffs))
     rc = lib.launch_iir_section(
         x.data_ptr(), xin.data_ptr(), s0.data_ptr(),
         y.data_ptr() if store else None, s_out.data_ptr(),
-        scratch.data_ptr(), doubles, rows, n, p,
-        params.ctypes.data_as(ctypes.c_void_p), int(store), None)
+        scratch.data_ptr(), doubles, real if rows is None else rows, n, p,
+        params.ctypes.data_as(ctypes.c_void_p),
+        params[6:].ctypes.data_as(ctypes.c_void_p), int(store), None)
+    if rows is not None:
+        return rc
     assert rc == 0
     return y, s_out
+
+
+def _k13_inputs(rng, rows, n, p):
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 for shape in ((rows, n), (rows, 2), (rows, p)))
 
 
 @pytest.mark.parametrize("section", range(len(SECTIONS)))
 def test_k13_source_on_the_host_within_its_limit(host_builds, section):
     """Each section at rows 1-5 and 32, n about a thread's run (32) and a
-    block's tile (4,096) and past two tiles, the input 0-3 floats off
-    16-byte alignment, seeded entering inputs and states: y and the state
-    after the row within 1e-5 of each row's peak |y| of the plain version;
-    the final-state launch's state bitwise the full launch's."""
+    block's tile (4,096) and past two tiles, below a run and a multiple
+    of neither, the input 0-3 floats off 16-byte alignment, seeded
+    entering inputs and states: y and the state after the row within 1e-5
+    of each row's peak |y| of the plain version; the final-state launch's
+    state bitwise the full launch's."""
     lib = host_builds["iir"]
     b, coeffs = SECTIONS[section]
     rng = np.random.default_rng(17 + section)
     for rows, n in [(r, n) for r in (1, 2, 3, 4, 5)
                     for n in (1, 2, 31, 32, 33, 4_095, 4_097)] + [
-            (32, 33), (2, 2 * 4_096 * 3 + 1)]:
-        x = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
-        xin = torch.from_numpy(rng.normal(size=(rows, 2)).astype(np.float32))
-        s0 = torch.from_numpy(rng.normal(size=(rows, len(coeffs))).astype(
-            np.float32))
+            (32, 33), (2, 2 * 4_096 * 3 + 1), (1, 5), (2, 77),
+            (3, 4_096 + 33), (1, 8_192), (2, 8_193)]:
+        x, xin, s0 = _k13_inputs(rng, rows, n, len(coeffs))
         xo = host_shim.offset(x, (rows + n) % 4)
         y, s = _host_k13(lib, xo, b, coeffs, xin, s0)
         ry, rs = iir.iir_section_reference(x, b, coeffs, xin, s0)
@@ -420,6 +486,99 @@ def test_k13_source_on_the_host_over_an_am_row(host_builds):
     y, s = _host_k13(lib, x, *SECTIONS[0], xin, s0)
     ry, rs = iir.iir_section_reference(x, *SECTIONS[0], xin, s0)
     assert _peak_rel(torch.cat([y, s], -1), torch.cat([ry, rs], -1)) <= 1e-5
+
+
+@pytest.mark.parametrize("rows,n", [(7, 4_097), (5, 9_000), (1, 4_097)])
+def test_k12_source_on_the_host_over_waves(host_builds, rows, n):
+    """More rows than one wave (the 32 KB build: one or two of these rows
+    a wave, so first and output passes of neighbouring waves interleave)
+    and one row: the scan bitwise its plain version, bitwise the
+    committed build (one wave: the waves order the tickets, not the
+    arithmetic), and two runs bitwise equal."""
+    rng = np.random.default_rng(20 + rows)
+    xp, m, g0 = _k12_inputs(rng, rows, n)
+    for x, planar in ((xp, True), (m, False)):
+        plain = (agc_linear.agc_apply_reference if planar
+                 else agc_linear.agc_gains_reference)
+        want = plain(x, 0.005, 1.0, g0)
+        runs = [_host_k12(host_builds[lib], x, 0.005, g0, planar)
+                for lib in ("agc_linear_waves", "agc_linear_waves",
+                            "agc_linear")]
+        assert all(_same_bits(got, want) for got in runs), (rows, n, planar)
+
+
+@pytest.mark.parametrize("rows,n", [(7, 4_097), (5, 9_000), (1, 4_097)])
+def test_k13_source_on_the_host_over_waves(host_builds, rows, n):
+    """As for K12: the 32 KB build over more rows than a wave and over one
+    row, for the DC blocker and the a_2 != 0 section, within 1e-5 of the
+    plain version, bitwise the committed build and across two runs, and
+    the final-state launch bitwise the full launch's state."""
+    rng = np.random.default_rng(30 + rows)
+    for b, coeffs in (SECTIONS[0], SECTIONS[2]):
+        x, xin, s0 = _k13_inputs(rng, rows, n, len(coeffs))
+        ry, rs = iir.iir_section_reference(x, b, coeffs, xin, s0)
+        runs = [_host_k13(host_builds[lib], x, b, coeffs, xin, s0)
+                for lib in ("iir_waves", "iir_waves", "iir")]
+        y, s = runs[0]
+        assert _peak_rel(torch.cat([y, s], -1),
+                         torch.cat([ry, rs], -1)) <= 1e-5, (rows, n)
+        assert all(_same_bits(got, runs[0]) for got in runs[1:]), (rows, n)
+        _, s_only = _host_k13(host_builds["iir_waves"], x, b, coeffs, xin,
+                              s0, store=False)
+        assert torch.equal(_bits(s_only), _bits(s)), (rows, n)
+
+
+# kernel_variants' K12 and K13 variants that keep the committed
+# arithmetic (every wave size, the registers' bound, streaming stores,
+# the sub-chunk level through shared memory) or leave it alone where the
+# blocks run in turn (no waits)
+SAME_BITS = {"agc_one_wave", "agc_wave2", "agc_wave8", "agc_smem_level2",
+             "agc_bounds5", "agc_bounds6", "agc_stream_stores", "agc_no_wait",
+             "iir_one_wave", "iir_wave2", "iir_wave32", "iir_stream_stores",
+             "iir_bounds8", "iir_bounds10", "iir_no_wait"}
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (targets, _) in kernel_variants.VARIANTS.items()
+    if targets[0] in ("agc_linear", "iir")))
+def test_recurrence_variants_build_and_run_on_the_host(tmp_path, name):
+    """Each K12 and K13 variant of ``kernel_variants`` builds for the host
+    and runs over 3 rows of 9,000 samples: bitwise the committed kernel
+    where it keeps its arithmetic, K13's serial chain (the first design)
+    within 1e-5 of each row's peak of the plain version."""
+    (target,), patches = kernel_variants.VARIANTS[name]
+    mod = {"agc_linear": agc_linear, "iir": iir}[target]
+    lib = _bind(host_shim.build_source(tmp_path, target, patches), mod.KERNEL)
+    rng = np.random.default_rng(40)
+    if target == "agc_linear":
+        xp, _, g0 = _k12_inputs(rng, 3, 9_000)
+        got = _host_k12(lib, xp, 0.005, g0, True)
+        if name in SAME_BITS:
+            assert _same_bits(got, agc_linear.agc_apply_reference(
+                xp, 0.005, 1.0, g0))
+        return
+    x, xin, s0 = _k13_inputs(rng, 3, 9_000, 2)
+    got = _host_k13(lib, x, *SECTIONS[2], xin, s0)
+    if name in SAME_BITS:
+        committed = _bind(host_shim.build_source(tmp_path, "iir",
+                                                 tag="_committed"), iir.KERNEL)
+        assert _same_bits(got, _host_k13(committed, x, *SECTIONS[2], xin,
+                                         s0))
+    elif name == "iir_serial_runs":
+        ry, rs = iir.iir_section_reference(x, *SECTIONS[2], xin, s0)
+        assert _peak_rel(torch.cat(got, -1), torch.cat([ry, rs], -1)) <= 1e-5
+
+
+def test_sources_on_the_host_refuse_rows_past_the_grid(host_builds):
+    """65,536 rows: each launch function refuses before touching a
+    buffer (the wrappers refuse them first, kernels/_build.py)."""
+    x, g0 = torch.ones((1, 2, 1)), torch.ones(1)
+    lib = host_builds["agc_linear"]
+    assert _host_k12(lib, x, 0.005, planar=True, rows=65_536) != 0
+    assert _host_k12(lib, x, 0.005, g0, planar=True, rows=65_536) != 0
+    x, xin, s0 = torch.ones((1, 1)), torch.zeros((1, 2)), torch.zeros((1, 1))
+    assert _host_k13(host_builds["iir"], x, *SECTIONS[0], xin, s0,
+                     rows=65_536) != 0
 
 
 def test_k13_section_chains_cascade_to_sosfilt(rng):

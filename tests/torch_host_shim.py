@@ -12,8 +12,18 @@ What the sources use of CUDA, on the host: a block's threads are
 std::threads meeting at a std::barrier, its shared memory one buffer
 (which a runner fills with NaNs, so that a read of an unstaged word
 shows); the rounded intrinsics are plain f32 operations (built with
--ffp-contract=off), ``__ldg`` a plain load, the vector types aligned
-structs, the math functions (``atan2f``, ``fabsf``, ...) the C library's.
+-ffp-contract=off), ``__ldg``, ``__ldcg``, ``__stcg`` and ``__stcs`` plain
+loads and stores, the vector types aligned structs, the math functions
+(``atan2f``, ``fabsf``, ...) the C library's.  ``__shfl_up_sync`` and
+``__shfl_sync`` (any type of up to 16 bytes: float, double, float2) go
+through a per-block exchange buffer between two waits at the block's
+barrier, so every thread of the block must call them together, as the
+sources that use them do; ``atomicAdd`` is a sequentially consistent
+``__atomic`` builtin, ``__threadfence`` a sequentially consistent fence,
+``__trap`` ``std::abort``, ``__nanosleep`` nothing, and
+``cudaMemsetAsync`` a ``memset``.  Blocks run in turn, so a block takes
+ticket b of an ``atomicAdd`` counter as the card's b-th block would: a
+design whose blocks wait only on lower tickets runs here as there.
 """
 
 import ctypes
@@ -29,8 +39,10 @@ __all__ = ["SHIM", "LAUNCH_SHIM", "device_part", "build", "build_source",
 SHIM = r"""
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <cmath>
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <thread>
 #include <vector>
@@ -58,6 +70,38 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline thread_local float* g_smem;
 inline std::barrier<>* g_bar;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stcg(T* p, T v) { *p = v; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+// a warp shuffle: every thread of the block calls it together
+alignas(16) inline unsigned char g_xchg[1024 * 16];
+template <class T> inline T shfl_from(T v, int src) {
+  static_assert(sizeof(T) <= 16);
+  std::memcpy(g_xchg + 16 * threadIdx.x, &v, sizeof(T));
+  g_bar->arrive_and_wait();
+  T out;
+  std::memcpy(&out, g_xchg + 16 * src, sizeof(T));
+  g_bar->arrive_and_wait();
+  return out;
+}
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, int d, int width = 32) {
+  const int t = static_cast<int>(threadIdx.x);
+  return shfl_from(v, t % width >= d ? t - d : t);
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int t = static_cast<int>(threadIdx.x);
+  return shfl_from(v, t - t % width + src % width);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __trap() { std::abort(); }
+inline void __nanosleep(unsigned) {}
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
@@ -79,6 +123,10 @@ constexpr int cudaErrorInvalidValue = 1;
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "host shim"; }
 inline int cudaSetDevice(int) { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 // Every block of `grid` in turn; a block's threads are std::threads that
 // run its blocks together, meeting at a barrier after each (its static
@@ -131,16 +179,21 @@ def build(directory, name, cut, runner):
     return ctypes.CDLL(str(so))
 
 
-def build_source(directory, name):
+def build_source(directory, name, patches=(), tag=""):
     """The whole of ``csrc/<name>.cu`` under ``SHIM`` and ``LAUNCH_SHIM``,
     compiled with ``g++`` into a library under ``directory`` and loaded:
-    its launch functions run on host pointers (the stream is ignored)."""
+    its launch functions run on host pointers (the stream is ignored).
+    ``patches`` replace snippets of the source, each found exactly once
+    (``tag`` names the patched build)."""
     src = (CSRC / f"{name}.cu").read_text()
     assert src.count("#include <cuda_runtime.h>") == 1
+    for old, new in patches:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
     src = src.replace("#include <cuda_runtime.h>", SHIM + LAUNCH_SHIM)
-    cpp = directory / f"{name}.cpp"
+    cpp = directory / f"{name}{tag}.cpp"
     cpp.write_text(src)
-    so = directory / f"lib{name}.so"
+    so = directory / f"lib{name}{tag}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
                     "-fPIC", "-shared", "-pthread", "-I", str(CSRC), "-o",
                     str(so), str(cpp)], check=True, capture_output=True)
