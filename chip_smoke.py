@@ -85,18 +85,32 @@ nvcc per source, all at once), then:
    chain; and the stereo CLI;
 4. the exact mono path, ``fm_chain(front='exact')`` (the complex f32
    front the JAX package runs off a TPU: IqConvertU8 on K10, the 51-tap
-   decimate-by-8 ``Fir`` on K3 over the [32, 2] real planes of the
-   complex batch, split at the seam, the complex demod on K11, K2 -> K3)
+   decimate-by-8 ``Fir`` on K3's complex form, which reads the complex
+   batch in place, split at the seam into one output, the complex demod
+   on K11, K2 -> K3)
    on the mono broadcast: K10 at [32, 10,485,760] u8 -> planar f32 and
    complex64, and seeded int16 of the same shape both ways, bitwise its
    plain version, and at 1,152 extra geometries (n in {0, 1, 7, 8, 9,
    2,047, 2,049, 65,537} pairs, leading dims [], [3], [2, 3], bases 0-15
    bytes or 0-7 int16 off 16-byte alignment), timed beside the cast
-   ``x.to(float32)`` alone; K3 at f = 8 (seam and main launches, bitwise)
-   with its ``conv1d`` yardstick; K11 complex at [32, 655,360] within 2e-6
+   ``x.to(float32)`` alone; K3's complex form at f = 8 over the [32,
+   5,242,880] rows (the seam launch into ``y[..., :mb]``, the main one
+   into ``y[..., mb:]``, each bitwise its plain version and the planar
+   route it replaced: planes, the real form, ``torch.complex``; two
+   launches bitwise equal), timed beside its plain version, that planar
+   route, the real form alone and a grouped ``conv1d`` over
+   ``view_as_real`` (groups 2; its reshape's copy included), and at 790
+   extra geometries (rows at f in {1, 2, 3, 8, 16} x K in {1, 7, 51, 64,
+   200}, bases 0 and 2 floats off 16-byte alignment, starts, outputs
+   around a tile multiple, strided rows, ``out=`` rows; channel-major at
+   C in {1, 5, 31, 32, 33, 64, 100} x f in {1, 2, 8, 16}; 70,000 rows
+   and 66,000 channel rows past the grid), both sides of each staged
+   branch's switch and 58,112 taps (58,113 raising); K11 complex at
+   [32, 655,360] within 2e-6
    rad of its plain version (the largest distance and the samples that
    differ printed); the block-parallel chain (launches {fir: 3, resample:
-   1, iq_convert: 1, fm_demod: 1}, the tone, peak memory, 20 timed
+   1, iq_convert: 1, fm_demod: 1}, no complex block copied to another
+   layout before K3, the tone, peak memory, 20 timed
    calls), the streamed run (equal; K10 and K11 once a block), the plain
    CPU chain and the fused mono chain; ``planar=True``,
    ``fuse_back=False`` and the FIR de-emphasis at 4 blocks against the
@@ -128,13 +142,15 @@ nvcc per source, all at once), then:
    (K12 and K13 once a block; within 1e-4) and the plain CPU chain; and
    ``apps.am``;
 6. the AM path with the sequential AGC, ``am_chain(agc_approx=1)`` (the
-   complex form; the 64-tap decimate-by-16 ``Fir`` on K3, then K6 twice:
+   complex form; the 64-tap decimate-by-16 ``Fir`` on K3's complex form
+   (its row as exact's, at [32, 5,242,880] -> 327,677), then K6 twice:
    one sweep for each row's entering gain, then the AGC itself) on the
    same capture: K6 bitwise against its plain version over the first
    4,096 samples of all 32 rows (card), two whole rows of 327,680 (their
    CPU copy) and the whole batch (card), with its bytes and latency
    bounds and the linear form's time beside it; the block-parallel chain
-   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2}, the tone,
+   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2}, no layout
+   copy before K3, the tone,
    peak memory, 20 timed calls), the streamed run at 1,048,576-byte
    blocks (K13 once a block; within 1e-3) and the linear complex chain
    (within 1e-4);
@@ -181,22 +197,25 @@ nvcc per source, all at once), then:
    100} x P in {1, 5, 12, 16}, ``num`` one below and above its tile,
    histories 0 and (P - 1) C, bases 1-3 samples off 16-byte alignment;
    and at P = 12 the widest row that fits a block, C = 1,383, while
-   1,384 raises from its plan), timed with its bound and a grouped ``conv1d`` yardstick; K3 at f = 8
-   (seam and main), K2 and K3 at f = 1 (seam and main) bitwise against
-   their plain versions at the bank's shapes, each timed with its bound
-   and its ``conv1d`` yardstick, and K11 complex at [32, 64, 8,000]
-   within 2e-6 rad; the launches of one call ({fir: 4, resample: 1,
-   channelize: 1, fm_demod: 1}), every channel's tone inside the audio
+   1,384 raises from its plan), timed with its bound and a grouped ``conv1d`` yardstick; K3's
+   complex form at f = 8 reading ``Channelize``'s channel-major [32, 64,
+   64,000] view in place (seam and main, as for exact), K2 and K3 at f =
+   1 (seam and main) bitwise against their plain versions at the bank's
+   shapes, each timed with its bound and its ``conv1d`` yardstick, and
+   K11 complex at [32, 64, 8,000] within 2e-6 rad; the launches of one
+   call ({fir: 4, resample: 1, channelize: 1, fm_demod: 1}; no layout
+   copy before K3), every channel's tone inside the audio
    passband, the streamed run within 1e-6, the plain CPU chain on 4
    blocks within 1e-4, 20 timed calls (wideband complex input
    samples/s) and peak memory;
 10. the narrowband channelizer, ``channelizer_chain(64)`` on [64,
-   2,621,440] basebands (the CLI's synthetic formula) in 4 blocks: K3 at
-   f = 8 (seam and main), K2 and K3 at f = 1 (seam and main) bitwise
+   2,621,440] basebands (the CLI's synthetic formula) in 4 blocks: K3's
+   complex form at f = 8 over the [4, 64, 655,360] rows (seam and main,
+   as for exact), K2 and K3 at f = 1 (seam and main) bitwise
    against their plain versions at the [4, 64] batch the path gives them,
    each timed with its bound and its ``conv1d`` yardstick, and K11
    complex at [4, 64, 81,920] within 2e-6 rad; the launches ({fir: 4,
-   resample: 1, fm_demod: 1}),
+   resample: 1, fm_demod: 1}; no layout copy before K3),
    the tones, 4 blocks against 1 (the CLI's form) and the streamed run
    over [64, 655,360] blocks within 1e-6, the plain CPU chain within
    1e-5, 20 timed calls; then
@@ -1154,10 +1173,12 @@ def time_chain(ops, raw, what: str, nblocks: int = ROWS,
 
 
 def counted(fn, kernels):
-    """``fn()`` once with every launch counter set to 0 just before it and
-    read just after."""
+    """``fn()`` once with every launch counter (and ``ops/fir.py``'s count
+    of layout copies) set to 0 just before it and read just after."""
+    from sdr_tpu_torch.ops import fir as fir_ops
     torch.cuda.synchronize()
     reset_launches(kernels)
+    fir_ops.layout_copies = 0
     y = fn()
     torch.cuda.synchronize()
     return y, {k.name: k.launches for k in kernels}
@@ -1248,8 +1269,9 @@ def run_stereo_chain(raw, ops, kernels):
 
 
 def check_decimator_kernel(name: str, fir_op, x):
-    """K3 as a decimating ``Fir`` launches it over the block-parallel batch
-    ``x`` (complex, or planar f32): the seam launch and the main launch,
+    """K3 as a decimating ``Fir`` launches it over the block-parallel real
+    batch ``x`` (planar f32, or real rows): the seam launch and the main
+    launch,
     each bitwise against the plain version over the same real planes;
     the main launch timed beside one strided ``conv1d`` over the same
     planes (timed only), with its bound from the bytes the seam split
@@ -1299,6 +1321,241 @@ def check_decimator_kernel(name: str, fir_op, x):
     return row
 
 
+def planar_route(taps, x, num: int, f: int, start: int):
+    """The route a complex batch took to K3 before its complex form: real
+    planes (a copy), the real form, the complex output rebuilt."""
+    from sdr_tpu_torch.kernels import fir
+    from sdr_tpu_torch.ops.fir import as_real_batch
+    xr, rebuild = as_real_batch(x)
+    return rebuild(fir.fir_strided(taps, xr, num, f, start))
+
+
+def check_complex_fir(taps, x, num: int, f: int, start: int, what: str,
+                      out=None, planar: bool = True):
+    """K3's complex form on ``x`` (into ``out`` if given) bitwise its plain
+    version and (``planar``: the real form takes at most 65,535 rows)
+    the planar route; returns the output."""
+    from sdr_tpu_torch.kernels import fir
+    y = fir.fir_strided(taps, x, num, f, start, out=out)
+    require(out is None or y.data_ptr() == out.data_ptr(),
+            f"{what}: not written into out")
+    require(same_bits(y, fir.fir_strided_reference(taps, x, num, f, start)),
+            f"{what}: K3's complex form vs its plain version")
+    require(not planar or same_bits(y, planar_route(taps, x, num, f, start)),
+            f"{what}: K3's complex form vs the planar route")
+    return y
+
+
+def check_complex_decimator_kernel(name: str, fir_op, x):
+    """K3's complex form as a decimating ``Fir`` launches it over the
+    block-parallel complex batch ``x`` (rows, or the channel-major view
+    ``Channelize`` gives), read in place: the seam launch into
+    ``y[..., :mb]`` and the main launch into ``y[..., mb:]`` of one
+    output, each bitwise its plain version and the planar route; two
+    main launches bitwise equal; the main launch timed beside its plain
+    version, the planar route (the parent's: planes, the real form,
+    ``torch.complex``), the real form alone on planes made beforehand,
+    and a grouped ``conv1d`` (groups 2, stride f) over
+    ``view_as_real(x).movedim(-1, -2)`` (timed only; the call includes
+    the copy its reshape to [rows, 2, n] makes), with its bound."""
+    from sdr_tpu_torch.kernels import fir
+    from sdr_tpu_torch.ops.fir import as_real_batch
+    n_in = x.shape[-1]
+    hist = fir_op.shard_carry(x)
+    n_out = fir_op.out_len(n_in)
+    mb, seam_x, start = fir_op._seam_plan(hist.shape[-1], n_in, n_out)
+    f, taps = fir_op.spec.decimation, fir_op._taps
+    K = taps.numel()
+    layout = fir.complex_layout(x)
+    require(layout is not None, f"{name}: x {tuple(x.shape)} at strides "
+                                f"{x.stride()} is no complex layout of K3")
+    num = n_out - mb
+    y = torch.empty(x.shape[:-1] + (n_out,), dtype=torch.complex64,
+                    device=x.device)
+    ym = y[..., mb:]
+    a = (taps, x, num, f, start)
+    seam = torch.cat([hist, x[..., :seam_x]], dim=-1)
+    check_complex_fir(taps, seam, mb, f, 0, f"{name} seam", y[..., :mb])
+    check_complex_fir(*a, f"{name} main", ym)
+    torch.cuda.synchronize()
+    require(torch.isfinite(torch.view_as_real(y)).all().item(),
+            f"{name} output finite")
+    err = max_err(y, torch.cat([
+        fir.fir_strided_reference(taps, seam, mb, f, 0),
+        fir.fir_strided_reference(*a)], dim=-1))
+    require(err == 0, f"{name} vs plain {err} != 0")
+    require(same_bits(fir.fir_strided(*a), ym), f"{name}: two launches differ")
+    xv = torch.view_as_real(x).movedim(-1, -2)          # [..., 2, n] view
+    w = taps.view(1, 1, K).expand(2, 1, K).contiguous()
+
+    def lib():
+        v = xv.reshape(-1, 2, n_in)
+        return torch.nn.functional.conv1d(v[..., start:], w, stride=f,
+                                          groups=2)[..., :num]
+
+    lib_err = max_err(lib(), torch.view_as_real(ym).reshape(
+        -1, num, 2).movedim(-1, -2))
+    b, by = bound(nbytes(x, taps, ym), 4 * K * ym.numel(), "f32")
+    ms = time_ms(lambda: fir.fir_strided(*a, out=ym), 20)
+    route_ms = time_ms(lambda: planar_route(*a), 20)
+    xr = as_real_batch(x)[0]
+    real_ms = time_ms(lambda: fir.fir_strided(taps, xr, num, f, start), 20)
+    del xr
+    row = dict(
+        name=name, kernel="fir", route="cuda",
+        source="sdr_tpu_torch/csrc/fir.cu",
+        replaces="sdr_tpu/kernels/fir_pallas.py:145",
+        shape=f"{list(x.shape)} complex64, strides {list(x.stride())} "
+              f"({layout[0]}) -> {list(ym.shape)}, {K} taps, factor {f}, "
+              f"start {start}; seam launch {list(seam.shape)} -> {mb}, "
+              f"both into one [..., {n_out}]",
+        layout=layout[0], plan=fir.plan(K, f, x.device, layout=layout[0]),
+        max_abs_err=err, ms=ms,
+        plain_ms=time_ms(lambda: fir.fir_strided_reference(*a), 3, 1),
+        bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        planar_route_ms=route_ms, planar_kernel_ms=real_ms,
+        library_ms=time_ms(lib, 20), library_max_abs_diff=lib_err,
+        library_note=f"grouped conv1d (groups 2, stride {f}) over "
+                     "view_as_real(x).movedim(-1, -2), the call including "
+                     "its reshape's copy to [rows, 2, n]")
+    print_no_fma_floor(name, K, 2 * ym.numel())
+    print(f"{name}: the parent's planar route {route_ms} ms (the real form "
+          f"alone on planes made beforehand {real_ms} ms) against the "
+          f"complex form's {ms} ms")
+    return row
+
+
+def complex_fir_geometries(device, seed: int) -> int:
+    """K3's complex form at extra geometries, each bitwise its plain
+    version and the planar route: rows at f in {1, 2, 3, 8, 16} x K in
+    {1, 7, 51, 64, 200}, starts 0, 1 and f + 1, bases 0 and 1 complex
+    (0 and 2 floats) off 16-byte alignment, the most outputs a row
+    holds and one below and above the largest tile multiple in it, rows
+    at a stride, leading dims [2, 3] and ``out=`` rows 5 complex wider;
+    channel-major [2, C, n] at C in {1, 5, 31, 32, 33, 64, 100} (groups
+    of 32 ragged or not) x f in {1, 2, 8, 16} x K in {7, 51, 64}, starts
+    0 and 5, bases 0 and 1 complex off (the 16-byte copies and the 8-byte
+    ones); and past the grid: 70,000 rows at factor 1 and 66,000
+    channel-major rows of 450 taps, one thread an output."""
+    from sdr_tpu_torch.kernels import fir
+    g = torch.Generator(device=device).manual_seed(seed + 31)
+
+    def cplx(*shape):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.complex64)
+
+    count = 0
+    for f in (1, 2, 3, 8, 16):
+        for K in (1, 7, 51, 64, 200):
+            taps = torch.randn(K, generator=g, device=device)
+            tile = fir.plan(K, f, device, layout="rows")["tile"]
+            n = 2 * tile * f + K + 40
+            for off in (0, 1):
+                buf = cplx(2 * 3 * (n + 9) + 8)
+                x = buf[off: off + 6 * (n + 9)].view(2, 3, n + 9)[..., :n]
+                for start in (0, 1, f + 1):
+                    full = (n - start - K) // f + 1
+                    m = (full - 1) // tile * tile
+                    for num in {full, m - 1, m + 1} - {0, -1}:
+                        out = None
+                        if off:
+                            out = cplx(2, 3, num + 5)[..., 5:]
+                        check_complex_fir(taps, x, num, f, start,
+                                          f"K3 complex rows f={f} K={K} "
+                                          f"off={off} start={start}", out)
+                        count += 1
+    for C in (1, 5, 31, 32, 33, 64, 100):
+        for f in (1, 2, 8, 16):
+            for K in (7, 51, 64):
+                taps = torch.randn(K, generator=g, device=device)
+                tile = fir.plan(K, f, device, layout="channel-major")["tile"]
+                n = 3 * tile * f + K + 3
+                for off in (0, 1):
+                    buf = cplx(2 * n * C + 8)
+                    x = buf[off: off + 2 * n * C].view(2, n, C)
+                    x = x.transpose(-1, -2)
+                    for start in (0, 5):
+                        num = (n - start - K) // f + 1
+                        check_complex_fir(taps, x, num, f, start,
+                                          f"K3 complex channel-major C={C} "
+                                          f"f={f} K={K} off={off} "
+                                          f"start={start}")
+                        count += 1
+    taps = torch.randn(7, generator=g, device=device)
+    x = cplx(70_000, 40)
+    require(fir.plan(7, 1, device, layout="rows")["branch"] == "per output",
+            "K3 complex at factor 1")
+    check_complex_fir(taps, x, 34, 1, 0, "K3 complex 70,000 rows",
+                      planar=False)
+    taps = torch.randn(450, generator=g, device=device)
+    x = cplx(2, 460, 33_000).transpose(-1, -2)
+    require(fir.plan(450, 8, device, layout="channel-major")["branch"]
+            == "per output", "K3 complex channel-major at 450 taps")
+    check_complex_fir(taps, x, 2, 8, 0, "K3 complex 66,000 channel rows",
+                      planar=False)
+    return count + 2
+
+
+def complex_fir_switch(f: int, layout: str, branch: str, device) -> int:
+    """The most taps the complex form's ``branch`` takes at factor ``f``
+    in ``layout`` (its own plan's switch to one thread an output)."""
+    from sdr_tpu_torch.kernels import fir
+    lo, hi = 1, 58_112
+    require(fir.plan(lo, f, device, layout=layout)["branch"] == branch,
+            f"K3 complex {layout} at f = {f}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if fir.plan(mid, f, device, layout=layout)["branch"] == branch:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def check_complex_fir_limits(device, seed: int) -> None:
+    """K3's complex form on both sides of each staged branch's switch to
+    one thread an output (rows at f in {2, 8, 16}, channel-major at f =
+    8), found through its plan, and at the most taps its shared memory
+    holds (58,112), one more raising: bitwise its plain version."""
+    from sdr_tpu_torch.kernels import fir
+    g = torch.Generator(device=device).manual_seed(seed + 37)
+    cases = []
+    for f in (2, 8, 16):
+        s = complex_fir_switch(f, "rows", "staged", device)
+        cases += [("rows", f, s), ("rows", f, s + 1)]
+    s = complex_fir_switch(8, "channel-major", "channel tile", device)
+    cases += [("channel-major", 8, s), ("channel-major", 8, s + 1),
+              ("rows", 2, 58_112), ("channel-major", 2, 58_112)]
+    for layout, f, K in cases:
+        taps = torch.randn(K, generator=g, device=device)
+        shape = (2, K + 5 * f) if layout == "rows" else (2, K + 5 * f, 3)
+        x = torch.randn(shape, generator=g, device=device,
+                        dtype=torch.complex64)
+        if layout != "rows":
+            x = x.transpose(-1, -2)
+        check_complex_fir(taps, x, 6, f, 0,
+                          f"K3 complex {layout} {K} taps f={f}")
+        print(f"K3 complex {layout} at {K:,} taps, f = {f}: "
+              f"{fir.plan(K, f, device, layout=layout)['branch']}, bitwise")
+    x = torch.randn(2, 58_200, dtype=torch.complex64, device=device)
+    try:
+        fir.fir_strided(torch.randn(58_113, device=device), x, 6, 2)
+    except RuntimeError as e:
+        require("do not fit" in str(e), f"K3 complex raised {e}")
+    else:
+        require(False, "K3's complex form took 58,113 taps")
+    print("K3 complex: 58,113 taps raise")
+
+
+def require_no_layout_copy(what: str) -> None:
+    """The last counted call copied no complex block to a layout K3 reads
+    (``ops/fir.py``'s count, set to 0 by :func:`counted`)."""
+    from sdr_tpu_torch.ops import fir as fir_ops
+    require(fir_ops.layout_copies == 0,
+            f"{what}: {fir_ops.layout_copies} complex blocks copied to a "
+            "layout K3 reads")
+
+
 def require_launches(launches: dict, want: dict, what: str) -> None:
     """Each kernel of ``want`` launched exactly so often in one call, and
     every other kernel never."""
@@ -1339,6 +1596,7 @@ def run_exact_chain(raw, ops, kernels):
     # the decimator's seam and main launches, the audio FIR; the resampler
     require_launches(launches, {"fir": 3, "resample": 1, "iq_convert": 1,
                                 "fm_demod": 1}, "exact mono path")
+    require_no_layout_copy("exact mono path")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 160 * 3,),
             f"output shape {out.shape}")
@@ -2202,6 +2460,7 @@ def run_am_approx(raw, ops, kernels):
     # DcBlocker's final state and output on K13
     require_launches(launches, {"fir": 2, "agc_scan": 2, "iq_convert": 1,
                                 "iir": 2}, "AM path, sequential AGC")
+    require_no_layout_copy("AM path, sequential AGC")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,),
             f"AM sequential-AGC output {out.shape}")
@@ -2832,9 +3091,9 @@ def check_bank_kernels(x, ops, seed: int):
     xb = x.view(ROWS, CH_BLOCK)
     rows = [check_channelize_kernel(ops[0], xb, seed)]
     _, xc = ops[0].apply(ops[0].shard_carry(xb), xb)
-    rows.append(check_decimator_kernel(
-        "K3 fir (channel bank decimator, complex [32, 64] as [32, 64, 2] "
-        "planes, f = 8, 51 taps)", ops[1], xc))
+    rows.append(check_complex_decimator_kernel(
+        "K3 fir complex (wideband bank decimator, [32, 64, 64,000] "
+        "channel-major, f = 8, 51 taps)", ops[1], xc))
     _, yd = ops[1].apply(ops[1].shard_carry(xc), xc)
     del xc
     rows += check_fm_demod_kernel(
@@ -2856,9 +3115,9 @@ def check_narrowband_kernels(x, ops, seed: int):
     blocks of every channel, [4, 64] rows of 655,360 samples, their
     demod's 81,920, the resampler's 24,576."""
     xb = x.view(CH_C, NB_BLOCKS, -1).movedim(1, 0).contiguous()
-    rows = [check_decimator_kernel(
-        "K3 fir (narrowband bank decimator, complex [4, 64] as [4, 64, 2] "
-        "planes, f = 8, 51 taps)", ops[0], xb)]
+    rows = [check_complex_decimator_kernel(
+        "K3 fir complex (narrowband bank decimator, [4, 64, 655,360] rows, "
+        "f = 8, 51 taps)", ops[0], xb)]
     _, yd = ops[0].apply(ops[0].shard_carry(xb), xb)
     del xb
     rows += check_fm_demod_kernel(
@@ -2906,6 +3165,7 @@ def run_channelizer_wideband(x, ops, kernels):
     # then the rest from the block)
     require_launches(launches, {"fir": 4, "resample": 1, "channelize": 1,
                                 "fm_demod": 1}, "wideband channelizer path")
+    require_no_layout_copy("wideband channelizer path")
     per_row = CH_BLOCK // CH_C * 3 // 80
     require(tuple(y.shape) == (CH_C, ROWS * per_row), f"bank {y.shape}")
     out = y.cpu().numpy()
@@ -2960,6 +3220,7 @@ def run_channelizer_narrowband(x, ops, kernels):
     peak = torch.cuda.max_memory_allocated()
     require_launches(launches, {"fir": 4, "resample": 1, "fm_demod": 1},
                      "narrowband channelizer path")
+    require_no_layout_copy("narrowband channelizer path")
     require(tuple(y.shape) == (CH_C, NB_SAMPLES * 3 // 80),
             f"narrowband bank {y.shape}")
     out = y.cpu().numpy()
@@ -4008,9 +4269,15 @@ def main(argv=None) -> int:
     ops = fm_chain(front="exact", device=device)
     erows = check_iq_convert_kernel(raw, args.seed)
     _, xc = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
-    erows.append(check_decimator_kernel(
-        "K3 fir (exact front decimator, complex as [32, 2] planes, f = 8, "
-        "51 taps)", ops[1], xc))
+    erows.append(check_complex_decimator_kernel(
+        "K3 fir complex (exact front decimator, [32, 5,242,880] rows, "
+        "f = 8, 51 taps)", ops[1], xc))
+    t0 = time.perf_counter()
+    cfir_count = complex_fir_geometries(device, args.seed)
+    check_complex_fir_limits(device, args.seed)
+    print(f"K3's complex form: bitwise its plain version and the planar "
+          f"route at {cfir_count} extra geometries "
+          f"({time.perf_counter() - t0:.1f} s)")
     _, xd = ops[1].apply(ops[1].shard_carry(xc), xc)
     del xc
     erows += check_fm_demod_kernel(
@@ -4054,8 +4321,11 @@ def main(argv=None) -> int:
     ops = am_chain(agc_approx=1, device=device)
     _, xc = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
     _, xc = ops[1].apply(ops[1].shard_carry(xc), xc)
+    qrows = [check_complex_decimator_kernel(
+        "K3 fir complex (AM sequential channel filter, [32, 5,242,880] "
+        "rows, f = 16, 64 taps)", ops[2], xc)]
     _, xc = ops[2].apply(ops[2].shard_carry(xc), xc)
-    qrows = [check_agc_kernel(ops[3], xc)]
+    qrows.append(check_agc_kernel(ops[3], xc))
     del xc
     print_rows(qrows, card)
     am_approx = run_am_approx(raw, ops, KERNELS)
@@ -4132,6 +4402,9 @@ def main(argv=None) -> int:
     for r in wrows:
         r["launches"] = waterfall[r["kernel"]]
     rows += srows + erows + arows + qrows + trows + wrows + crows + nrows
+    for r in rows:
+        if r.get("layout"):
+            r["geometries"] = cfir_count
     for r in rows:
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, "

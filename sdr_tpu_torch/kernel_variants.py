@@ -20,12 +20,22 @@ committed rounding); ``fma`` and ``fir_dec_fma`` contract K3's (and K5's second
 stage's) multiply and add (not the plain version's rounding) and show
 what the no-FMA order costs; the others change a design choice (the
 runtime loop in place of a compiled geometry, the phase rows unpadded,
-4 outputs a thread at f = 8, half the tile) and must equal the committed kernels bitwise.  Shapes are
+4 outputs a thread at f = 8, half the tile; for K3's complex form
+``fir_iq_both_planes``, a thread summing both planes of its two
+outputs and storing them as one float4; ``fir_iq_inline``, the tile's
+split and sums inlined into the persistent loop) and must equal the
+committed
+kernels bitwise; ``fir_iq_no_sums`` and ``fir_cm_no_sums`` stage (and
+split) the complex tiles but sum nothing.
+Shapes are
 the paths': 32 rows of 10,485,760 random u8 bytes with an 86-byte history
 (K1, K4: 51 s8 taps, decimation 8), f32 rows of 196,671 (K3, 64 taps)
 and 655,552 (K3, 65 taps from 128), [32, 2] planes of 5,242,880 (K3's
 f > 1 branch: 51 taps at f = 8 from 5, the exact front's, and 64 at
-f = 16, the AM channel filter's; K9 over them with a 512-sample carry,
+f = 16, the AM channel filter's, and K3's complex form on [32,
+5,242,880] complex64 rows at both and on the wideband bank's
+channel-major [32, 64, 64,000] view at f = 8; K9 over them with a
+512-sample carry,
 the waterfall's 1,024-point Blackman frames at hop 512, and
 ``fft_occ2``, two blocks an SM in place of three, must equal it
 bitwise), and rows of 655,360 with an 82-float history, 3/10
@@ -64,6 +74,7 @@ from sdr_tpu_torch.ops.quantized import u8_front_plan
 ROWS, ROW_BYTES, HIST = 32, 10_485_760, 86
 DEC_N = ROW_BYTES // 2                # f32 samples a plane of a row
 AM_N, STEREO_N = 327_677, 196_608     # K12's and K13's rows
+WB_N = 64_000                         # the wideband bank's channel samples
 DC = ((1.0, -1.0), (0.997,))          # the DC blocker's section
 DEEMPH = ((0.12195122, 0.12195122, 0.0), (0.75609756, 0.0))
 WAVE_K12 = "constexpr long long kWaveBytes = 32LL << 20;"
@@ -109,6 +120,32 @@ SMEM_LEVEL2 = """__device__ __forceinline__ float2 shfl_up2(float2 v, int d) {
 }
 
 __device__ __forceinline__ float2 shfl_up2_unused(float2 v, int d) {"""
+# K3's complex rows: both planes' sums in one work item, stored as one
+# float4 (the plane-a-work-item form's alternative)
+IQ_ITEMS = """  const int pairs = (nb + 1) / 2;
+  for (int v = threadIdx.x; v < 2 * pairs; v += NT) {"""
+IQ_BOTH_PLANES = """  for (int u = threadIdx.x; 2 * u < nb; u += NT) {
+    float ai[2] = {}, aq[2] = {};
+    if constexpr (KC > 0) {
+      poly_sums<KC, FC, 2>(ai, P, RS, s_taps, u);
+      poly_sums<KC, FC, 2>(aq, P + f * RS, RS, s_taps, u);
+    } else {
+      poly_sums_rt<2>(ai, P, RS, s_taps, u, K, f);
+      poly_sums_rt<2>(aq, P + f * RS, RS, s_taps, u, K, f);
+    }
+    float* yo = yt + 4 * u;
+    if (2 * u + 2 <= nb && (reinterpret_cast<uintptr_t>(yo) & 15) == 0) {
+      *reinterpret_cast<float4*>(yo) = make_float4(ai[0], aq[0], ai[1],
+                                                   aq[1]);
+    } else {
+      for (int r = 0; r < 2; ++r)
+        if (2 * u + r < nb)
+          *reinterpret_cast<float2*>(yo + 2 * r) = make_float2(ai[r],
+                                                               aq[r]);
+    }
+  }
+  const int pairs = 0;
+  for (int v = threadIdx.x; v < 2 * pairs; v += NT) {"""
 REPS, SLEEP_CYCLES = 20, 20_000_000
 OUT = _build.BUILD.parent / "variants"
 
@@ -158,6 +195,19 @@ VARIANTS = {
         ("constexpr int kDecSpan = 8192;", "constexpr int kDecSpan = 4096;")]),
     "fir_dec_span4096": (("fir",), [(
         "constexpr int kDecSpan = 8192;", "constexpr int kDecSpan = 4096;")]),
+    "fir_iq_both_planes": (("fir",), [(IQ_ITEMS, IQ_BOTH_PLANES)]),
+    "fir_iq_inline": (("fir",), [(
+        "__device__ __noinline__ void iq_tile(",
+        "__device__ __forceinline__ void iq_tile(")]),
+    "fir_iq_no_sums": (("fir",), [(
+        "    if constexpr (KC > 0)\n"
+        "      poly_sums<KC, FC, 2>(a, P + c * f * RS, RS, s_taps, u);\n"
+        "    else\n"
+        "      poly_sums_rt<2>(a, P + c * f * RS, RS, s_taps, u, K, f);\n",
+        "")]),
+    "fir_cm_no_sums": (("fir",), [(
+        "        s_y[c * LY + i] = cm_sum(xs + i * f * kChannels, s_taps, K);",
+        "        s_y[c * LY + i] = make_float2(0.f, 0.f);")]),
     "resample_no_sums": (("resample",), [(
         "    tile_periods(buf0 + b * bf, off,",
         "    if (nb < 0) tile_periods(buf0 + b * bf, off,")]),
@@ -259,12 +309,14 @@ VARIANTS = {
         "double* w,\n", SERIAL_RUNS)]),
 }
 EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
+         "fir_iq_both_planes", "fir_iq_inline",
          "fir_dec_rc4", "fir_dec_occ3", "fir_dec_occ4", "fir_dec_span4096", "resample_runtime_geometry",
          "resample_tile1536", "resample_unroll2", "fft_occ2", "agc_one_wave",
          "agc_wave2", "agc_wave8", "agc_smem_level2", "agc_bounds5", "agc_bounds6", "agc_stream_stores",
          "iir_one_wave", "iir_wave2", "iir_wave32", "iir_stream_stores",
          "iir_bounds8", "iir_bounds10"}
 CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
+               "fir_iq8": "fir", "fir_iq16": "fir", "fir_cm8": "fir",
                "resample_stereo": "resample", "agc_gains": "agc_linear",
                "iir_final": "iir", "iir_deemph": "iir",
                "iir_deemph_final": "iir"}
@@ -354,6 +406,10 @@ def main(argv=None) -> int:
         windowed_sinc(31, 0.25, hamming), 3), device=dev)
     xd = torch.randn(ROWS, 2, DEC_N, generator=g, device=dev)
     t51 = torch.randn(51, generator=g, device=dev)
+    xc = torch.randn(ROWS, DEC_N, generator=g, device=dev,
+                     dtype=torch.complex64)
+    xw = torch.randn(ROWS, WB_N, 64, generator=g, device=dev,
+                     dtype=torch.complex64).transpose(-1, -2)
     xr = torch.randn(ROWS, 655_360, generator=g, device=dev)
     hr = torch.randn(ROWS, 82, generator=g, device=dev)
     xr2 = torch.randn(ROWS, 2, 655_360, generator=g, device=dev)
@@ -376,6 +432,9 @@ def main(argv=None) -> int:
         "fir65": lambda: fir.fir_strided(t65, xs, 655_360, 1, 128),
         "fir_dec8": lambda: fir.fir_strided(t51, xd, 655_354, 8, 5),
         "fir_dec16": lambda: fir.fir_strided(t64, xd, 327_677, 16, 0),
+        "fir_iq8": lambda: fir.fir_strided(t51, xc, 655_354, 8, 5),
+        "fir_iq16": lambda: fir.fir_strided(t64, xc, 327_677, 16, 0),
+        "fir_cm8": lambda: fir.fir_strided(t51, xw, 7_994, 8, 5),
         "resample": lambda: resample.resample(table, 3, 10, xr, hr, 0,
                                               196_671),
         "resample_stereo": lambda: resample.resample(table, 3, 10, xr2, hr2,
@@ -397,6 +456,8 @@ def main(argv=None) -> int:
         "f32 [32, 655552]": time_ms(xs.clone),
         "f32 [32, 655360]": time_ms(xr.clone),
         "f32 [32, 2, 5242880]": time_ms(xd.clone),
+        "c64 [32, 5242880]": time_ms(xc.clone),
+        "c64 [32, 64000, 64]": time_ms(xw.clone),
         "f32 [32, 2, 655360]": time_ms(xr2.clone),
         "f32 [32, 2, 327677]": time_ms(xa.clone),
         "f32 [32, 327677]": time_ms(xdc.clone),

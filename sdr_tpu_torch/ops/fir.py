@@ -14,10 +14,12 @@ The closed form makes every output's read position and phase a static
 function of m, so no sequential recurrence is needed and a block's phase
 is block-invariant.  ``fir_filter`` / ``fir_decimate`` run kernel K3
 (kernels/fir.py) and ``fir_resample`` kernel K2 (kernels/resample.py) on
-CUDA tensors, and their plain PyTorch versions on CPU tensors.  Complex
-input runs as a real batch: ``[..., N]`` complex64 becomes ``[..., 2, N]``
-f32 planes (one copy), the kernels run over the planes as rows, and the
-output is rebuilt complex.
+CUDA tensors, and their plain PyTorch versions on CPU tensors.  K3 reads
+complex64 where it lies (its complex form: time-contiguous rows, or the
+channel-major transpose ``Channelize`` gives) and writes complex64.  K2
+runs complex input as a real batch: ``[..., N]`` complex64 becomes
+``[..., 2, N]`` f32 planes (one copy), the kernel runs over the planes as
+rows, and the output is rebuilt complex.
 """
 
 from __future__ import annotations
@@ -119,17 +121,31 @@ def fir_filter(taps, x: torch.Tensor, num: int | None = None,
     return fir_decimate(taps, 1, x, num, start)
 
 
+# complex inputs fir_decimate copied to a layout K3 reads (none of the
+# chains makes one): a count, as the kernels count their launches
+layout_copies = 0
+
+
 def fir_decimate(taps, factor: int, x: torch.Tensor, num: int | None = None,
-                 start: int = 0) -> torch.Tensor:
-    """``y[i] = sum_j taps[j] * x[..., start + i*factor + j]``."""
+                 start: int = 0, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """``y[i] = sum_j taps[j] * x[..., start + i*factor + j]``; complex
+    ``x`` may write into ``out`` (a complex64 view with contiguous rows,
+    returned)."""
+    global layout_copies
     taps = _on(x, taps)
     if num is None:
         num = (x.shape[-1] - start - taps.shape[0]) // factor + 1
     if num < 0:
         raise ValueError("input shorter than filter")
-    xr, rebuild = as_real_batch(x)
-    return rebuild(fir_kernel.fir_strided(taps, xr, int(num), int(factor),
-                                          int(start)))
+    if (x.dtype == torch.complex64
+            and fir_kernel.complex_layout(x) is None):
+        # a layout neither complex form reads: one explicit copy to
+        # contiguous rows, after which K3 still runs
+        layout_copies += 1
+        x = x.contiguous()
+    return fir_kernel.fir_strided(taps, x, int(num), int(factor),
+                                  int(start), out=out)
 
 
 def fir_resample(taps, interpolation: int, decimation: int,

@@ -4,20 +4,24 @@
                                         exact|am|am_approx|waterfall|
                                         waterfall_complex|channelizer|
                                         channelizer_nb]
+                                       [--save FILE | --compare FILE]
 
 Runs ``run_time_batched`` over the chain's input (the main path's 32
-blocks of 10,485,760 bytes of random u8 IQ; for the channelizers random
-complex64: 32 blocks of 4,096,000 wideband samples, or [64, 2,621,440]
-channel basebands in 4 blocks) once to warm up (its peak device memory
-read around it, ``torch.cuda.max_memory_allocated``), then in one
-process:
+blocks of 10,485,760 bytes of random u8 IQ, drawn from PyTorch's
+generator seeded with 0; for the channelizers random complex64: 32
+blocks of 4,096,000 wideband samples, or [64, 2,621,440] channel
+basebands in 4 blocks) once to warm up (its peak device memory read
+around it, ``torch.cuda.max_memory_allocated``; ``--save`` writes that
+call's output to FILE, ``--compare`` holds it bitwise against a FILE
+that ``--save`` wrote, another tree's), then in one process:
 
 1. ``REPS`` calls unprofiled, each between CUDA events: the call's span on
    the device's clock, host gaps included; then ``SPLIT_REPS`` calls each
    queued behind a device-side sleep (:func:`queued_split`): the device's
    time for a call without host gaps, and the host's time to enqueue it;
 2. ``REPS`` calls under ``torch.profiler``: the device time of each kernel
-   by name and their sum (busy), the device time of the PyTorch ops each
+   by name and their sum (busy), the kernels a call (the profiler's count,
+   memsets included), the device time of the PyTorch ops each
    stream op's ``shard_carry`` and ``apply`` launch (a ``record_function``
    range around each, set up here; the port's own kernels are launched
    through ctypes, which the profiler does not link to a range, so they
@@ -60,6 +64,7 @@ import io
 import json
 import pstats
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -187,15 +192,32 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--chain", default="mono", choices=sorted(CHAINS),
                     help="the chain to profile (default: mono)")
+    io_args = ap.add_mutually_exclusive_group()
+    io_args.add_argument("--save", type=Path, default=None,
+                         help="write the warm-up call's output here")
+    io_args.add_argument("--compare", type=Path, default=None,
+                         help="hold the warm-up call's output bitwise "
+                              "against a file --save wrote")
     args = ap.parse_args(argv)
     card = card_line()
     make_ops, make_input, nblocks = CHAINS[args.chain]
+    torch.manual_seed(0)
     ops, raw = make_ops(), make_input()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run_time_batched(ops, raw, nblocks)
+    y = run_time_batched(ops, raw, nblocks)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    same = None
+    if args.save is not None:
+        torch.save(y.cpu(), args.save)
+    elif args.compare is not None:
+        ref = torch.load(args.compare)
+        same = (tuple(ref.shape) == tuple(y.shape)
+                and torch.equal(ref.view(torch.int32),
+                                y.cpu().view(torch.int32)))
+        print(f"output bitwise equal to {args.compare}: {same}")
+    del y
 
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
@@ -263,9 +285,12 @@ def main(argv=None) -> int:
                       "idle_share": 1 - busy / span, "queued": split,
                       "profiled_wall_ms": wall, "ops_ms": by_op,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
+                      "kernels_per_call": sum(n for _, n in
+                                              kernels.values()),
                       "stages": stages, "peak_bytes": peak,
                       "stage_sum_floor_ms": floor_ms,
                       "stage_sum_share": floor_ms / split["device_ms"],
+                      "bitwise_equal_to_compare": same,
                       "card": card}))
     return 0
 

@@ -249,8 +249,9 @@ class U8FrontDemod(_U8Front):
 
 class Fir(StreamOp):
     """Streaming FIR filter / decimator / rational resampler over real,
-    planar (any leading plane axes batch) or complex64 blocks (run as a
-    real batch of planes, ops/fir.py).
+    planar (any leading plane axes batch) or complex64 blocks (the filter
+    and decimator on K3's complex form, the resampler as a real batch of
+    planes, ops/fir.py).
 
     Overlap-save: the carry holds the last ``hist_len`` input samples,
     zeros at warmup, and each block is filtered as if it followed them.
@@ -261,8 +262,10 @@ class Fir(StreamOp):
     takes one, so the filter and decimator split a block's outputs at the
     seam (``_seam_plan``, the JAX package's): the ``mb`` outputs that read
     history come from ``cat(hist, x[..., :seam_x])``, a few samples, and
-    the rest straight from ``x`` at a rebased start.  Every output's sum is
-    the one the unsplit ``cat(hist, x)`` form computes, bit for bit."""
+    the rest straight from ``x`` at a rebased start.  A complex block's two
+    launches write into one output (``y[..., :mb]`` and ``y[..., mb:]``);
+    a real block's outputs are joined.  Every output's sum is the one the
+    unsplit ``cat(hist, x)`` form computes, bit for bit."""
 
     def __init__(self, spec: FirSpec, offset: int = 0, device="cuda"):
         self.spec = spec
@@ -335,6 +338,14 @@ class Fir(StreamOp):
         if plan is None:
             y = fir_decimate(self._taps, D, torch.cat([carry, x], dim=-1),
                              n_out)
+        elif x.is_complex():
+            mb, seam_x, main_start = plan
+            y = x.new_empty(x.shape[:-1] + (n_out,))
+            fir_decimate(self._taps, D,
+                         torch.cat([carry, x[..., :seam_x]], dim=-1), mb,
+                         out=y[..., :mb])
+            fir_decimate(self._taps, D, x, n_out - mb, main_start,
+                         out=y[..., mb:])
         else:
             mb, seam_x, main_start = plan
             yb = fir_decimate(self._taps, D,
