@@ -12,7 +12,7 @@ archive``) over the given process-group backend, to compare two trees'
 spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K13 from ``sdr_tpu_torch/csrc`` (one
+It builds the CUDA kernels K1-K14 from ``sdr_tpu_torch/csrc`` (one
 nvcc per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit, and
@@ -53,7 +53,7 @@ nvcc per source, all at once), then:
    that the streamed ``Pipeline.run`` at 1,310,720-byte blocks gives the
    same samples; runs the CLI;
 3. the stereo path, ``fm_chain(front='quantized', stereo=True,
-   deemphasis=75e-6)`` (K4, FmDemod, StereoDecode on K3, K2 -> K3 over
+   deemphasis=75e-6)`` (K4, FmDemod, StereoDecode on K14, K2 -> K3 over
    the L/R planes, the de-emphasis IIR, the volume) on a synthetic stereo
    broadcast (L = 1 kHz, R = 400 Hz, a 10 % pilot, 75 kHz deviation) at
    the same 32 x 10,485,760 bytes: K4 (bitwise, K1's geometries plus byte
@@ -67,21 +67,36 @@ nvcc per source, all at once), then:
    complex samples off 16-byte alignment, zero and random carries; the
    complex form within 2e-6 rad of angular distance), timed beside
    ``torch.angle`` on the product made beforehand and ``fast_atan2``
-   alone; K3
-   at StereoDecode's 65-tap shape and K2 over the [32, 2] L/R planes
-   (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); K13 as the
+   alone; K14 over the composite [32, 655,360] with the history its
+   ``shard_carry`` gives: launch A as ``shard_carry`` runs it (a, b) and as
+   ``apply`` runs it (the lock from the path's entering lock, writing the
+   squared pilot) and launch B gated by that lock from that sq, all
+   bitwise their plain versions (the lock and r's decisions included),
+   two launches bitwise equal, and at 342
+   extra geometries (n in {1, 100, 191, 2,944, 3,001, 6,145} at rows [1],
+   [3] and [2, 3], one streamed block of 81,920; bases 0 and 1 float off
+   16-byte alignment; signals that lock, unlock and hold in the band from
+   lock 0 and 1, each decision checked; without the pilot lock), timed
+   (launch A within ``shard_carry`` and ``apply``, launch B, both, the op
+   alone) beside its bound, its
+   no-FMA floor and a
+   ``conv1d`` of the five filters over the composite (five output
+   channels; a yardstick, not the same function); K2 over the [32, 2] L/R
+   planes (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); K13
+   as the
    de-emphasis ``Iir`` runs over the back half's [32, 2, 196,608] output,
    from the entering states its ``shard_carry`` gives and from seeded
    ones, within 1e-5 of each row's peak |y| of its plain version (the
    worst row printed), its final-state launch bitwise the full launch's
    state, timed beside ``torch.cumsum`` over the same rows (a one-pass
    scan, not the same function); the block-parallel chain with the
-   counters read around one call ({u8_front: 1, fir: 7, resample: 1,
-   fm_demod: 1, iir: 2}), its L/R separation, the pilot lock of every
-   row, 20 timed calls and peak memory; the same chain with
-   ``ResampleFirScale(fused=True)`` (K5; {u8_front: 1, fir: 6, backhalf:
-   1, fm_demod: 1, iir: 2}) against it; the streamed run (K4, K11 and
-   K13 once a block) against the block-parallel one and the plain CPU
+   counters read around one call ({u8_front: 1, fir: 1, resample: 1,
+   fm_demod: 1, iir: 2, stereo_decode: 3}), its L/R separation, the
+   pilot lock of every row, 20 timed calls and peak memory; the same chain
+   with ``ResampleFirScale(fused=True)`` (K5; {u8_front: 1, backhalf: 1,
+   fm_demod: 1, iir: 2, stereo_decode: 3}) against it; the streamed run
+   (K4, K11 and K13 once a block, K14 twice) against the block-parallel
+   one and the plain CPU
    chain; and the stereo CLI;
 4. the exact mono path, ``fm_chain(front='exact')`` (the complex f32
    front the JAX package runs off a TPU: IqConvertU8 on K10, the 51-tap
@@ -145,15 +160,20 @@ nvcc per source, all at once), then:
    complex form; the 64-tap decimate-by-16 ``Fir`` on K3's complex form
    (its row as exact's, at [32, 5,242,880] -> 327,677), then K6 twice:
    one sweep for each row's entering gain, then the AGC itself) on the
-   same capture: K6 bitwise against its plain version over the first
+   same capture: K8's complex form (the complex ``Mix``) bitwise
+   against its plain version at [32, 5,242,880] complex64 with a seeded
+   phasor a row and at 48 extra geometries (n not a multiple of 4, bases 0
+   and 1 complex sample off 16-byte alignment, leading dims [3] and [2,
+   3]), timed with its bound beside ``x * lo`` alone (one pass, not the
+   same function); K6 bitwise against its plain version over the first
    4,096 samples of all 32 rows (card), two whole rows of 327,680 (their
    CPU copy) and the whole batch (card), with its bytes and latency
    bounds and the linear form's time beside it; the block-parallel chain
-   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2}, no layout
-   copy before K3, the tone,
+   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2, mix: 1}, no
+   layout copy before K3, the tone,
    peak memory, 20 timed calls), the streamed run at 1,048,576-byte
-   blocks (K13 once a block; within 1e-3) and the linear complex chain
-   (within 1e-4);
+   blocks (K8 and K13 once a block; within 1e-3) and the linear complex
+   chain (within 1e-4);
 7. the transmitter, ``apps.fm_tx`` (10/3 and 8/1 ``Fir`` resamplers on
    K2, ``FmMod``) on a 60 s, 1 kHz WAV: K2 at both stages on a streamed
    block and on the whole recording as one block (bitwise, timed beside
@@ -239,8 +259,10 @@ nvcc per source, all at once), then:
    bank channel-sharded 16 channels a rank and on a 2 x 2 grid
    (bitwise), ``am_chain()`` (1e-4: the AGC's and the DC blocker's
    affine prefixes compose across the ranks; K12 and K13 launched on
-   every rank, and K13 in the stereo scenarios),
-   ``am_chain(agc_approx=1)`` (through the envelope bitwise,
+   every rank, and K13 and K14 in the stereo scenarios, K14 three times
+   a rank and K3 once (none with K5)),
+   ``am_chain(agc_approx=1)`` (K8's complex form once a rank; through the
+   envelope bitwise,
    the R sweeps' gains crossing ranks; the whole chain 1e-4, its
    ``DcBlocker`` prefix); and the channelizer CLI under ``torchrun``
    (four gloo ranks, ``--wideband``), its WAVs the one-process CLI's.
@@ -260,7 +282,8 @@ nvcc per source, all at once), then:
    separation); ``main`` in this process against an unpaced radio under
    the port's ``Timer`` (samples/s against real time, blocks dropped and
    launches: a figure, not a check) for mono, ``--batched 8`` and
-   stereo (K11 and K13 launched once a block, as K4 is: checked); the
+   stereo (K11, K13 and the audio FIR launched once a block, as K4 is,
+   and K14 twice: checked); the
    native loader (its g++ build time, ``--native`` giving
    the file CLI's WAV, ``native_file_source(repeat=True)`` the file twice
    over, 64 UDP datagrams of 65,440 bytes through ``fm_chain()`` on the
@@ -325,10 +348,13 @@ CEILINGS = {}
 CHAIN_TIMINGS = []
 TX_SECONDS, TX_RATE, TX_TONE = 60, 48_000, 1_000.0   # the transmitter's WAV
 TX_BLOCK = 46_080                     # fm_tx's default block
-# the stereo chain with the fused back half, one call: K4, StereoDecode's
-# six K3 launches, K5, K11, K13 (the de-emphasis's final state and output)
-STEREO_FUSED_LAUNCHES = {"u8_front": 1, "fir": 6, "backhalf": 1,
-                         "fm_demod": 1, "iir": 2}
+# the stereo chain, one call: K4, K11, K14 (launch A in StereoDecode's
+# shard_carry, A and B in its apply), the back half (K2 -> K3's audio FIR,
+# or K5 fused), K13 (the de-emphasis's final state and output)
+STEREO_LAUNCHES = {"u8_front": 1, "fir": 1, "resample": 1, "fm_demod": 1,
+                   "iir": 2, "stereo_decode": 3}
+STEREO_FUSED_LAUNCHES = {"u8_front": 1, "backhalf": 1, "fm_demod": 1,
+                         "iir": 2, "stereo_decode": 3}
 
 
 def require(cond, msg: str) -> None:
@@ -611,17 +637,18 @@ def max_err(a, b) -> float:
     return (a - b).abs().max().item()
 
 
-def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> None:
-    """Print a kernel's floor under the order it keeps (K2, K3, K5),
-    computed from this run's measured SM clock: a rounded multiply and a
-    rounded add per tap and output, separate f32 instructions, at 128 f32
-    lanes per SM."""
+def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> float:
+    """Print and return a kernel's floor in ms under the order it keeps
+    (K2, K3, K5, K14), computed from this run's measured SM clock: a
+    rounded multiply and a rounded add per tap and output, separate f32
+    instructions, at 128 f32 lanes per SM."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = CEILINGS["measured"].clock_hz
     ms = 2 * n_taps * outputs / (sms * 128 * clock) * 1e3
     print(f"{what}: no-FMA floor {ms} ms ({n_taps} taps x {outputs} outputs "
           f"x 2 f32 instructions at {sms} SMs x 128 lanes x {clock / 1e9} "
           "GHz, the measured clock; computed)")
+    return ms
 
 
 def fir_switch(f: int, device) -> int:
@@ -959,9 +986,9 @@ def run_cli(raw, stereo: bool, front: str = "auto"):
 
 
 def check_stereo_kernels(raw, ops, seed: int):
-    """K4, K11 over K4's planes, K3 at StereoDecode's 65-tap shape, and
-    K5, each vs its plain version at the stereo path's shapes and at extra
-    geometries."""
+    """K4, K11 over K4's planes, K14 over the composite, K2 over the L/R
+    planes and K5, each vs its plain version at the stereo path's shapes
+    and at extra geometries."""
     from sdr_tpu_torch.kernels import backhalf, fir, resample, u8_front
     from sdr_tpu_torch.kernels.u8_front import tap_words
     from sdr_tpu_torch.ops.quantized import u8_front_plan
@@ -1022,38 +1049,11 @@ def check_stereo_kernels(raw, ops, seed: int):
           f"torch.atan2 (max {ATAN2F['max_rad']} rad), the complex form "
           f"within {ANGLE} rad, at {count} extra geometries")
 
-    # K3 at StereoDecode's shape: 65 taps over concat(hist, composite)
+    # K14 over the composite, history and lock from StereoDecode's carry
     _, comp = demod.apply(demod.shard_carry(y4), y4)
+    rows += check_stereo_decode_kernel(stereo, comp, seed)
     sc = stereo.shard_carry(comp)
-    xe = torch.cat([sc[0], comp], dim=-1)
     nc = comp.shape[-1]
-    a3 = (stereo._lp15, xe, nc, 1, stereo.H - 64)      # the mono lowpass
-    err3 = 0.0
-    for a in (a3, (stereo._bp19, xe, xe.shape[-1] - 64, 1, 0)):
-        err3 = max(err3, max_err(fir.fir_strided(*a),
-                                 fir.fir_strided_reference(*a)))
-    require(err3 == 0, f"K3 (65 taps) vs plain {err3} != 0")
-    y3 = fir.fir_strided(*a3)
-    w3 = stereo._lp15.view(1, 1, -1)
-
-    def lib3():
-        return torch.nn.functional.conv1d(xe[:, None, stereo.H - 64:],
-                                          w3)[:, 0, :nc]
-
-    lib_err3 = (lib3() - y3).abs().max().item()
-    b3, by3 = bound(nbytes(xe, stereo._lp15, y3), 2 * 65 * nc * ROWS, "f32")
-    ms3 = time_ms(lambda: fir.fir_strided(*a3), 20)
-    rows.append(dict(
-        name="K3 fir (StereoDecode, 65 taps, start 128)", kernel="fir",
-        launches_note="the fir kernel's launches on the path at every "
-                      "shape: 65 taps in StereoDecode, 64 in the back half",
-        route="cuda", source="sdr_tpu_torch/csrc/fir.cu",
-        replaces="sdr_tpu/kernels/fir_pallas.py:145",
-        max_abs_err=err3, ms=ms3,
-        plain_ms=time_ms(lambda: fir.fir_strided_reference(*a3), 3, 1),
-        bound_ms=b3, bound_by=by3, bound_fraction=b3 / ms3,
-        library_ms=time_ms(lib3, 20), library_max_abs_diff=lib_err3))
-    print_no_fma_floor("K3 fir (StereoDecode, 65 taps)", 65, nc * ROWS)
 
     # K2 over the L/R planes [32, 2], history from the halo, as the
     # unfused back half runs it: bitwise
@@ -1133,6 +1133,191 @@ def check_stereo_kernels(raw, ops, seed: int):
     return rows
 
 
+K14_REPLACES = ("none: sdr_tpu/stream/ops.py:732-795 (StereoDecode: five "
+                "65-tap FIRs through sdr_tpu/ops/fir.py:271-287 _dispatch, "
+                "the Pallas fir_strided or XLA's conv, and XLA fusions)")
+
+
+def check_stereo_decode_kernel(op, comp, seed: int):
+    """K14 over the stereo path's composite ``comp`` [32, 655,360] with the
+    history ``StereoDecode.shard_carry`` gives: launch A as ``shard_carry``
+    runs it (no entering lock: a, b) and as ``apply`` runs it (the path's
+    entering lock, writing the squared pilot) and launch B gated by that
+    lock from that sq, all bitwise their plain versions; two launches
+    bitwise equal; the extra geometries (:func:`stereo_geometries`).
+    Rows for launch A, launch B and both as ``apply`` runs them, each
+    timed with its bound, its no-FMA floor and a ``conv1d`` yardstick."""
+    from sdr_tpu_torch.kernels import stereo_decode as k14
+    h, lock0 = op.shard_carry(comp)
+    hi, lo = op.lock_hi, op.lock_lo
+    n, R = comp.shape[-1], comp.shape[0]
+    nq = n + 128
+    sq = torch.empty(R, nq, device=comp.device)
+    sq_ref = torch.empty(R, nq, device=comp.device)
+    a_sc = (op._bp19, h, comp, None, hi, lo)
+    a_ap = (op._bp19, h, comp, lock0, hi, lo)
+    got = k14.pilot_lock(*a_sc)
+    require(got[0] is None and same_bits(
+        got[1:], k14.pilot_lock_reference(*a_sc)[1:]),
+        "K14 launch A (shard_carry's form) vs plain not bitwise")
+    got = k14.pilot_lock(*a_ap, sq=sq)
+    require(same_bits(got, k14.pilot_lock_reference(*a_ap, sq=sq_ref))
+            and same_bits(sq, sq_ref),
+            "K14 launch A (apply's form) vs plain not bitwise")
+    lock = got[0]
+    require(bool((lock == 1).all()), f"K14: the path's rows lock "
+            f"({lock.tolist()})")
+    b = (op._taps, h, comp, lock, op.gain, op.pilot_floor)
+    y = k14.stereo_decode(*b, sq)
+    ref = k14.stereo_decode_reference(*b, sq_ref)
+    torch.cuda.synchronize()
+    require(torch.isfinite(y).all().item(), "K14 output finite")
+    require(same_bits(y, ref), f"K14 launch B vs plain not bitwise (max abs "
+            f"diff {max_err(y, ref)})")
+    del ref, sq_ref
+    check_repeatable(lambda: k14.pilot_lock(*a_ap, sq=sq), "K14 launch A")
+    check_repeatable(lambda: k14.stereo_decode(*b, sq), "K14 launch B")
+    t0 = time.perf_counter()
+    count = stereo_geometries(op, comp.device, seed)
+    print(f"K14 stereo_decode: launches A and B bitwise their plain versions "
+          f"(the lock and r's decisions included) at [{R}, {n}] and at "
+          f"{count} extra geometries ({time.perf_counter() - t0:.1f} s)")
+
+    def both():
+        return k14.decode(op._taps, h, comp, lock0, op.gain, op.pilot_floor,
+                          hi, lo)[0]
+
+    def both_plain():
+        s2 = torch.empty_like(sq)
+        new, _, _ = k14.pilot_lock_reference(*a_ap, sq=s2)
+        return k14.stereo_decode_reference(op._taps, h, comp, new, op.gain,
+                                           op.pilot_floor, s2)
+
+    xe = torch.cat([h, comp], dim=-1)
+    w5 = torch.stack([op._taps[0], op._taps[1], op._taps[2], op._taps[3],
+                      op._taps[3]])[:, None, :]
+
+    def lib5():     # the five filters, each over xe: a yardstick
+        return torch.nn.functional.conv1d(xe[:, None, :], w5)
+
+    def lib1():     # the pilot bandpass over xe
+        return torch.nn.functional.conv1d(xe[:, None, :], w5[:1])
+
+    # the work of a row: the pilot over nq, car and norm over n + 64, diff
+    # and m over n, each 65 taps; the elementwise steps
+    taps_a, taps_b = nq, 2 * (n + 64) + 2 * n
+    ew_a, ew_b = nq + 2 * (n + 192), 5 * (n + 64) + 4 * n
+    small = 4 * 4 * R                       # lock, a, b, the gate
+    ms_a = time_ms(lambda: k14.pilot_lock(*a_ap, sq=sq), 20)
+    ms_b = time_ms(lambda: k14.stereo_decode(*b, sq), 20)
+    ms_both = time_ms(both, 20)
+    ms_a_sc = time_ms(lambda: k14.pilot_lock(*a_sc), 20)
+    ms_op = time_ms(lambda: op.apply(op.shard_carry(comp), comp), 20)
+    out = []
+    for name, ms, plain, nb, ops_, outputs, lib, note, extra in (
+            ("K14 pilot_lock (launch A, apply's form: writes sq)", ms_a,
+             lambda: k14.pilot_lock_reference(*a_ap, sq=torch.empty_like(
+                 sq)), nbytes(h, comp, op._bp19, sq) + small,
+             2 * 65 * taps_a + ew_a, taps_a, lib1,
+             "conv1d of the pilot bandpass alone over [hist | x] (the row "
+             "sums and the lock not included)",
+             {"ms_shard_carry_form": ms_a_sc}),
+            ("K14 stereo_decode (launch B from launch A's sq)", ms_b,
+             lambda: k14.stereo_decode_reference(*b, sq),
+             nbytes(h, comp, op._taps, sq, y) + small,
+             2 * 65 * taps_b + ew_b, taps_b, lib5,
+             "conv1d with five output channels (bp19, bp38, avg, lp15, "
+             "lp15) over [hist | x]: the filters' sums, not the cascade",
+             {}),
+            ("K14 both launches (A then B, as apply runs them)", ms_both,
+             both_plain, nbytes(h, comp, op._taps, y) + small,
+             2 * 65 * (taps_a + taps_b) + ew_a + ew_b, taps_a + taps_b, lib5,
+             "the same conv1d as launch B's", {
+                 "op_ms": ms_op, "op_note": "StereoDecode.shard_carry + "
+                 "apply at the path's batch (A, A with sq, B, the carry)"})):
+        bms, by = bound(nb, ops_ * R, "f32")
+        out.append(dict(
+            name=f"{name} [{R}, {n}]", kernel="stereo_decode",
+            route="cuda", source="sdr_tpu_torch/csrc/stereo_decode.cu",
+            replaces=K14_REPLACES, max_abs_err=0.0, bitwise=True,
+            geometries=count, ms=ms, plain_ms=time_ms(plain, 3, 1),
+            bound_ms=bms, bound_by=by, bound_fraction=bms / ms,
+            no_fma_floor_ms=print_no_fma_floor(name, 65, outputs * R),
+            library_ms=time_ms(lib, 20), library_note=note, **extra))
+    return out
+
+
+def _stereo_signal(kind: str, shape, g, device) -> torch.Tensor:
+    """A composite at 160 kS/s that locks (the multiplex with a 10 %
+    pilot), unlocks (a mono tone) or holds in the hysteresis band (a 5 %
+    pilot under a strong tone), each row from its own time, with a little
+    noise."""
+    n = shape[-1]
+    rows = int(np.prod(shape[:-1], dtype=np.int64))
+    t0 = torch.randint(0, 160_000, (rows, 1), generator=g, device=device)
+    t = (torch.arange(n, device=device, dtype=torch.float64) + t0) / 160e3
+    left, right = (torch.sin(2 * np.pi * f * t) for f in (1_000.0, 400.0))
+    if kind == "lock":
+        c = (0.25 * (left + right) + 0.1 * torch.cos(2 * np.pi * 19e3 * t)
+             + 0.25 * (left - right) * torch.cos(2 * np.pi * 38e3 * t))
+    elif kind == "unlock":
+        c = 0.5 * left
+    else:
+        c = 0.5 * left + 0.05 * torch.cos(2 * np.pi * 19e3 * t)
+    noise = torch.randn(c.shape, generator=g, device=device,
+                        dtype=torch.float64)
+    return (c + 0.001 * noise).float().view(shape)
+
+
+def stereo_geometries(op, device, seed: int) -> int:
+    """K14 bitwise against its plain versions: n in {1, 100, 191, 2,944,
+    3,001, 6,145} (below the history, around launch B's tile, past launch
+    A's) at rows [1], [3] and [2, 3], and one streamed block of 81,920
+    samples in one row; the block at bases 0 and 1 float off 16-byte
+    alignment; signals that lock, unlock and hold, from lock 0 and 1 (the
+    decision checked where the block is long enough to make it), launch A
+    writing the squared pilot and launch B from it, gated (``apply``'s
+    form) and ungated (``pilot_lock=False``'s); returns the count."""
+    from sdr_tpu_torch.kernels import stereo_decode as k14
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    count = 0
+    shapes = [(lead, n) for n in (1, 100, 191, 2_944, 3_001, 6_145)
+              for lead in ((1,), (3,), (2, 3))] + [((1,), 81_920)]
+    for lead, n in shapes:
+        for kind in ("lock", "unlock", "hold"):
+            full = _stereo_signal(kind, lead + (192 + n,), g, device)
+            hist = full[..., :192].contiguous()
+            for off in (0, 1):
+                x = misaligned(full[..., 192:].contiguous(), off)
+                for lock0 in (0.0, 1.0):
+                    lock = torch.full(lead, lock0, device=device)
+                    a = (op._bp19, hist, x, lock, op.lock_hi, op.lock_lo)
+                    sq = torch.empty(lead + (n + 128,), device=device)
+                    sq_ref = torch.empty_like(sq)
+                    got = k14.pilot_lock(*a, sq=sq)
+                    require(same_bits(got, k14.pilot_lock_reference(
+                        *a, sq=sq_ref)) and same_bits(sq, sq_ref),
+                            f"K14 launch A at {lead}, n {n}, {kind}, offset "
+                            f"{off}, lock {lock0}: not bitwise")
+                    if n >= 2_944:
+                        want = {"lock": 1.0, "unlock": 0.0,
+                                "hold": lock0}[kind]
+                        require(bool((got[0] == want).all()),
+                                f"K14 lock at {lead}, n {n}, {kind} from "
+                                f"{lock0}: {got[0].tolist()}")
+                    # gated (apply's form), ungated (pilot_lock=False's)
+                    for gate in (got[0], None)[:2 - int(lock0)]:
+                        b = (op._taps, hist, x, gate, op.gain,
+                             op.pilot_floor, sq)
+                        y = k14.stereo_decode(*b)
+                        require(same_bits(
+                            y, k14.stereo_decode_reference(*b)),
+                            f"K14 launch B at {lead}, n {n}, {kind}, offset "
+                            f"{off}, gated {gate is not None}: not bitwise")
+                        count += 1
+    return count
+
+
 def time_chain(ops, raw, what: str, nblocks: int = ROWS,
                samples: int | None = None,
                unit: str = "complex input samples/s") -> dict:
@@ -1201,10 +1386,7 @@ def run_stereo_chain(raw, ops, kernels):
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # K4; StereoDecode's six K3 launches and the audio FIR's; K2; K11;
-    # K13: the de-emphasis's final state (shard_carry) and output (apply)
-    require_launches(launches, {"u8_front": 1, "fir": 7, "resample": 1,
-                                "fm_demod": 1, "iir": 2}, "stereo path")
+    require_launches(launches, STEREO_LAUNCHES, "stereo path")
     per_row = ops[3].out_len(ops[0].out_len(ROW_BYTES))
     require(tuple(y.shape) == (2, ROWS * per_row), f"output {y.shape}")
     out = y.cpu().numpy()
@@ -1247,7 +1429,8 @@ def run_stereo_chain(raw, ops, kernels):
                            range(0, raw.numel(), STREAM_BLOCK)))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    require_per_block(kernels, {"u8_front": 1, "fm_demod": 1, "iir": 1},
+    require_per_block(kernels, {"u8_front": 1, "fm_demod": 1, "iir": 1,
+                                "fir": 1, "stereo_decode": 2},
                       raw.numel() // STREAM_BLOCK, "stereo streamed")
     streamed = torch.cat(blocks, dim=-1)
     dstream = (streamed - y).abs().max().item()
@@ -1722,6 +1905,84 @@ def mix_geometries(device, seed: int) -> int:
                                     ref.view(torch.int32)),
                         f"K8 at n {n}, lead {lead}, offset {off}: not "
                         f"bitwise (max abs diff {max_err(y, ref)})")
+                count += 1
+    return count
+
+
+def check_mix_complex_kernel(mix_op, x, seed: int):
+    """K8's complex form as the complex ``Mix`` launches it over the AM
+    sequential path's rows ``x`` [32, 5,242,880] complex64 with the op's
+    table and a seeded unit phasor a row, bitwise against its plain
+    version; then at extra geometries (:func:`mix_complex_geometries`).
+    Timed with its bound beside ``x * lo`` alone (one pass, not the same
+    function)."""
+    from sdr_tpu_torch.kernels import mix
+    n = x.shape[-1]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    ang = torch.rand(x.shape[:-1], generator=g, dtype=torch.float64,
+                     device=x.device) * (2 * np.pi)
+    carry = torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
+    lo = mix_op._table(n)
+    a = (lo, carry, x)
+    y = mix.mix_complex(*a)
+    ref = mix.mix_complex_reference(*a)
+    torch.cuda.synchronize()
+    require(torch.isfinite(torch.view_as_real(y)).all().item(),
+            "K8 complex output finite")
+    require(same_bits(torch.view_as_real(y), torch.view_as_real(ref)),
+            f"K8 complex vs plain not bitwise (max abs diff "
+            f"{(y - ref).abs().max().item()})")
+    del ref
+    check_repeatable(lambda: torch.view_as_real(mix.mix_complex(*a)),
+                     "K8 complex")
+    count = mix_complex_geometries(x.device, seed)
+    b, by = bound(nbytes(*a, y), 12 * x.numel(), "f32")
+    ms = time_ms(lambda: mix.mix_complex(*a), 20)
+    print(f"K8 mix_complex: bitwise its plain version at {list(x.shape)} and "
+          f"at {count} extra geometries")
+    return dict(
+        name=f"K8 mix_complex (AM sequential complex Mix, {list(x.shape)} "
+             "complex64)",
+        kernel="mix", route="cuda", source="sdr_tpu_torch/csrc/mix.cu",
+        replaces="none: sdr_tpu/stream/ops.py:1163 (Mix complex: x * lo * "
+                 "carry, one XLA fusion)",
+        shape=f"table [{n}], phasors {list(carry.shape)}, {list(x.shape)} "
+              "-> the same",
+        max_abs_err=0.0, bitwise=True, geometries=count, ms=ms,
+        plain_ms=time_ms(lambda: mix.mix_complex_reference(*a), 3, 1),
+        bound_ms=b, bound_by=by, bound_fraction=b / ms,
+        library_ms=time_ms(lambda: x * lo, 20),
+        library_note="x * lo alone: one complex multiply, one pass (not the "
+                     "same function); the port's former complex Mix was it "
+                     "and a second pass by the phasor",
+        former_ms=time_ms(lambda: x * lo * carry[..., None], 20))
+
+
+def mix_complex_geometries(device, seed: int) -> int:
+    """K8's complex form bitwise against its plain version at n in {1, 6,
+    1,027, 4,096, 4,099, 65,539}, leading dims [3] and [2, 3], the rows
+    and the table at bases 0 and 1 complex sample off 16-byte alignment,
+    in both orders (table and rows apart); returns the count."""
+    from sdr_tpu_torch.kernels import mix
+    g = torch.Generator(device=device).manual_seed(seed + 4)
+    count = 0
+    for n in (1, 6, 1_027, 4_096, 4_099, 65_539):
+        for lead in ((3,), (2, 3)):
+            for off_lo, off_x in ((0, 0), (1, 1), (0, 1), (1, 0)):
+                lo = misaligned(torch.randn(n, generator=g, device=device,
+                                            dtype=torch.complex64), off_lo)
+                carry = torch.randn(lead, generator=g, device=device,
+                                    dtype=torch.complex64)
+                carry = carry / carry.abs()
+                x = misaligned(torch.randn(lead + (n,), generator=g,
+                                           device=device,
+                                           dtype=torch.complex64), off_x)
+                y = mix.mix_complex(lo, carry, x)
+                ref = mix.mix_complex_reference(lo, carry, x)
+                require(same_bits(torch.view_as_real(y),
+                                  torch.view_as_real(ref)),
+                        f"K8 complex at n {n}, lead {lead}, offsets "
+                        f"{off_lo, off_x}: not bitwise")
                 count += 1
     return count
 
@@ -2459,7 +2720,8 @@ def run_am_approx(raw, ops, kernels):
     # the decimator's seam and main launches; the sweep and the apply; the
     # DcBlocker's final state and output on K13
     require_launches(launches, {"fir": 2, "agc_scan": 2, "iq_convert": 1,
-                                "iir": 2}, "AM path, sequential AGC")
+                                "iir": 2, "mix": 1},
+                     "AM path, sequential AGC")
     require_no_layout_copy("AM path, sequential AGC")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,),
@@ -2480,7 +2742,7 @@ def run_am_approx(raw, ops, kernels):
                                        range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    require_per_block(kernels, {"iq_convert": 1, "iir": 1},
+    require_per_block(kernels, {"iq_convert": 1, "iir": 1, "mix": 1},
                       raw.numel() // AM_BLOCK, "AM sequential-AGC streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-3,
@@ -3723,15 +3985,24 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
 # bitwise; the kernels a rank must launch in one call)
 SHARD_CHECKS = {
     "mono": (0.0, ("u8_front_demod", "resample", "fir")),
-    "stereo": (1e-5, ("u8_front", "fm_demod", "resample", "fir", "iir")),
-    "stereo_fused": (1e-5, ("u8_front", "fm_demod", "backhalf", "fir",
-                            "iir")),
+    "stereo": (1e-5, ("u8_front", "fm_demod", "resample", "fir", "iir",
+                      "stereo_decode")),
+    "stereo_fused": (1e-5, ("u8_front", "fm_demod", "backhalf", "iir",
+                            "stereo_decode")),
     "wideband": (1e-4, ("channelize", "fir", "fm_demod", "resample")),
     "channel": (0.0, ("fir", "fm_demod", "resample")),
     "grid": (0.0, ("fir", "fm_demod", "resample")),
     "am": (1e-4, ("iq_convert", "mix", "fir", "agc_linear", "iir")),
-    "am_approx": (1e-4, ("iq_convert", "fir", "agc_scan", "iir")),
-    "am_approx_demod": (0.0, ("iq_convert", "fir", "agc_scan")),
+    "am_approx": (1e-4, ("iq_convert", "mix", "fir", "agc_scan", "iir")),
+    "am_approx_demod": (0.0, ("iq_convert", "mix", "fir", "agc_scan")),
+}
+# scenario -> the exact launches of the kernels named, on every rank:
+# StereoDecode on K14 alone (A in shard_carry, A and B in apply), K3 only
+# for the unfused back half's audio FIR, the complex Mix on K8 once
+SHARD_EXACT = {
+    "stereo": {"stereo_decode": 3, "fir": 1},
+    "stereo_fused": {"stereo_decode": 3, "fir": 0},
+    "am_approx": {"mix": 1},
 }
 
 
@@ -3799,6 +4070,9 @@ def run_gloo_ranks(seed: int, device, card: str):
                 for k in kernels:
                     require(launches[k] > 0, f"sharded {name}: rank {r} "
                             f"launched no {k} ({launches})")
+                for k, want in SHARD_EXACT.get(name, {}).items():
+                    require(launches[k] == want, f"sharded {name}: rank {r} "
+                            f"launched {k} {launches[k]} times, not {want}")
             paths[f"sharded_gloo_{name}"] = {
                 k: [lr[k] for lr in per_rank] for k in per_rank[0]}
             spans = [rep[name]["median_ms"] for rep in reports]
@@ -4173,6 +4447,10 @@ def run_live(seed: int, device, kernels, card: str):
                 require(launches["iir"] == launches["u8_front"],
                         f"live stereo: K13 not launched once a block, as "
                         f"K4 is ({launches})")
+                require(launches["fir"] == launches["u8_front"] and
+                        launches["stereo_decode"] == 2 * launches["u8_front"],
+                        f"live stereo: not K3 once and K14 twice a block "
+                        f"({launches})")
                 paths["live_stereo"] = launches
         paths["scan"] = check_surface(mono, device, kernels, tmp, card)
     print(f"live phase ran in {time.perf_counter() - t0:.1f} s")
@@ -4317,11 +4595,13 @@ def main(argv=None) -> int:
     am = run_am_chain(raw, ops, KERNELS)
     run_am_cli(raw)
 
-    # the AM path with the sequential AGC: K3 at f = 16, K6 (sweep, apply)
+    # the AM path with the sequential AGC: the complex Mix on K8, K3's
+    # complex form at f = 16, K6 (sweep, apply)
     ops = am_chain(agc_approx=1, device=device)
     _, xc = ops[0].apply((), raw.view(ROWS, ROW_BYTES))
+    qrows = [check_mix_complex_kernel(ops[1], xc, args.seed)]
     _, xc = ops[1].apply(ops[1].shard_carry(xc), xc)
-    qrows = [check_complex_decimator_kernel(
+    qrows += [check_complex_decimator_kernel(
         "K3 fir complex (AM sequential channel filter, [32, 5,242,880] "
         "rows, f = 16, 64 taps)", ops[2], xc)]
     _, xc = ops[2].apply(ops[2].shard_carry(xc), xc)

@@ -1,5 +1,6 @@
-"""What binds K1, K4, K3, K2, K5, K9, K12 and K13 on the card: each kernel
-beside source variants of itself, timed in turns in one process.
+"""What binds K1, K4, K3, K2, K5, K9, K12, K13, K14 and K8's complex form
+on the card: each kernel beside source variants of itself, timed in
+turns in one process.
 
     python -m sdr_tpu_torch.kernel_variants [--kernels fir ...]
 
@@ -26,7 +27,15 @@ outputs and storing them as one float4; ``fir_iq_inline``, the tile's
 split and sums inlined into the persistent loop) and must equal the
 committed
 kernels bitwise; ``fir_iq_no_sums`` and ``fir_cm_no_sums`` stage (and
-split) the complex tiles but sum nothing.
+split) the complex tiles but sum nothing; ``stereo_no_sums`` and
+``stereo_no_stores``: K14's launch B stages its tile but sums none of
+its four filters, or sums but stores nothing; ``pilot_no_sums``: launch
+A without its pilot sums; ``stereo_bounds3``: launch B held to three
+blocks an SM (must equal it bitwise); ``mix_complex_no_stores``: K8's
+complex form computes but stores nothing.  K14 is timed as
+``StereoDecode.apply`` runs it: launch A writing the squared pilot
+(``stereo_a``) and launch B from a squared pilot written beforehand
+(``stereo_b``).
 Shapes are
 the paths': 32 rows of 10,485,760 random u8 bytes with an 86-byte history
 (K1, K4: 51 s8 taps, decimation 8), f32 rows of 196,671 (K3, 64 taps)
@@ -43,7 +52,9 @@ with 11 taps a phase (K2 over [32] and [32, 2] rows to 196,671 outputs,
 K5 over [32, 2] to 196,608 through 64 FIR taps), AM's planar [32, 2,
 327,677] and envelopes [32, 327,677] (K12's scan, ``mu`` 0.005) and
 DC blocker [32, 327,677] and stereo's de-emphasis [32, 2, 196,608] (K13,
-the full and the final-state launch).  Times
+the full and the final-state launch), the stereo composite [32, 655,360]
+with a 192-sample history (K14, random: every row locks) and the AM
+sequential path's [32, 5,242,880] complex64 rows (K8's complex form).  Times
 are the mean of 20 launches by CUDA events, queued behind a device-side
 sleep (device time, not the host's enqueue), in the order committed,
 variants, committed.  A ``clone`` of each input is the copy yardstick.
@@ -51,7 +62,7 @@ Prints the card's name and power limit, each build's registers and
 spills as ``ptxas`` reports them, and one JSON line.  ``--kernels``
 limits the run to some kernels (the sources' names: ``u8_front_demod``,
 ``u8_front``, ``fir``, ``resample``, ``backhalf``, ``fft_stream``,
-``agc_linear``, ``iir``).
+``agc_linear``, ``iir``, ``stereo_decode``, ``mix``).
 Needs a CUDA GPU and ``nvcc``.
 """
 
@@ -65,15 +76,17 @@ import subprocess
 import torch
 
 from sdr_tpu_torch.kernels import (_build, agc_linear, backhalf, fft_stream,
-                                   fir, iir, resample, u8_front,
-                                   u8_front_demod)
+                                   fir, iir, mix, resample, stereo_decode,
+                                   u8_front, u8_front_demod)
 from sdr_tpu_torch.ops.design import blackman, hamming, windowed_sinc
 from sdr_tpu_torch.ops.fir import prepare_phase_table
 from sdr_tpu_torch.ops.quantized import u8_front_plan
+from sdr_tpu_torch.stream import Mix, StereoDecode
 
 ROWS, ROW_BYTES, HIST = 32, 10_485_760, 86
 DEC_N = ROW_BYTES // 2                # f32 samples a plane of a row
 AM_N, STEREO_N = 327_677, 196_608     # K12's and K13's rows
+STEREO_COMP = 655_360                 # K14's composite samples a row
 WB_N = 64_000                         # the wideband bank's channel samples
 DC = ((1.0, -1.0), (0.997,))          # the DC blocker's section
 DEEMPH = ((0.12195122, 0.12195122, 0.0), (0.75609756, 0.0))
@@ -304,6 +317,31 @@ VARIANTS = {
         ("    block_scan<P>(sec.span, s, zero, after, totals);",
          "    for (int k = 0; k < P; ++k) after[k] = s[k];"),
         ("  block_scan<P>(sec.span, s, e, after, totals);", "")]),
+    "stereo_no_sums": (("stereo_decode",), [
+        ("fir_tile::tile_sums<0, K>(acc, ws, taps[1], K);", ""),
+        ("fir_tile::tile_sums<0, K>(acc, ws, taps[2], K);", ""),
+        ("fir_tile::tile_sums<0, K>(acc, ws, taps[3], K);", ""),
+        ("fir_tile::tile_sums<0, K>(acc, xs + (K - 1), taps[3], K);", "")]),
+    "stereo_no_stores": (("stereo_decode",), [(
+        "  fir_tile::store_sums(acc, yl, nb);\n"
+        "  fir_tile::store_sums(rv, yl + n, nb);",
+        "  if (nb < 0) {\n    fir_tile::store_sums(acc, yl, nb);\n"
+        "    fir_tile::store_sums(rv, yl + n, nb);\n  }")]),
+    "pilot_no_sums": (("stereo_decode",), [(
+        "fir_tile::tile_sums<0, K>(acc, xs, taps, K);", "")]),
+    "stereo_bounds3": (("stereo_decode",), [(
+        "__launch_bounds__(NT)\ncascade_kernel",
+        "__launch_bounds__(NT, 3)\ncascade_kernel")]),
+    "mix_complex_no_stores": (("mix",), [
+        ("    if (vec) {\n      *reinterpret_cast<float4*>(yr) =\n"
+         "          make_float4(out[0]",
+         "    if (vec && out[0] == 1234.5f) {\n"
+         "      *reinterpret_cast<float4*>(yr) =\n"
+         "          make_float4(out[0]"),
+        ("        if (k < cnt)\n          *reinterpret_cast<float2*>(yr + "
+         "2 * k) =",
+         "        if (k < 0)\n          *reinterpret_cast<float2*>(yr + "
+         "2 * k) =")]),
     "iir_serial_runs": (("iir",), [(
         "__device__ __forceinline__ void block_scan(const double* pw, "
         "double* w,\n", SERIAL_RUNS)]),
@@ -314,12 +352,13 @@ EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "resample_tile1536", "resample_unroll2", "fft_occ2", "agc_one_wave",
          "agc_wave2", "agc_wave8", "agc_smem_level2", "agc_bounds5", "agc_bounds6", "agc_stream_stores",
          "iir_one_wave", "iir_wave2", "iir_wave32", "iir_stream_stores",
-         "iir_bounds8", "iir_bounds10"}
+         "iir_bounds8", "iir_bounds10", "stereo_bounds3"}
 CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
                "fir_iq8": "fir", "fir_iq16": "fir", "fir_cm8": "fir",
                "resample_stereo": "resample", "agc_gains": "agc_linear",
                "iir_final": "iir", "iir_deemph": "iir",
-               "iir_deemph_final": "iir"}
+               "iir_deemph_final": "iir", "stereo_a": "stereo_decode",
+               "stereo_b": "stereo_decode", "mix_complex": "mix"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
@@ -366,7 +405,8 @@ def time_ms(fn) -> float:
 def main(argv=None) -> int:
     mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
             "fir": fir, "resample": resample, "backhalf": backhalf,
-            "fft_stream": fft_stream, "agc_linear": agc_linear, "iir": iir}
+            "fft_stream": fft_stream, "agc_linear": agc_linear, "iir": iir,
+            "stereo_decode": stereo_decode, "mix": mix}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", nargs="+", choices=sorted(mods),
                     default=sorted(mods))
@@ -424,6 +464,20 @@ def main(argv=None) -> int:
     zin = (torch.zeros(ROWS, 2, device=dev), torch.zeros(ROWS, 1, device=dev))
     zde = (torch.zeros(ROWS, 2, 2, device=dev),
            torch.zeros(ROWS, 2, 2, device=dev))
+    sd = StereoDecode(device=dev)
+    xst = torch.randn(ROWS, STEREO_COMP, generator=g, device=dev)
+    hst = torch.randn(ROWS, 192, generator=g, device=dev)
+    lock = torch.zeros(ROWS, device=dev)
+    gate = torch.ones(ROWS, device=dev)
+    sq = torch.empty(ROWS, STEREO_COMP + 128, device=dev)
+    sq_b = torch.empty_like(sq)     # launch B's input, written once here
+    if "stereo_decode" in args.kernels:
+        stereo_decode.pilot_lock(sd._bp19, hst, xst, lock, sd.lock_hi,
+                                 sd.lock_lo, sq_b)
+    lo_c = Mix(0.25, device=dev)._table(DEC_N)
+    carry_c = torch.polar(torch.ones(ROWS, device=dev),
+                          torch.rand(ROWS, generator=g, device=dev) * 6.28)
+
     calls = {
         "u8_front_demod": lambda: u8_front_demod.u8_front_demod(
             tq, scale, 8, x, hist, liq, num)[0],
@@ -449,6 +503,11 @@ def main(argv=None) -> int:
         "iir_deemph": lambda: iir.iir_section(xde, *DEEMPH, *zde)[0],
         "iir_deemph_final": lambda: iir.iir_section(xde, *DEEMPH, *zde,
                                                     store=False)[1],
+        "stereo_a": lambda: stereo_decode.pilot_lock(
+            sd._bp19, hst, xst, lock, sd.lock_hi, sd.lock_lo, sq)[0],
+        "stereo_b": lambda: stereo_decode.stereo_decode(
+            sd._taps, hst, xst, gate, sd.gain, sd.pilot_floor, sq_b),
+        "mix_complex": lambda: mix.mix_complex(lo_c, carry_c, xc),
     }
     out = {"card": card, "clone_ms": {
         "u8 [32, 10485760]": time_ms(x.clone),
@@ -461,7 +520,8 @@ def main(argv=None) -> int:
         "f32 [32, 2, 655360]": time_ms(xr2.clone),
         "f32 [32, 2, 327677]": time_ms(xa.clone),
         "f32 [32, 327677]": time_ms(xdc.clone),
-        "f32 [32, 2, 196608]": time_ms(xde.clone)}, "ms": {}}
+        "f32 [32, 2, 196608]": time_ms(xde.clone),
+        "f32 [32, 655360] composite": time_ms(xst.clone)}, "ms": {}}
     names = ["committed", *VARIANTS, "committed again"]
     want = {}
     for name in names:

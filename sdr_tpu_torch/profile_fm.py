@@ -13,7 +13,9 @@ blocks of 4,096,000 wideband samples, or [64, 2,621,440] channel
 basebands in 4 blocks) once to warm up (its peak device memory read
 around it, ``torch.cuda.max_memory_allocated``; ``--save`` writes that
 call's output to FILE, ``--compare`` holds it bitwise against a FILE
-that ``--save`` wrote, another tree's), then in one process:
+that ``--save`` wrote, another tree's) and counts the port's kernel
+launches of one call by kernel (``KERNELS``' counters, set to 0 just
+before it), then in one process:
 
 1. ``REPS`` calls unprofiled, each between CUDA events: the call's span on
    the device's clock, host gaps included; then ``SPLIT_REPS`` calls each
@@ -73,6 +75,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
                                        fm_chain, fm_taps, waterfall_chain)
+from sdr_tpu_torch.kernels import KERNELS
 from sdr_tpu_torch.measure_ceilings import card_line
 from sdr_tpu_torch.parallel.sharded import run_time_batched
 from sdr_tpu_torch.stream import ResampleFirScale
@@ -218,6 +221,12 @@ def main(argv=None) -> int:
                                 y.cpu().view(torch.int32)))
         print(f"output bitwise equal to {args.compare}: {same}")
     del y
+    for k in KERNELS:
+        k.launches = 0
+    run_time_batched(ops, raw, nblocks)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    print(f"the port's kernel launches in one call: {launches}")
 
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
@@ -291,6 +300,7 @@ def main(argv=None) -> int:
                       "stage_sum_floor_ms": floor_ms,
                       "stage_sum_share": floor_ms / split["device_ms"],
                       "bitwise_equal_to_compare": same,
+                      "launches": launches,
                       "card": card}))
     return 0
 

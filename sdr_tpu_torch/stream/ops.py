@@ -9,13 +9,13 @@
                         (K2), real, planar or complex
   ``FmDemod``           complex or planar I/Q -> FM demod
   ``FmMod``             real -> complex64 FM modulation, phase carried
-  ``StereoDecode``      FM composite -> L/R planes (five FIRs on K3)
+  ``StereoDecode``      FM composite -> L/R planes (K14)
   ``ResampleFirScale``  rational resample (K2) -> FIR with the gain folded
                         into its taps (K3); ``fused=True``: both in K5
   ``Iir``               cascaded biquads, e.g. de-emphasis (each section
                         on K13)
   ``Mix``               multiply by a local oscillator, phase carried
-                        (planar: K8)
+                        (K8, planar or complex)
   ``Agc``               automatic gain control (linear on K12, or
                         sequential on K6)
   ``AmDemod``           AM envelope
@@ -48,13 +48,14 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels import agc_linear, fft_stream
+from sdr_tpu_torch.kernels import stereo_decode as stereo_kernel
 from sdr_tpu_torch.kernels import iir as iir_kernel
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.fm_demod import (fm_demod_complex,
                                              fm_demod_planar)
 from sdr_tpu_torch.kernels.iq_convert import iq_convert
-from sdr_tpu_torch.kernels.mix import mix_planar
+from sdr_tpu_torch.kernels.mix import mix_complex, mix_planar
 from sdr_tpu_torch.kernels.resample import resample
 from sdr_tpu_torch.kernels.u8_front import u8_front
 from sdr_tpu_torch.kernels.u8_front_demod import u8_front_demod
@@ -62,7 +63,7 @@ from sdr_tpu_torch.ops import design, scans
 from sdr_tpu_torch.ops.channelize import branch_taps, channelize_rows
 from sdr_tpu_torch.ops.demod import am_demod, fm_mod
 from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
-                                   as_real_batch, fir_decimate, fir_filter)
+                                   as_real_batch, fir_decimate)
 from sdr_tpu_torch.ops.iir import companion_power
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.ops.shift import oscillator, oscillator_planar
@@ -440,29 +441,36 @@ class StereoDecode(StreamOp):
 
     Open-loop carrier recovery: bandpass the 19 kHz pilot, square it,
     bandpass at 38 kHz, and normalise by a 65-tap moving average of the
-    squared pilot (a soft Wiener normalisation); demodulate the
-    difference, lowpass it and the mono sum at 15 kHz.  All five FIRs are
-    65-tap centred filters run by ``fir_filter`` (K3 on the card); the
-    outputs lag the composite by 96 samples.  ``L = mono + g*diff``,
-    ``R = mono - g*diff``, with ``g = SEPARATION_GAIN``.
+    squared pilot (a soft Wiener normalisation that rolls to zero as the
+    pilot power falls below ``pilot_floor``); demodulate the difference,
+    lowpass it and the mono sum at 15 kHz.  All five FIRs are 65-tap
+    centred filters; the outputs lag the composite by 96 samples.  ``L =
+    mono + g*diff``, ``R = mono - g*diff``, with ``g = separation_gain``.
+    The cascade runs on K14 (``kernels/stereo_decode.py``): launch A the
+    pilot power and lock, launch B the filters, reading the history and
+    the block through two pointers and writing both planes.
 
-    **Pilot lock**: per block, the normalised pilot power ``r =
-    mean(bp19(x)^2) / mean(x^2)`` locks (``r > LOCK_HI``) or unlocks
-    (``r < LOCK_LO``); in between the previous block's state holds.  Unlocked, the difference channel is zeroed (L == R).  Each
+    **Pilot lock** (``pilot_lock=True``): per block, the normalised pilot
+    power ``r = mean(bp19(x)^2) / mean(x^2)`` locks (``r > lock_hi``) or
+    unlocks (``r < lock_lo``); in between the previous block's state
+    holds.  Unlocked, the difference channel is zeroed (L == R).  Each
     block's decision is an affine map on the entering lock (decisive:
     constant, hold: identity), so block-parallel runs compose them with
-    the scalar affine prefix and equal the stream.
+    the scalar affine prefix and equal the stream.  Without the lock the
+    difference channel is always on.
 
     Carry: (the trailing 192 composite samples, zeros at warmup; the lock
-    state, 0 at warmup)."""
+    state, 0 at warmup).  Where the block holds 192 samples or more, the
+    carried history is a view of the block (no copy): a caller that
+    overwrites its input buffer between blocks passes a copy."""
 
     H = 192                     # carry: trailing composite samples
     K = 65                      # all internal FIRs (odd -> integer delay)
-    SEPARATION_GAIN = 2.0       # the JAX package's defaults
-    PILOT_FLOOR = 1e-4
-    LOCK_HI, LOCK_LO = 0.02, 0.005
 
-    def __init__(self, fs: float = 160_000.0, device="cuda"):
+    def __init__(self, fs: float = 160_000.0, separation_gain: float = 2.0,
+                 pilot_floor: float = 1e-4, pilot_lock: bool = True,
+                 lock_hi: float = 0.02, lock_lo: float = 0.005,
+                 device="cuda"):
         ny = fs / 2
         if ny <= 53_000:
             raise ValueError(f"composite rate {fs:.0f} too low for the "
@@ -483,10 +491,17 @@ class StereoDecode(StreamOp):
             self.bp38 = ws(K, 46_000 / ny, h) - ws(K, 30_000 / ny, h)
             self.lp15 = ws(K, 15_000 / ny, h)
         self.avg = np.full(K, 1.0 / K, dtype=np.float32)
+        self.gain = float(separation_gain)
+        self.pilot_floor = float(pilot_floor)
+        self.pilot_lock = bool(pilot_lock)
+        if not (0.0 <= lock_lo < lock_hi):
+            raise ValueError("need 0 <= lock_lo < lock_hi")
+        self.lock_hi, self.lock_lo = float(lock_hi), float(lock_lo)
         self.device = resolve_device(device)
-        self._bp19, self._bp38, self._lp15, self._avg = (
-            torch.as_tensor(t, dtype=_F32, device=self.device)
-            for t in (self.bp19, self.bp38, self.lp15, self.avg))
+        self._taps = torch.as_tensor(
+            np.stack([self.bp19, self.bp38, self.avg, self.lp15]),
+            dtype=_F32, device=self.device)
+        self._bp19 = self._taps[0]
 
     def map_batch_shape(self, batch_shape):
         return tuple(batch_shape) + (2,)
@@ -496,35 +511,20 @@ class StereoDecode(StreamOp):
         return (torch.zeros(bs + (self.H,), dtype=_F32, device=self.device),
                 torch.zeros(bs, dtype=_F32, device=self.device))
 
-    def _lock_metric(self, xe, sq):
-        """Normalised pilot power of the extended block: the lock
-        decision's input, the same in apply and shard_carry."""
-        return sq.mean(dim=-1) / ((xe * xe).mean(dim=-1) + 1e-12)
-
     def apply(self, carry, x):
         hist, lock = carry
         n = x.shape[-1]
-        xe = torch.cat([hist, x], dim=-1)                # [.., H + n]
-        nt = xe.shape[-1]
-        d = (self.K - 1) // 2                            # 32
-        # fir_filter output m is centred at input m + d; each stage of the
-        # cascade shifts the centre by d
-        pilot = fir_filter(self._bp19, xe, nt - 2 * d)   # centre +32
-        sq = pilot * pilot
-        car = fir_filter(self._bp38, sq, nt - 4 * d)     # centre +64
-        norm = fir_filter(self._avg, sq, nt - 4 * d)     # centre +64
-        car = car * norm / (norm * norm + self.PILOT_FLOOR ** 2)
-        prod = xe[..., 2 * d: 2 * d + nt - 4 * d] * car  # centre +64
-        diff = fir_filter(self._lp15, prod, nt - 6 * d)  # centre +96
-        # mono: exactly the n emitted outputs (centres [H-96, H+n-96))
-        m = fir_filter(self._lp15, xe, n, start=self.H - 4 * d)
-        r = self._lock_metric(xe, sq)
-        new_lock = torch.where(
-            r > self.LOCK_HI, torch.ones_like(lock),
-            torch.where(r < self.LOCK_LO, torch.zeros_like(lock), lock))
-        s = diff[..., :n] * self.SEPARATION_GAIN * new_lock[..., None]
-        y = torch.stack([m + s, m - s], dim=-2)
-        return (xe[..., nt - self.H:].clone(), new_lock), y
+        y, new = stereo_kernel.decode(
+            self._taps, hist, x, lock if self.pilot_lock else None,
+            self.gain, self.pilot_floor, self.lock_hi, self.lock_lo)
+        if new is not None:
+            lock = new
+        # the trailing H samples of [hist | x]: a view of the block
+        if n >= self.H:
+            new_hist = x[..., n - self.H:]
+        else:
+            new_hist = torch.cat([hist[..., n:], x], dim=-1)
+        return (new_hist, lock), y
 
     def shard_carry(self, xb, initial=None, group=None):
         h = left_halo(xb, self.H, group=group)
@@ -533,16 +533,13 @@ class StereoDecode(StreamOp):
             h = substitute_first(h, initial[0], group)
             lock0 += torch.as_tensor(initial[1], dtype=_F32,
                                      device=xb.device)
+        if not self.pilot_lock:
+            return (h, lock0)
         # the exact entering lock state: each row's decision is an affine
         # map on the lock, composed by the scalar affine prefix; r comes
         # from the same extended block apply will see
-        xe = torch.cat([h, xb], dim=-1)
-        d = (self.K - 1) // 2
-        pilot = fir_filter(self._bp19, xe, xe.shape[-1] - 2 * d)
-        r = self._lock_metric(xe, pilot * pilot)
-        decisive = (r > self.LOCK_HI) | (r < self.LOCK_LO)
-        a = torch.where(decisive, 0.0, 1.0).to(_F32)
-        b = torch.where(r > self.LOCK_HI, 1.0, 0.0).to(_F32)
+        _, a, b = stereo_kernel.pilot_lock(self._bp19, h, xb, None,
+                                           self.lock_hi, self.lock_lo)
         A, B = exclusive_affine_prefix(a, b, group)
         return (h, A * lock0 + B)
 
@@ -726,7 +723,8 @@ class Mix(StreamOp):
     carry and the rotation all (cos, sin) pairs).
 
     Each block multiplies by the oscillator's table and the carried unit
-    phasor (planar: one pass on K8, ``kernels/mix.py``), then advances the phasor by the block's whole turn and
+    phasor in one pass on K8 (``kernels/mix.py``: planar, or its complex
+    form), then advances the phasor by the block's whole turn and
     renormalises it, so f32 rounding cannot drift its magnitude.  The
     table is made on the host in float64 once per block length and kept
     on the device.  Block-parallel runs give the stream's block b (counted
@@ -802,7 +800,7 @@ class Mix(StreamOp):
                           float(np.float32(np.sin(ang))))
             norm = torch.rsqrt(nr * nr + ni * ni)
             return torch.stack([nr * norm, ni * norm], dim=-1), y
-        y = x * lo * carry[..., None]
+        y = mix_complex(lo, carry.contiguous(), x.contiguous())
         new = carry * complex(np.complex64(np.exp(1j * ang)))
         return new / new.abs(), y
 

@@ -288,7 +288,8 @@ def test_kernels_hold_k7_and_k8():
     assert channelize.KERNEL.source == CSRC / "channelize.cu"
     assert mix.KERNEL.source == CSRC / "mix.cu"
     assert set(channelize.KERNEL.functions) == {"launch_branch_filter"}
-    assert set(mix.KERNEL.functions) == {"launch_mix_planar"}
+    assert set(mix.KERNEL.functions) == {"launch_mix_planar",
+                                         "launch_mix_complex"}
 
 
 @pytest.mark.parametrize("name", ["channelize", "mix"])

@@ -25,6 +25,7 @@ from sdr_tpu_torch.kernels import fm_demod as kfm_demod
 from sdr_tpu_torch.kernels import iir as kiir
 from sdr_tpu_torch.kernels import iq_convert as kiq_convert
 from sdr_tpu_torch.kernels import mix as kmix
+from sdr_tpu_torch.kernels import stereo_decode as kstereo
 from sdr_tpu_torch.kernels._build import CSRC
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.parallel.sharded import run_time_batched
@@ -239,6 +240,10 @@ def _wrapper_calls(device):
         lambda: kiir.iir_section(torch.ones((2, 100), **f32), (1.0, -1.0),
                                  (0.997,), torch.zeros((2, 2), **f32),
                                  torch.zeros((2, 1), **f32)),
+        lambda: kstereo.stereo_decode(
+            torch.ones((4, 65), **f32), torch.zeros((2, 192), **f32),
+            torch.ones((2, 100), **f32), torch.ones(2, **f32), 2.0, 1e-4,
+            torch.ones((2, 228), **f32)),
     ]
 
 
@@ -252,13 +257,14 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
              kmix.mix_planar_reference, kfft_stream.fft_stream_reference,
              kiq_convert.iq_convert_reference,
              kfm_demod.fm_demod_planar_reference,
-             kagc_linear.agc_apply_reference, kiir.iir_section_reference]
+             kagc_linear.agc_apply_reference, kiir.iir_section_reference,
+             kstereo.stereo_decode_reference]
     calls = _wrapper_calls("cpu")
-    assert len(calls) == len(plain) == len(KERNELS) == 13
+    assert len(calls) == len(plain) == len(KERNELS) == 14
     for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0] * 13
+    assert [k.launches for k in KERNELS] == [0] * 14
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
@@ -290,7 +296,8 @@ def test_six_kernels_each_with_its_source():
     AGC scan, K7 and K8 the channelizer's stencil and the planar mix that
     XLA fuses, K9 the waterfall's fused FFT, K10 and K11 the IQ converts
     and the FM demod that XLA fuses, K12 and K13 the linear AGC's and the
-    IIR section's associative scans; each is built from its own CUDA
+    IIR section's associative scans, K14 StereoDecode's filters and glue;
+    each is built from its own CUDA
     source in csrc/, and so are the ceilings probes (not a kernel of any
     path)."""
     from sdr_tpu_torch import measure_ceilings
@@ -298,7 +305,7 @@ def test_six_kernels_each_with_its_source():
     assert names == ["u8_front_demod", "resample", "fir", "u8_front",
                      "backhalf", "agc_scan", "channelize", "mix",
                      "fft_stream", "iq_convert", "fm_demod", "agc_linear",
-                     "iir"]
+                     "iir", "stereo_decode"]
     assert measure_ceilings.KERNEL not in KERNELS
     for k in KERNELS + (measure_ceilings.KERNEL,):
         assert k.source.parent == CSRC and k.source.suffix == ".cu"

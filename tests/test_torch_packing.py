@@ -22,7 +22,8 @@ import torch
 
 from sdr_tpu_torch import kernel_variants
 from sdr_tpu_torch.kernels import (agc_linear, backhalf, fft_stream, fir,
-                                   iir, resample, u8_front, u8_front_demod)
+                                   iir, mix, resample, stereo_decode,
+                                   u8_front, u8_front_demod)
 from sdr_tpu_torch.kernels.u8_front import pack_taps, tap_words
 from sdr_tpu_torch.ops.quantized import front_acc, u8_front_plan
 
@@ -147,7 +148,8 @@ def test_tap_words_cache_is_bounded():
 
 MODS = {"u8_front_demod": u8_front_demod, "u8_front": u8_front, "fir": fir,
         "resample": resample, "backhalf": backhalf, "fft_stream": fft_stream,
-        "agc_linear": agc_linear, "iir": iir}
+        "agc_linear": agc_linear, "iir": iir,
+        "stereo_decode": stereo_decode, "mix": mix}
 
 
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
