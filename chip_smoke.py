@@ -19,7 +19,7 @@ nvcc per source, all at once), then:
    measures the card's ceilings (``measure_ceilings``: the probes of
    ``csrc/ceilings.cu``, built with the kernels; device memory, f32, int8,
    the SM clock and the instruction latencies of K6's step, each rate at
-   most 1.05 times the data sheet's), which the no-FMA floors, K6's
+   most 1.05 times the data sheet's), which the FMA and no-FMA floors, K6's
    latency bound and phase 14 read;
 2. the mono path, ``fm_chain()`` (K1, K2, K3): holds each kernel against
    its plain PyTorch version on the card at the path's shapes (32 rows of
@@ -71,15 +71,18 @@ nvcc per source, all at once), then:
    ``shard_carry`` gives: launch A as ``shard_carry`` runs it (a, b) and as
    ``apply`` runs it (the lock from the path's entering lock, writing the
    squared pilot) and launch B gated by that lock from that sq, all
-   bitwise their plain versions (the lock and r's decisions included),
-   two launches bitwise equal, and at 342
-   extra geometries (n in {1, 100, 191, 2,944, 3,001, 6,145} at rows [1],
-   [3] and [2, 3], one streamed block of 81,920; bases 0 and 1 float off
-   16-byte alignment; signals that lock, unlock and hold in the band from
-   lock 0 and 1, each decision checked; without the pilot lock), timed
-   (launch A within ``shard_carry`` and ``apply``, launch B, both, the op
-   alone) beside its bound, its
-   no-FMA floor and a
+   bitwise their plain versions (the lock and r's decisions included;
+   the plain versions take each FMA exactly), two launches of each
+   bitwise equal, and at 378 extra geometries (n in {1, 100, 191, 2,944,
+   3,001, 6,145} at rows [1], [3] and [2, 3], one streamed block of
+   81,920; bases 0 and 1 float off 16-byte alignment; signals that lock,
+   unlock and hold in the band from lock 0 and 1, each decision checked;
+   without the pilot lock; and 36 with the history a view of the block
+   before, as ``StereoDecode.apply`` carries it), timed (launch A within
+   ``shard_carry`` and ``apply``, launch B, both, the op alone) beside
+   its bound, its FMA floor (its FFMA, the boxcar's adds and the glue as
+   one instruction each), the former design's recorded times (printed
+   beside them, not in the kernels line) and a
    ``conv1d`` of the five filters over the composite (five output
    channels; a yardstick, not the same function); K2 over the [32, 2] L/R
    planes (bitwise), and the K2 -> K3 pair K5 replaces (``pair_ms``); K13
@@ -651,6 +654,19 @@ def print_no_fma_floor(what: str, n_taps: int, outputs: int) -> float:
     return ms
 
 
+def print_fma_floor(what: str, instructions: int) -> float:
+    """Print and return a kernel's floor in ms at one f32 instruction (an
+    FFMA, an add or a multiply) a lane and cycle (K14), computed from this
+    run's measured SM clock at 128 f32 lanes per SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = CEILINGS["measured"].clock_hz
+    ms = instructions / (sms * 128 * clock) * 1e3
+    print(f"{what}: FMA floor {ms} ms ({instructions} f32 instructions at "
+          f"{sms} SMs x 128 lanes x {clock / 1e9} GHz, the measured clock; "
+          "computed)")
+    return ms
+
+
 def fir_switch(f: int, device) -> int:
     """The most taps K3's staged branch takes at factor ``f`` (its own
     plan's switch to the one-thread-an-output branch)."""
@@ -1136,6 +1152,16 @@ def check_stereo_kernels(raw, ops, seed: int):
 K14_REPLACES = ("none: sdr_tpu/stream/ops.py:732-795 (StereoDecode: five "
                 "65-tap FIRs through sdr_tpu/ops/fir.py:271-287 _dispatch, "
                 "the Pallas fir_strided or XLA's conv, and XLA fusions)")
+# K14's former design (a product and a sum rounded apiece, the average a
+# fourth filter, a block a tile) at the stereo path's shape, as its last
+# reading on an NVIDIA H100 80GB HBM3 at 700 W recorded it (PERF.md §6:
+# launch A as apply runs it, as shard_carry runs it, launch B, both, the
+# op alone).  Printed for comparison only: the kernels line carries what
+# this run measures.
+K14_FORMER_MS = {"a": 0.1531, "a_shard_carry": 0.1415, "b": 0.4887,
+                 "both": 0.6508, "op": 0.876}
+# the boxcar's operations an output: 70 adds and 4 multiplies a quad
+K14_BOX_OPS = 74 / 4
 
 
 def check_stereo_decode_kernel(op, comp, seed: int):
@@ -1146,7 +1172,8 @@ def check_stereo_decode_kernel(op, comp, seed: int):
     lock from that sq, all bitwise their plain versions; two launches
     bitwise equal; the extra geometries (:func:`stereo_geometries`).
     Rows for launch A, launch B and both as ``apply`` runs them, each
-    timed with its bound, its no-FMA floor and a ``conv1d`` yardstick."""
+    timed with its bound, its FMA floor and a ``conv1d`` yardstick, the
+    former design's time printed beside it."""
     from sdr_tpu_torch.kernels import stereo_decode as k14
     h, lock0 = op.shard_carry(comp)
     hi, lo = op.lock_hi, op.lock_lo
@@ -1176,6 +1203,8 @@ def check_stereo_decode_kernel(op, comp, seed: int):
             f"diff {max_err(y, ref)})")
     del ref, sq_ref
     check_repeatable(lambda: k14.pilot_lock(*a_ap, sq=sq), "K14 launch A")
+    check_repeatable(lambda: k14.pilot_lock(*a_sc)[1:],
+                     "K14 launch A (shard_carry's form)")
     check_repeatable(lambda: k14.stereo_decode(*b, sq), "K14 launch B")
     t0 = time.perf_counter()
     count = stereo_geometries(op, comp.device, seed)
@@ -1203,47 +1232,59 @@ def check_stereo_decode_kernel(op, comp, seed: int):
     def lib1():     # the pilot bandpass over xe
         return torch.nn.functional.conv1d(xe[:, None, :], w5[:1])
 
-    # the work of a row: the pilot over nq, car and norm over n + 64, diff
-    # and m over n, each 65 taps; the elementwise steps
-    taps_a, taps_b = nq, 2 * (n + 64) + 2 * n
+    # the work of a row: the pilot over nq, car over n + 64, diff and m
+    # over n, each 65 taps; the boxcar over n + 64; the elementwise steps
+    taps_a, taps_b = nq, (n + 64) + 2 * n
     ew_a, ew_b = nq + 2 * (n + 192), 5 * (n + 64) + 4 * n
+    box = int(K14_BOX_OPS * (n + 64))
     small = 4 * 4 * R                       # lock, a, b, the gate
     ms_a = time_ms(lambda: k14.pilot_lock(*a_ap, sq=sq), 20)
     ms_b = time_ms(lambda: k14.stereo_decode(*b, sq), 20)
     ms_both = time_ms(both, 20)
     ms_a_sc = time_ms(lambda: k14.pilot_lock(*a_sc), 20)
     ms_op = time_ms(lambda: op.apply(op.shard_carry(comp), comp), 20)
+    was = K14_FORMER_MS
     out = []
-    for name, ms, plain, nb, ops_, outputs, lib, note, extra in (
+    for name, ms, plain, nb, ops_, instr, former, lib, note, extra in (
             ("K14 pilot_lock (launch A, apply's form: writes sq)", ms_a,
              lambda: k14.pilot_lock_reference(*a_ap, sq=torch.empty_like(
                  sq)), nbytes(h, comp, op._bp19, sq) + small,
-             2 * 65 * taps_a + ew_a, taps_a, lib1,
+             2 * 65 * taps_a + ew_a, 65 * taps_a, was["a"], lib1,
              "conv1d of the pilot bandpass alone over [hist | x] (the row "
              "sums and the lock not included)",
              {"ms_shard_carry_form": ms_a_sc}),
             ("K14 stereo_decode (launch B from launch A's sq)", ms_b,
              lambda: k14.stereo_decode_reference(*b, sq),
              nbytes(h, comp, op._taps, sq, y) + small,
-             2 * 65 * taps_b + ew_b, taps_b, lib5,
+             2 * 65 * taps_b + box + ew_b, 65 * taps_b + box + ew_b,
+             was["b"], lib5,
              "conv1d with five output channels (bp19, bp38, avg, lp15, "
              "lp15) over [hist | x]: the filters' sums, not the cascade",
              {}),
             ("K14 both launches (A then B, as apply runs them)", ms_both,
              both_plain, nbytes(h, comp, op._taps, y) + small,
-             2 * 65 * (taps_a + taps_b) + ew_a + ew_b, taps_a + taps_b, lib5,
+             2 * 65 * (taps_a + taps_b) + box + ew_a + ew_b,
+             65 * (taps_a + taps_b) + box + ew_b, was["both"], lib5,
              "the same conv1d as launch B's", {
-                 "op_ms": ms_op, "op_note": "StereoDecode.shard_carry + "
-                 "apply at the path's batch (A, A with sq, B, the carry)"})):
+                 "op_ms": ms_op,
+                 "op_note": "StereoDecode.shard_carry + apply at the "
+                 "path's batch (A, A with sq, B, the carry)"})):
         bms, by = bound(nb, ops_ * R, "f32")
+        print(f"{name}: {ms} ms (the former design, recorded: "
+              f"{former} ms)")
         out.append(dict(
             name=f"{name} [{R}, {n}]", kernel="stereo_decode",
             route="cuda", source="sdr_tpu_torch/csrc/stereo_decode.cu",
             replaces=K14_REPLACES, max_abs_err=0.0, bitwise=True,
-            geometries=count, ms=ms, plain_ms=time_ms(plain, 3, 1),
-            bound_ms=bms, bound_by=by, bound_fraction=bms / ms,
-            no_fma_floor_ms=print_no_fma_floor(name, 65, outputs * R),
+            geometries=count, ms=ms,
+            plain_ms=time_ms(plain, 3, 1), bound_ms=bms, bound_by=by,
+            bound_fraction=bms / ms,
+            fma_floor_ms=print_fma_floor(name, instr * R),
             library_ms=time_ms(lib, 20), library_note=note, **extra))
+    print(f"K14 launch A, shard_carry's form: {ms_a_sc} ms (the former "
+          f"design, recorded: {was['a_shard_carry']} ms); "
+          f"StereoDecode alone: {ms_op} ms (the former design, recorded: "
+          f"{was['op']} ms)")
     return out
 
 
@@ -1277,7 +1318,9 @@ def stereo_geometries(op, device, seed: int) -> int:
     alignment; signals that lock, unlock and hold, from lock 0 and 1 (the
     decision checked where the block is long enough to make it), launch A
     writing the squared pilot and launch B from it, gated (``apply``'s
-    form) and ungated (``pilot_lock=False``'s); returns the count."""
+    form) and ungated (``pilot_lock=False``'s); then rows [3] of n in
+    {2,944, 6,145, 81,920} whose history is a view of the block before
+    (at bases 0 and 1, gated and ungated); returns the count."""
     from sdr_tpu_torch.kernels import stereo_decode as k14
     g = torch.Generator(device=device).manual_seed(seed + 3)
     count = 0
@@ -1315,6 +1358,31 @@ def stereo_geometries(op, device, seed: int) -> int:
                             f"K14 launch B at {lead}, n {n}, {kind}, offset "
                             f"{off}, gated {gate is not None}: not bitwise")
                         count += 1
+    # the history a view of the block before, at that block's row stride
+    for n in (2_944, 6_145, 81_920):
+        for kind in ("lock", "unlock", "hold"):
+            for off in (0, 1):
+                prev = misaligned(_stereo_signal(kind, (3, n), g, device),
+                                  off)
+                hist = prev[..., n - 192:]
+                x = _stereo_signal(kind, (3, n), g, device)
+                for gated in (True, False):
+                    sq = torch.empty(3, n + 128, device=device)
+                    sq_ref = torch.empty_like(sq)
+                    a = (op._bp19, hist, x, torch.zeros(3, device=device),
+                         op.lock_hi, op.lock_lo)
+                    got = k14.pilot_lock(*a, sq=sq)
+                    require(same_bits(got, k14.pilot_lock_reference(
+                        *a, sq=sq_ref)) and same_bits(sq, sq_ref),
+                            f"K14 launch A, history a view, n {n}, {kind}, "
+                            f"offset {off}: not bitwise")
+                    b = (op._taps, hist, x, got[0] if gated else None,
+                         op.gain, op.pilot_floor, sq)
+                    require(same_bits(k14.stereo_decode(*b),
+                                      k14.stereo_decode_reference(*b)),
+                            f"K14 launch B, history a view, n {n}, {kind}, "
+                            f"offset {off}, gated {gated}: not bitwise")
+                    count += 1
     return count
 
 

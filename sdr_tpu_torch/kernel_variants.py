@@ -28,14 +28,35 @@ split and sums inlined into the persistent loop) and must equal the
 committed
 kernels bitwise; ``fir_iq_no_sums`` and ``fir_cm_no_sums`` stage (and
 split) the complex tiles but sum nothing; ``stereo_no_sums`` and
-``stereo_no_stores``: K14's launch B stages its tile but sums none of
-its four filters, or sums but stores nothing; ``pilot_no_sums``: launch
-A without its pilot sums; ``stereo_bounds3``: launch B held to three
-blocks an SM (must equal it bitwise); ``mix_complex_no_stores``: K8's
+``stereo_no_stores``: K14's launch B stages its tiles but sums none of
+its three filters nor the boxcar, or sums but stores nothing;
+``stereo_no_loads`` and ``pilot_no_loads``: launch B or A stages its
+first tile only and computes every later one from it (the copies' cost,
+and whether they overlap the sums); ``pilot_no_sums``: launch A without
+its pilot sums; ``pilot_no_fence``:
+launch A without the fence between a row's partial sums and their
+completion count (the lock may then read a stale sum); ``pilot_stride``:
+launch A's blocks walk every grid-th tile, counting each done behind its
+own fence, in place of runs of consecutive tiles (must equal it
+bitwise); ``stereo_mul_add``:
+both launches' sums as a rounded product then a rounded sum (the
+former arithmetic in the new design: what FMA buys); ``stereo_fir_avg``: the
+boxcar as a 65-tap FMA filter of the average's taps (what the shared
+sum buys); these two change the rounding.  ``stereo_bounds1``: launch B
+at the compiler's own register count, without its bound of three
+blocks; ``stereo_blocks2``: launch B asks for 40 KB more shared memory,
+two blocks an SM in place of three;
+``stereo_one_buffer``: both launches wait for the next tile's copies
+before the current tile's sums (what the overlap buys);
+``stereo_single_stage``: launch B with one stage buffer (38.7 KB of
+shared memory, as many blocks an SM as its registers allow), each tile's
+copies issued and waited for at the start of its own step; these four
+must equal it bitwise.  ``mix_complex_no_stores``: K8's
 complex form computes but stores nothing.  K14 is timed as
-``StereoDecode.apply`` runs it: launch A writing the squared pilot
-(``stereo_a``) and launch B from a squared pilot written beforehand
-(``stereo_b``).
+``StereoDecode`` runs it: launch A writing the squared pilot
+(``stereo_a``, ``apply``'s form) and without it or an entering lock
+(``stereo_a_bare``, ``shard_carry``'s), and launch B from a squared pilot
+written beforehand (``stereo_b``).
 Shapes are
 the paths': 32 rows of 10,485,760 random u8 bytes with an 86-byte history
 (K1, K4: 51 s8 taps, decimation 8), f32 rows of 196,671 (K3, 64 taps)
@@ -92,6 +113,13 @@ DC = ((1.0, -1.0), (0.997,))          # the DC blocker's section
 DEEMPH = ((0.12195122, 0.12195122, 0.0), (0.75609756, 0.0))
 WAVE_K12 = "constexpr long long kWaveBytes = 32LL << 20;"
 WAVE_K13 = "constexpr long long kWaveBytes = 8LL << 20;"
+# every copy in flight waited for, the next tile's too (the host build's
+# copies are synchronous)
+WAIT_ALL = """#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_all;\\n" ::);
+#endif
+    __syncthreads();
+"""
 SERIAL_RUNS = """__device__ __forceinline__ void block_scan(const double* pw, double* w,
                                            const double* enter,
                                            double* after,
@@ -318,20 +346,61 @@ VARIANTS = {
          "    for (int k = 0; k < P; ++k) after[k] = s[k];"),
         ("  block_scan<P>(sec.span, s, e, after, totals);", "")]),
     "stereo_no_sums": (("stereo_decode",), [
-        ("fir_tile::tile_sums<0, K>(acc, ws, taps[1], K);", ""),
-        ("fir_tile::tile_sums<0, K>(acc, ws, taps[2], K);", ""),
-        ("fir_tile::tile_sums<0, K>(acc, ws, taps[3], K);", ""),
-        ("fir_tile::tile_sums<0, K>(acc, xs + (K - 1), taps[3], K);", "")]),
+        ("fma_sums(acc, ws, taps + KP);", ""),
+        ("boxcar(acc, ws, taps[2 * KP]);", ""),
+        ("fma_sums(acc, ws, taps + 3 * KP);", ""),
+        ("fma_sums(acc, xs + (K - 1), taps + 3 * KP);", "")]),
     "stereo_no_stores": (("stereo_decode",), [(
-        "  fir_tile::store_sums(acc, yl, nb);\n"
-        "  fir_tile::store_sums(rv, yl + n, nb);",
-        "  if (nb < 0) {\n    fir_tile::store_sums(acc, yl, nb);\n"
-        "    fir_tile::store_sums(rv, yl + n, nb);\n  }")]),
+        "    store_row(cs, yl, nb);\n    store_row(ws, yl + n, nb);",
+        "    if (nb < 0) {\n      store_row(cs, yl, nb);\n"
+        "      store_row(ws, yl + n, nb);\n    }")]),
     "pilot_no_sums": (("stereo_decode",), [(
-        "fir_tile::tile_sums<0, K>(acc, xs, taps, K);", "")]),
-    "stereo_bounds3": (("stereo_decode",), [(
-        "__launch_bounds__(NT)\ncascade_kernel",
-        "__launch_bounds__(NT, 3)\ncascade_kernel")]),
+        "fma_sums(acc, x, taps);", "")]),
+    "pilot_no_fence": (("stereo_decode",), [(
+        "      if (leaves) __threadfence();\n", "")]),
+    "pilot_stride": (("stereo_decode",), [
+        ("  long long it = blockIdx.x * per;\n"
+         "  const long long end = min(total, it + per);",
+         "  long long it = blockIdx.x;\n  const long long end = total;"),
+        ("  for (int b = 0; it < end; ++it, b ^= 1) {",
+         "  for (int b = 0; it < end; it += gridDim.x, b ^= 1) {"),
+        ("    const long long next = it + 1;",
+         "    const long long next = it + gridDim.x;")]),
+    "stereo_no_loads": (("stereo_decode",), [(
+        "    if (next < total) {\n      long long r, i0;",
+        "    if (next < 0) {\n      long long r, i0;")]),
+    "pilot_no_loads": (("stereo_decode",), [(
+        "    if (next < end) {", "    if (next < 0) {")]),
+    "stereo_bounds1": (("stereo_decode",), [(
+        "__launch_bounds__(NT, 3)\ncascade_kernel",
+        "__launch_bounds__(NT)\ncascade_kernel")]),
+    "stereo_blocks2": (("stereo_decode",), [(
+        "constexpr long long SMEM_B = 4LL * B_FLOATS;",
+        "constexpr long long SMEM_B = 4LL * B_FLOATS + 40960;")]),
+    "stereo_one_buffer": (("stereo_decode",), [
+        ("persistent::wait_prev();\n    __syncthreads();\n"
+         "    long long r, q0;", WAIT_ALL + "    long long r, q0;"),
+        ("persistent::wait_prev();\n    __syncthreads();\n"
+         "    long long r, i0;", WAIT_ALL + "    long long r, i0;")]),
+    "stereo_single_stage": (("stereo_decode",), [
+        ("constexpr int B_FLOATS = 4 * KP + TILE + 2 * (XB + WB);",
+         "constexpr int B_FLOATS = 4 * KP + TILE + (XB + WB);"),
+        ("    stage_xe(stages, g, r, i0, XB);\n"
+         "    stage_row(stages + XB, sq + r * nq, nq, i0, WB);\n", ""),
+        ("    const long long next = it + gridDim.x;\n",
+         "    const long long next = it;\n"),
+        ("      float* nx = stages + (b ^ 1) * (XB + WB);",
+         "      float* nx = stages;"),
+        ("persistent::wait_prev();\n    __syncthreads();\n"
+         "    long long r, i0;", WAIT_ALL + "    long long r, i0;"),
+        ("    float* const xs = stages + b * (XB + WB);",
+         "    float* const xs = stages;")]),
+    "stereo_mul_add": (("stereo_decode",), [(
+        "acc[j] = __fmaf_rn(tj[jj], w[jj + j], acc[j]);",
+        "acc[j] = __fadd_rn(acc[j], __fmul_rn(tj[jj], w[jj + j]));")]),
+    "stereo_fir_avg": (("stereo_decode",), [(
+        "boxcar(acc, ws, taps[2 * KP]);",
+        "zero(acc);\n    fma_sums(acc, ws, taps + 2 * KP);")]),
     "mix_complex_no_stores": (("mix",), [
         ("    if (vec) {\n      *reinterpret_cast<float4*>(yr) =\n"
          "          make_float4(out[0]",
@@ -352,13 +421,15 @@ EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "resample_tile1536", "resample_unroll2", "fft_occ2", "agc_one_wave",
          "agc_wave2", "agc_wave8", "agc_smem_level2", "agc_bounds5", "agc_bounds6", "agc_stream_stores",
          "iir_one_wave", "iir_wave2", "iir_wave32", "iir_stream_stores",
-         "iir_bounds8", "iir_bounds10", "stereo_bounds3"}
+         "iir_bounds8", "iir_bounds10", "stereo_bounds1", "stereo_blocks2",
+         "stereo_one_buffer", "stereo_single_stage", "pilot_stride"}
 CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
                "fir_iq8": "fir", "fir_iq16": "fir", "fir_cm8": "fir",
                "resample_stereo": "resample", "agc_gains": "agc_linear",
                "iir_final": "iir", "iir_deemph": "iir",
                "iir_deemph_final": "iir", "stereo_a": "stereo_decode",
-               "stereo_b": "stereo_decode", "mix_complex": "mix"}
+               "stereo_a_bare": "stereo_decode", "stereo_b": "stereo_decode",
+               "mix_complex": "mix"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
@@ -505,6 +576,8 @@ def main(argv=None) -> int:
                                                     store=False)[1],
         "stereo_a": lambda: stereo_decode.pilot_lock(
             sd._bp19, hst, xst, lock, sd.lock_hi, sd.lock_lo, sq)[0],
+        "stereo_a_bare": lambda: stereo_decode.pilot_lock(
+            sd._bp19, hst, xst, None, sd.lock_hi, sd.lock_lo)[1],
         "stereo_b": lambda: stereo_decode.stereo_decode(
             sd._taps, hst, xst, gate, sd.gain, sd.pilot_floor, sq_b),
         "mix_complex": lambda: mix.mix_complex(lo_c, carry_c, xc),

@@ -10,7 +10,7 @@ Over rows of the composite ``x [..., n]`` with each row's history
 ``fir(t, v)[i] = sum_j t[j] * v[i + j]``:
 
     pilot = fir(bp19, xe), sq = pilot^2
-    car = fir(bp38, sq), norm = fir(avg, sq)
+    car = fir(bp38, sq), norm = avg[0] * sum(sq[k: k + 65])
     prod = xe[64:] * (car * norm / (norm * norm + pilot_floor^2))
     diff = fir(lp15, prod)[:n], m = fir(lp15, xe)[64: 64 + n]
     s = diff * gain * gate,  y = [m + s, m - s]          (L, R)
@@ -25,31 +25,41 @@ gated by the lock on the device, and writes the L and R planes.
 :func:`decode` runs both as ``StereoDecode.apply`` needs them;
 ``StereoDecode.shard_carry`` runs launch A alone.
 
-Each sum runs in tap order, each product and sum one rounded f32
-operation, and the plain versions (``*_reference``: the decoder's former
-composition on K3's plain version, with the row sums in the kernel's
-order: :func:`row_sum`) equal the kernels bitwise, ``r`` and the lock
-included.
+Numbers.  Each 65-tap sum runs in tap order from +0, each step one
+fused multiply-add rounded once (the card's ``__fmaf_rn``); the moving
+average is the boxcar ``avg[0] * S``, ``S[k]`` the sum of ``sq[k .. k +
+64]`` built from the partial sums each quad of outputs shares, in the
+order the source writes down; the elementwise steps are one rounded f32
+operation each, in the decoder's order.  The plain versions
+(``*_reference``) take each FMA exactly (:func:`fma_f32`, in float64 with
+a round to odd: :func:`fir_fma_reference`), the boxcar in the kernel's
+quad order (:func:`boxcar_reference`) and the row sums in the kernel's
+order (:func:`row_sum`), so they equal the kernels bitwise, ``r`` and the
+lock included.  They differ from the decoder's former composition on
+K3's plain version (a product and a sum rounded apiece, the average as a
+fourth filter) by rounding only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, ptr
-from sdr_tpu_torch.kernels.fir import _fold, fir_strided_reference
+from sdr_tpu_torch.kernels._fma import fma_f32
+from sdr_tpu_torch.kernels.fir import _fold
 
-__all__ = ["KERNEL", "HISTORY", "TAPS", "TILE", "OUT_TILE", "decode",
-           "pilot_lock",
+__all__ = ["KERNEL", "HISTORY", "TAPS", "TILE", "OUT_TILE",
+           "boxcar_reference", "decode", "fir_fma_reference", "pilot_lock",
            "pilot_lock_reference", "row_sum", "scratch_floats",
            "stereo_decode", "stereo_decode_reference"]
 
 TAPS = 65                       # every filter's taps
 HISTORY = 3 * (TAPS - 1)        # 192 composite samples carried
-THREADS, GROUPS, RUN = 256, 3, 4    # fir_tile's threads, groups, outputs
+THREADS, GROUPS, RUN = 256, 3, 4    # the row sums: threads, groups, runs
 TILE = THREADS * GROUPS * RUN   # launch A's tile: 3072 pilot outputs
 OUT_TILE = TILE - 2 * (TAPS - 1)    # launch B's tile: 2944 outputs
 _F32 = torch.float32
@@ -95,6 +105,40 @@ def row_sum(v: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def fir_fma_reference(taps, v, num: int, start: int = 0) -> torch.Tensor:
+    """``sum_j taps[j] * v[..., start + i + j]`` for ``i < num``, as K14
+    sums it: tap order from +0, each step one exact f32 FMA."""
+    t = taps.to(torch.float64)
+    v = v.to(torch.float64)
+    acc = torch.zeros(v.shape[:-1] + (num,), dtype=_F32, device=v.device)
+    for j in range(t.shape[0]):
+        acc = fma_f32(t[j], v[..., start + j: start + j + num], acc)
+    return acc
+
+
+def boxcar_reference(sq, num: int, scale) -> torch.Tensor:
+    """``scale * S[k]`` for ``k < num``, ``S[k]`` the sum of ``sq[...,
+    k: k + 65]`` in launch B's order: for each quad ``k = 4m .. 4m + 3``,
+    ``C`` the 62 shared terms ``sq[4m + 3 .. 4m + 64]`` left to right, then
+    ``L2 = sq[4m + 2] + C``, ``L1 = sq[4m + 1] + L2`` and ``S = (sq[4m] +
+    L1, L1 + sq[4m + 65], (L2 + sq[4m + 65]) + sq[4m + 66], ((C + sq[4m +
+    65]) + sq[4m + 66]) + sq[4m + 67])``.  ``scale`` is an f32 tensor."""
+    quads = -(-num // 4)
+    v = torch.nn.functional.pad(
+        sq, (0, max(4 * quads + TAPS + 3 - sq.shape[-1], 0)))
+
+    def at(o):
+        return v[..., o: o + 4 * quads: 4]
+    c = at(3)
+    for o in range(4, TAPS):
+        c = c + at(o)
+    l2 = at(2) + c
+    l1 = at(1) + l2
+    s = torch.stack([at(0) + l1, l1 + at(65), (l2 + at(65)) + at(66),
+                     ((c + at(65)) + at(66)) + at(67)], dim=-1)
+    return scale * s.flatten(-2)[..., :num]
+
+
 def _check(hist, x, lead_of):
     for name, t in (("hist", hist), ("x", x)):
         if t.dtype != _F32:
@@ -133,6 +177,26 @@ def _taps_of(taps, x, rows):
         raise ValueError("taps and x must share a device")
 
 
+_BOXCARS: dict = {}     # id(taps) -> (ref, version) of checked taps
+_BOXCARS_KEPT = 16
+
+
+def _check_boxcar(taps):
+    """Refuses ``taps [4, 65]`` whose avg row is not one constant: launch B
+    and its plain version run it as the boxcar ``avg[0] * S``.  A tensor is
+    checked once (one read back to the host) for as long as it lives and
+    is not modified in place."""
+    hit = _BOXCARS.get(id(taps))
+    if hit is not None and hit[0]() is taps and hit[1] == taps._version:
+        return
+    if not bool((taps[2] == taps[2, 0]).all()):
+        raise ValueError("taps[2] (avg) must be one constant: launch B "
+                         "runs it as a boxcar scaled by its first tap")
+    if len(_BOXCARS) >= _BOXCARS_KEPT:
+        _BOXCARS.pop(next(iter(_BOXCARS)))
+    _BOXCARS[id(taps)] = (weakref.ref(taps), taps._version)
+
+
 def _rows(t: torch.Tensor):
     """``(t, row stride)``: ``t`` read in place where its last axis is
     contiguous and its leading axes fold into rows at one stride, else a
@@ -154,7 +218,7 @@ def pilot_lock_reference(bp19, hist, x, lock, lock_hi: float,
         _check_sq(sq, x)
     xe = torch.cat([hist, x], dim=-1)
     nt = xe.shape[-1]
-    pilot = fir_strided_reference(bp19, xe, nt - (TAPS - 1))
+    pilot = fir_fma_reference(bp19, xe, nt - (TAPS - 1))
     p2 = pilot * pilot
     if sq is not None:
         sq.copy_(p2)
@@ -215,17 +279,18 @@ def stereo_decode_reference(taps, hist, x, gate, gain: float,
     """Plain PyTorch version of :func:`stereo_decode`."""
     _check(hist, x, {"gate": gate})
     _taps_of(taps, x, (4, TAPS))
+    _check_boxcar(taps)
     _check_sq(sq, x)
     _, bp38, avg, lp15 = taps
     n, d = x.shape[-1], TAPS - 1
     xe = torch.cat([hist, x], dim=-1)
     nt = xe.shape[-1]
-    car = fir_strided_reference(bp38, sq, nt - 2 * d)
-    norm = fir_strided_reference(avg, sq, nt - 2 * d)
+    car = fir_fma_reference(bp38, sq, nt - 2 * d)
+    norm = boxcar_reference(sq, nt - 2 * d, avg[0])
     car = car * norm / (norm * norm + _pf2(pilot_floor))
     prod = xe[..., d: d + nt - 2 * d] * car
-    diff = fir_strided_reference(lp15, prod, n)
-    m = fir_strided_reference(lp15, xe, n, 1, d)
+    diff = fir_fma_reference(lp15, prod, n)
+    m = fir_fma_reference(lp15, xe, n, d)
     s = diff * float(np.float32(gain))
     if gate is not None:
         s = s * gate[..., None]
@@ -238,7 +303,8 @@ def stereo_decode_reference(taps, hist, x, gate, gain: float,
 def stereo_decode(taps, hist, x, gate, gain: float, pilot_floor: float,
                   sq) -> torch.Tensor:
     """Launch B: the L/R planes ``[..., 2, n]`` of each row of ``[hist |
-    x]``, from ``taps [4, 65]`` (bp19, bp38, avg, lp15), the rows' ``gate
+    x]``, from ``taps [4, 65]`` (bp19, bp38, avg, lp15; avg one constant,
+    whose first tap scales the boxcar), the rows' ``gate
     [...]`` (None: 1), ``gain``, ``pilot_floor`` and the squared pilot
     ``sq [..., n + 128]`` that :func:`pilot_lock` wrote.  Launches K14's
     second kernel for CUDA tensors; CPU tensors take the plain version."""
@@ -249,6 +315,7 @@ def stereo_decode(taps, hist, x, gate, gain: float, pilot_floor: float,
         raise ValueError(f"unsupported device {x.device}")
     _check(hist, x, {"gate": gate})
     _taps_of(taps, x, (4, TAPS))
+    _check_boxcar(taps)
     _check_sq(sq, x)
     n = x.shape[-1]
     rows = int(np.prod(x.shape[:-1], dtype=np.int64))

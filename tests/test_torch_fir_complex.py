@@ -43,62 +43,6 @@ from sdr_tpu_torch.stream import Fir, Pipeline
 F32 = np.float32
 NAN_C = complex(float("nan"), float("nan"))
 
-# persistent.cuh on the host: its copies synchronous (a staged buffer is
-# complete before the block's next barrier, as wait_prev makes it on the
-# card), three resident blocks (so the persistent loops walk many tiles),
-# and a launch with dynamic shared memory
-HOST_PERSISTENT = r"""
-#define DYNAMIC_SMEM(name) float* const name = g_smem
-#define __noinline__
-namespace persistent {
-inline void cp_async16(void* s, const void* g) { std::memcpy(s, g, 16); }
-inline void cp_async8(void* s, const void* g) { std::memcpy(s, g, 8); }
-inline void cp_async4(void* s, const void* g) { std::memcpy(s, g, 4); }
-inline void commit() {}
-inline void wait_prev() {}
-inline void tile_origin(long long it, long long per_row, int tile,
-                        long long* row, long long* m0) {
-  *row = it / per_row;
-  *m0 = (it % per_row) * tile;
-}
-template <class K> int resident_blocks(K, int, long long, int* blocks) {
-  *blocks = 3;
-  return 0;
-}
-}  // namespace persistent
-constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
-template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
-template <class... P, class... A>
-void host_launch_smem(void (*kern)(P...), dim3 grid, dim3 block, int smem,
-                      A... args) {
-  const size_t nf = static_cast<size_t>(smem) / 4 + 4;
-  float4* buf = new float4[nf / 4 + 1];
-  float* base = reinterpret_cast<float*>(buf);
-  std::barrier<> bar(block.x);
-  g_bar = &bar;
-  std::vector<std::thread> th;
-  for (unsigned t = 0; t < block.x; ++t)
-    th.emplace_back([=, &bar] {
-      threadIdx = {t, 0, 0};
-      blockDim = {block.x, 1, 1};
-      gridDim = {grid.x, grid.y, 1};
-      g_smem = base;
-      for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-          if (t == 0) std::fill(base, base + nf, NAN);
-          bar.arrive_and_wait();
-          blockIdx = {bx, by, 0};
-          kern(args...);
-          bar.arrive_and_wait();
-        }
-    });
-  for (auto& t : th) t.join();
-  delete[] buf;
-}
-#define KERNEL_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
-  host_launch_smem(kernel, dim3(grid), dim3(block), smem, __VA_ARGS__)
-"""
-
 
 def _header(name):
     text = (CSRC / name).read_text()
@@ -120,7 +64,8 @@ def lib(tmp_path_factory):
     lib = host_shim.build_source(
         tmp_path_factory.mktemp("fir_complex"), "fir", patches=[
             ('#include "fir_tile.cuh"', _header("fir_tile.cuh")),
-            ('#include "persistent.cuh"', HOST_PERSISTENT)])
+            # three resident blocks: the persistent loops walk many tiles
+            ('#include "persistent.cuh"', host_shim.persistent(3))])
     lib.launch_fir_complex.argtypes = [
         *fir.KERNEL.functions["launch_fir_complex"], ctypes.c_void_p]
     lib.fir_plan_complex.argtypes = [ctypes.c_int] * 3 + [

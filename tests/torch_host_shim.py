@@ -21,7 +21,12 @@ barrier, so every thread of the block must call them together, as the
 sources that use them do; ``atomicAdd`` is a sequentially consistent
 ``__atomic`` builtin, ``__threadfence`` a sequentially consistent fence,
 ``__trap`` ``std::abort``, ``__nanosleep`` nothing, and
-``cudaMemsetAsync`` a ``memset``.  Blocks run in turn, so a block takes
+``cudaMemsetAsync`` a ``memset``, ``__fmaf_rn`` the C library's
+``fmaf`` (correctly rounded).  :func:`persistent` stands in for
+``persistent.cuh`` (a source's include of it replaced by a patch): its
+copies synchronous, a small grid of resident blocks, so that each block
+of a persistent kernel walks several tiles, and a launch with dynamic
+shared memory.  Blocks run in turn, so a block takes
 ticket b of an ``atomicAdd`` counter as the card's b-th block would: a
 design whose blocks wait only on lower tickets runs here as there.
 """
@@ -34,7 +39,7 @@ import torch
 from sdr_tpu_torch.kernels._build import CSRC
 
 __all__ = ["SHIM", "LAUNCH_SHIM", "device_part", "build", "build_source",
-           "offset"]
+           "offset", "persistent"]
 
 SHIM = r"""
 #include <cstdint>
@@ -66,6 +71,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline thread_local float* g_smem;
 inline std::barrier<>* g_bar;
@@ -198,6 +204,66 @@ def build_source(directory, name, patches=(), tag=""):
                     "-fPIC", "-shared", "-pthread", "-I", str(CSRC), "-o",
                     str(so), str(cpp)], check=True, capture_output=True)
     return ctypes.CDLL(str(so))
+
+
+def persistent(blocks):
+    """``persistent.cuh`` on the host, ``blocks`` resident blocks a launch
+    (replace a source's ``#include "persistent.cuh"`` with it): the
+    copies synchronous (a staged buffer is complete before the block's
+    next barrier, as ``wait_prev`` makes it on the card), and
+    ``KERNEL_LAUNCH_SMEM``, a launch with dynamic shared memory
+    (``DYNAMIC_SMEM``), which it fills with NaNs before each block."""
+    return r"""
+#define DYNAMIC_SMEM(name) float* const name = g_smem
+#define __noinline__
+namespace persistent {
+inline void cp_async16(void* s, const void* g) { std::memcpy(s, g, 16); }
+inline void cp_async8(void* s, const void* g) { std::memcpy(s, g, 8); }
+inline void cp_async4(void* s, const void* g) { std::memcpy(s, g, 4); }
+inline void commit() {}
+inline void wait_prev() {}
+inline void tile_origin(long long it, long long per_row, int tile,
+                        long long* row, long long* m0) {
+  *row = it / per_row;
+  *m0 = (it % per_row) * tile;
+}
+template <class K> int resident_blocks(K, int, long long, int* blocks) {
+  *blocks = BLOCKS;
+  return 0;
+}
+}  // namespace persistent
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <class K> int cudaFuncSetAttribute(K, int, int) { return 0; }
+template <class... P, class... A>
+void host_launch_smem(void (*kern)(P...), dim3 grid, dim3 block,
+                      long long smem, A... args) {
+  const size_t nf = static_cast<size_t>(smem) / 4 + 4;
+  float4* buf = new float4[nf / 4 + 1];
+  float* base = reinterpret_cast<float*>(buf);
+  std::barrier<> bar(block.x);
+  g_bar = &bar;
+  std::vector<std::thread> th;
+  for (unsigned t = 0; t < block.x; ++t)
+    th.emplace_back([=, &bar] {
+      threadIdx = {t, 0, 0};
+      blockDim = {block.x, 1, 1};
+      gridDim = {grid.x, grid.y, 1};
+      g_smem = base;
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          if (t == 0) std::fill(base, base + nf, NAN);
+          bar.arrive_and_wait();
+          blockIdx = {bx, by, 0};
+          kern(args...);
+          bar.arrive_and_wait();
+        }
+    });
+  for (auto& t : th) t.join();
+  delete[] buf;
+}
+#define KERNEL_LAUNCH_SMEM(kernel, grid, block, smem, stream, ...) \
+  host_launch_smem(kernel, dim3(grid), dim3(block), smem, __VA_ARGS__)
+""".replace("BLOCKS", str(int(blocks)))
 
 
 def offset(t, off):
