@@ -210,7 +210,8 @@ nvcc per source, all at once), then:
    iq_convert: 1}), bitwise
    the planar rows and timed beside them;
 9. the wideband channelizer, ``channelizer_chain(64, wideband=True)``
-   (``Channelize``, its branch filter on K7, then per channel the 51-tap
+   (``Channelize``, its branch filter and DFT in one launch, K7 + DFT,
+   then per channel the 51-tap
    decimate-by-8 ``Fir`` on K3, the complex demod, the 3/10 ``Fir``
    resampler on K2 and the 64-tap audio ``Fir`` on K3 at f = 1, the
    volume) on 32 blocks of 4,096,000 wideband samples carrying 64 FM
@@ -220,15 +221,26 @@ nvcc per source, all at once), then:
    100} x P in {1, 5, 12, 16}, ``num`` one below and above its tile,
    histories 0 and (P - 1) C, bases 1-3 samples off 16-byte alignment;
    and at P = 12 the widest row that fits a block, C = 1,383, while
-   1,384 raises from its plan), timed with its bound and a grouped ``conv1d`` yardstick; K3's
+   1,384 raises from its plan), timed with its bound and a grouped
+   ``conv1d`` yardstick; K7 + DFT at the bank's shape with the same
+   histories within 1e-5 of each output row's peak of its plain version
+   (K7's plain stencil, then cuFFT; the worst ratio printed), two
+   launches bitwise equal, and at 40 extra geometries (C in {64, 128,
+   256} x P in {1, 5, 12}, ``num`` one below and above its tile,
+   histories 0 and (P - 1) C, bases 1-3 samples off 16-byte alignment,
+   and C = 1,024 at P = 12; C = 2,048 at P = 12 and P = 20 at C = 1,024
+   refused by the wrapper and by the launch's own plan, which equals
+   ``dft_plan`` at each), timed with its bound and cuFFT alone over
+   K7's ``v`` made beforehand; K3's
    complex form at f = 8 reading ``Channelize``'s channel-major [32, 64,
    64,000] view in place (seam and main, as for exact), K2 and K3 at f =
    1 (seam and main) bitwise against their plain versions at the bank's
    shapes, each timed with its bound and its ``conv1d`` yardstick, and
    K11 complex at [32, 64, 8,000] within 2e-6 rad; the launches of one
-   call ({fir: 4, resample: 1, channelize: 1, fm_demod: 1}; no layout
-   copy before K3), every channel's tone inside the audio
-   passband, the streamed run within 1e-6, the plain CPU chain on 4
+   call ({fir: 4, resample: 1, channelize: 1, fm_demod: 1}, the
+   channelize one K7 + DFT; no layout copy before K3; no cuFFT kernel
+   under ``torch.profiler``), every channel's tone inside the audio
+   passband, the streamed run bitwise, the plain CPU chain on 4
    blocks within 1e-4, 20 timed calls (wideband complex input
    samples/s) and peak memory;
 10. the narrowband channelizer, ``channelizer_chain(64)`` on [64,
@@ -1807,6 +1819,23 @@ def require_no_layout_copy(what: str) -> None:
             "layout K3 reads")
 
 
+def device_kernels(fn, word: str) -> dict:
+    """The device kernels of one ``fn()`` under ``torch.profiler`` whose
+    names hold ``word`` (any case): {name: launches}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    require(names, "the profiler recorded no device kernel")
+    return {e.key: e.count for e in names if word in e.key.lower()}
+
+
 def require_launches(launches: dict, want: dict, what: str) -> None:
     """Each kernel of ``want`` launched exactly so often in one call, and
     every other kernel never."""
@@ -1819,6 +1848,7 @@ def require_launches(launches: dict, want: dict, what: str) -> None:
 def reset_launches(kernels) -> None:
     for k in kernels:
         k.launches = 0
+        k.function_launches = {}
 
 
 def require_per_block(kernels, want: dict, blocks: int, what: str) -> None:
@@ -3343,7 +3373,7 @@ def check_channelize_kernel(ch_op, x, seed: int):
     return dict(
         name=f"K7 branch_filter (wideband bank, {list(x.shape)} complex64 "
              f"+ carry {list(hist.shape)}, C = {C}, P = {P})",
-        kernel="channelize", route="cuda",
+        kernel="channelize", function="launch_branch_filter", route="cuda",
         source="sdr_tpu_torch/csrc/channelize.cu",
         replaces="none: sdr_tpu/ops/channelize.py:108-114 (the branch "
                  "filter's P-term stencil XLA fuses into one pass)",
@@ -3413,13 +3443,165 @@ def channelize_geometries(device, seed: int) -> int:
     return count
 
 
+def check_branch_dft_kernel(ch_op, x, seed: int):
+    """K7 + DFT as the wideband bank's ``Channelize`` launches it over the
+    block-parallel batch ``x`` [32, 4,096,000] with each row's carry as
+    history: within 1e-5 of each output row's peak ``|Y|`` of its plain
+    version on the card (K7's plain stencil, then cuFFT), two launches
+    bitwise equal; then at extra geometries
+    (:func:`branch_dft_geometries`).  Timed with its bound (bytes: K7's;
+    operations: the stencil's multiply and add a tap and lane, and 5 C
+    log2 C an output row's DFT); the yardstick is cuFFT alone over K7's
+    ``v`` made beforehand (the transform only, as K9's row has it)."""
+    from sdr_tpu_torch.kernels import channelize
+    hb = ch_op._hb
+    P, C = hb.shape
+    require(channelize.dft_route(C, P) == "fused",
+            f"the bank's C = {C}, P = {P} not on the fused route")
+    hist = ch_op.shard_carry(x)
+    num = x.shape[-1] // C
+    a = (hb, hist, x, num)
+    y = channelize.branch_dft(*a)
+    ref = channelize.branch_dft_reference(*a)
+    torch.cuda.synchronize()
+    require(torch.isfinite(torch.view_as_real(y)).all().item(),
+            "K7 + DFT output finite")
+    rel, row = peak_err(y, ref)
+    err = max_err(y, ref)
+    require(rel <= 1e-5, f"K7 + DFT vs plain {rel} > 1e-5 of a row's peak "
+                         f"(output row {row})")
+    del ref
+    check_repeatable(lambda: channelize.branch_dft(*a), "K7 + DFT")
+    count = branch_dft_geometries(x.device, seed)
+    rows = y.numel() // C
+    ops = 2 * P * 2 * y.numel() + rows * 5 * C * int(np.log2(C))
+    b, by = bound(nbytes(hb, hist, x, y), ops, "f32")
+    ms = time_ms(lambda: channelize.branch_dft(*a), 20)
+    plain_ms = time_ms(lambda: channelize.branch_dft_reference(*a), 3, 1)
+    v = channelize.branch_filter(*a)
+    lib_ms = time_ms(lambda: torch.fft.fft(v, dim=-1), 20)
+    del v
+    print(f"K7 + DFT branch_dft: within {rel} of each output row's peak "
+          f"|Y| of its plain version (K7's plain stencil, then cuFFT; worst "
+          f"output row {row}; max abs diff {err}) at {list(x.shape)} with "
+          f"its carry, two launches bitwise equal, and at {count} extra "
+          f"geometries; {ms} ms, cuFFT alone over v {lib_ms} ms")
+    return dict(
+        name=f"K7 + DFT branch_dft (wideband bank, {list(x.shape)} "
+             f"complex64 + carry {list(hist.shape)}, C = {C}, P = {P})",
+        kernel="channelize", function="launch_branch_dft", route="cuda",
+        source="sdr_tpu_torch/csrc/channelize.cu",
+        replaces="none: sdr_tpu/ops/channelize.py:108-116 (the branch "
+                 "filter's stencil, XLA's FFT across the branches and the "
+                 "transpose)",
+        shape=f"hist {list(hist.shape)}, x {list(x.shape)} -> "
+              f"{list(y.shape)} complex64",
+        plan=channelize.dft_plan(C, P, num), max_abs_err=err,
+        max_peak_rel_err=rel, geometries=count, ms=ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=by, bound_fraction=b / ms, library_ms=lib_ms,
+        library_note=f"torch.fft.fft (cuFFT) across the branches of K7's v "
+                     f"made beforehand, complex64 {list(y.shape)}: the "
+                     "transform only")
+
+
+def branch_dft_geometries(device, seed: int) -> int:
+    """K7 + DFT within 1e-5 of each output row's peak of its plain version
+    over [3] rows at C in {64, 128, 256} x P in {1, 5, 12}, ``num`` one
+    below and one above its tile, histories of 0 and (P - 1) C samples,
+    row bases 1-3 samples off 16-byte alignment (the rows hold a sample
+    more than read); at P = 12 the widest C the plan takes (1,024) and the
+    first it refuses (2,048), and at C = 1,024 the first P whose tile does
+    not fit a block (20): the wrapper refuses both before any launch, and
+    the launch itself (the source's own plan) refuses them too; the
+    source's plan equals ``dft_plan`` at each geometry.  Returns the
+    count."""
+    import ctypes
+
+    from sdr_tpu_torch.kernels import channelize, fft_stream
+    from sdr_tpu_torch.kernels._build import ptr
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, generator=g, device=device),
+                             torch.randn(shape, generator=g, device=device))
+
+    lib = channelize.KERNEL.lib()
+    lib.branch_dft_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_longlong,
+                                    ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)]
+
+    def source_plan(C, P, num):
+        tile, smem = ctypes.c_int(), ctypes.c_int()
+        rc = lib.branch_dft_plan(C, P, num, ctypes.byref(tile),
+                                 ctypes.byref(smem))
+        return rc, tile.value, smem.value
+
+    count, worst = 0, 0.0
+    geoms = [(C, P, num) for C in (64, 128, 256) for P in (1, 5, 12)
+             for num in (channelize.dft_plan(C, P)["tile"] - 1,
+                         channelize.dft_plan(C, P)["tile"] + 1)]
+    geoms.append((1024, 12, 9))
+    for C, P, num in geoms:
+        hb = torch.randn(P, C, generator=g, device=device)
+        want = channelize.dft_plan(C, P, num)
+        require(source_plan(C, P, num) == (0, want["tile"], want["smem"]),
+                f"K7 + DFT plan at C {C}, P {P}, num {num}: "
+                f"{source_plan(C, P, num)} against {want}")
+        for H in (0, (P - 1) * C):
+            off = 1 + count % 3
+            n = (num + P - 1) * C - H + 1
+            x = misaligned(cplx(3, n), off)
+            hist = misaligned(cplx(3, H), off) if H else x.new_empty((3, 0))
+            a = (hb, hist, x, num)
+            rel, _ = peak_err(channelize.branch_dft(*a),
+                              channelize.branch_dft_reference(*a))
+            require(rel <= 1e-5, f"K7 + DFT at C {C}, P {P}, num {num}, "
+                                 f"history {H}, offset {off}: {rel}")
+            worst = max(worst, rel)
+            count += 1
+    for C, P, code, words in ((2048, 12, -3, "64 to 1,024"),
+                              (1024, 20, -1, "do not fit")):
+        hb = torch.randn(P, C, generator=g, device=device)
+        x = cplx(1, P * C)
+        hist = x.new_empty((1, 0))
+        require(channelize.dft_route(C, P) == "k7+fft",
+                f"K7 + DFT route at C {C}, P {P}")
+        try:
+            channelize.branch_dft(hb, hist, x, 1)
+        except ValueError:
+            pass
+        else:
+            require(False, f"the wrapper took C {C}, P {P}")
+        require(source_plan(C, P, 1)[0] == code,
+                f"K7 + DFT source plan at C {C}, P {P}")
+        y = torch.empty((1, 1, C), dtype=torch.complex64, device=device)
+        try:
+            channelize.KERNEL.launch(
+                "launch_branch_dft", x.device, ptr(hb), ptr(hist), ptr(x),
+                ptr(fft_stream.twiddles(C, device)), ptr(y), 1, 0, P * C, 1,
+                C, P)
+        except RuntimeError as e:
+            require(words in str(e), f"K7 + DFT at C {C}, P {P}: {e}")
+        else:
+            require(False, f"K7 + DFT launched at C {C}, P {P}")
+        count += 1
+    print(f"K7 + DFT: within {worst} of each output row's peak of its "
+          f"plain version at {count - 2} extra geometries; C = 1,024 runs "
+          "at P = 12 while C = 2,048 and, at C = 1,024, P = 20 are refused "
+          "by the wrapper, the route and the source's own plan")
+    return count
+
+
 def check_bank_kernels(x, ops, seed: int):
-    """K7 at the wideband channel bank's [32, 4,096,000] input, then K3 at
+    """K7 and K7 + DFT at the wideband channel bank's [32, 4,096,000]
+    input, then K3 at
     f = 8, K11, K2 and K3 at f = 1 at its shapes: the filterbank's [32,
     64] channels of 64,000 samples, their demod's 8,000, the resampler's
     2,400."""
     xb = x.view(ROWS, CH_BLOCK)
-    rows = [check_channelize_kernel(ops[0], xb, seed)]
+    rows = [check_channelize_kernel(ops[0], xb, seed),
+            check_branch_dft_kernel(ops[0], xb, seed)]
     _, xc = ops[0].apply(ops[0].shard_carry(xb), xb)
     rows.append(check_complex_decimator_kernel(
         "K3 fir complex (wideband bank decimator, [32, 64, 64,000] "
@@ -3479,23 +3661,35 @@ def check_bank_tones(y: np.ndarray, what: str) -> float:
 
 
 def run_channelizer_wideband(x, ops, kernels):
-    """The wideband channel bank block-parallel (launches, tones, peak
-    memory, 20 timed calls), streamed, and against the plain CPU
-    chain."""
+    """The wideband channel bank block-parallel (launches, no cuFFT
+    kernel, tones, peak memory, 20 timed calls), streamed (bitwise the
+    block-parallel call), and against the plain CPU chain.  Returns the
+    launches of one call and the filterbank source's launches by
+    function."""
     from sdr_tpu_torch.apps.chains import channelizer_chain
+    from sdr_tpu_torch.kernels import channelize
+    from sdr_tpu_torch.parallel.sharded import run_time_batched
     from sdr_tpu_torch.stream import Pipeline
 
     counted_call(ops, x, kernels)                   # warm-up
     torch.cuda.reset_peak_memory_stats()
     y, launches = counted_call(ops, x, kernels)
     peak = torch.cuda.max_memory_allocated()
-    # the filterbank's branch filter; the decimator's and the audio FIR's
-    # seam and main launches, and the resampler: each Fir filter or
-    # decimator splits its outputs at the seam (the few that read history,
-    # then the rest from the block)
+    # the filterbank in one launch (K7 + DFT: no K7 alone, no cuFFT); the
+    # decimator's and the audio FIR's seam and main launches, and the
+    # resampler: each Fir filter or decimator splits its outputs at the
+    # seam (the few that read history, then the rest from the block)
+    functions = dict(channelize.KERNEL.function_launches)
     require_launches(launches, {"fir": 4, "resample": 1, "channelize": 1,
                                 "fm_demod": 1}, "wideband channelizer path")
+    require(functions == {"launch_branch_dft": 1},
+            f"wideband channelizer path: the filterbank's launches "
+            f"{functions}, expected K7 + DFT once")
     require_no_layout_copy("wideband channelizer path")
+    fft_kernels = device_kernels(lambda: run_time_batched(ops, x, ROWS),
+                                 "fft")
+    require(not fft_kernels, f"wideband channelizer path ran cuFFT "
+                             f"kernels: {fft_kernels}")
     per_row = CH_BLOCK // CH_C * 3 // 80
     require(tuple(y.shape) == (CH_C, ROWS * per_row), f"bank {y.shape}")
     out = y.cpu().numpy()
@@ -3504,7 +3698,8 @@ def run_channelizer_wideband(x, ops, kernels):
     print(f"wideband channelizer block-parallel chain: {ROWS} x {CH_BLOCK} "
           f"wideband samples -> {tuple(y.shape)}; tones of channels 0-"
           f"{TONE_CHANNELS - 1} within {worst:.3f} Hz; peak memory {peak} "
-          f"bytes; launches in one call {launches}")
+          f"bytes; launches in one call {launches} (the filterbank's "
+          f"{functions}); no cuFFT kernel")
     time_chain(ops, x, "wideband channelizer block-parallel chain",
                samples=x.numel(), unit="wideband complex input samples/s")
 
@@ -3519,8 +3714,13 @@ def run_channelizer_wideband(x, ops, kernels):
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"channelize": 1, "fm_demod": 1},
                       x.numel() // CH_BLOCK, "wideband channelizer streamed")
+    require(channelize.KERNEL.function_launches == {
+        "launch_branch_dft": x.numel() // CH_BLOCK},
+        f"wideband channelizer streamed: the filterbank's launches "
+        f"{channelize.KERNEL.function_launches}")
     dstream = max_err(streamed, y)
-    require(dstream <= 1e-6, f"bank streamed vs block-parallel {dstream}")
+    require(torch.equal(streamed, y),
+            f"bank streamed vs block-parallel not bitwise ({dstream})")
     print(f"wideband channelizer streamed Pipeline.run at {CH_BLOCK}-sample "
           f"blocks: max abs diff to block-parallel {dstream} (bitwise "
           f"equal: {torch.equal(streamed, y)}); "
@@ -3533,7 +3733,7 @@ def run_channelizer_wideband(x, ops, kernels):
     require(diff <= 1e-4, f"bank card vs CPU plain chain {diff} > 1e-4")
     print(f"wideband channelizer card vs CPU plain chain on 4 blocks: max "
           f"abs diff {diff}")
-    return launches
+    return launches, functions
 
 
 def run_channelizer_narrowband(x, ops, kernels):
@@ -4698,7 +4898,8 @@ def main(argv=None) -> int:
     ops = channelizer_chain(CH_C, wideband=True, device=device)
     crows = check_bank_kernels(x, ops, args.seed)
     print_rows(crows, card)
-    wideband = run_channelizer_wideband(x, ops, KERNELS)
+    wideband, wideband_functions = run_channelizer_wideband(x, ops,
+                                                            KERNELS)
     del x, ops
 
     # the narrowband bank: [64, N] basebands, the CLI's synthetic formula
@@ -4740,7 +4941,8 @@ def main(argv=None) -> int:
     for r in arows:
         r["launches"] = am[r["kernel"]]
     for r in crows:
-        r["launches"] = wideband[r["kernel"]]
+        r["launches"] = (wideband_functions.get(r["function"], 0)
+                         if "function" in r else wideband[r["kernel"]])
     for r in nrows:
         r["launches"] = narrowband[r["kernel"]]
     for r in qrows:
@@ -4754,6 +4956,7 @@ def main(argv=None) -> int:
         if r.get("layout"):
             r["geometries"] = cfir_count
     for r in rows:
+        # by source: K7 and K7 + DFT share channelize.cu's count
         r["launches_by_path"] = {p: c[r["kernel"]] for p, c in paths.items()}
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s, "
           "the kernels' build included")

@@ -1,5 +1,5 @@
-"""What binds K1, K4, K3, K2, K5, K9, K12, K13, K14 and K8's complex form
-on the card: each kernel beside source variants of itself, timed in
+"""What binds K1, K4, K3, K2, K5, K9, K12, K13, K14, K8's complex form
+and K7 + DFT on the card: each kernel beside source variants of itself, timed in
 turns in one process.
 
     python -m sdr_tpu_torch.kernel_variants [--kernels fir ...]
@@ -52,7 +52,15 @@ before the current tile's sums (what the overlap buys);
 shared memory, as many blocks an SM as its registers allow), each tile's
 copies issued and waited for at the start of its own step; these four
 must equal it bitwise.  ``mix_complex_no_stores``: K8's
-complex form computes but stores nothing.  K14 is timed as
+complex form computes but stores nothing.  K7 + DFT (``branch_dft``,
+the wideband bank's [32, 4,096,000] complex64 rows with a 704-sample
+carry, C = 64, P = 12): ``dft_no_dft``, ``dft_no_sums`` and
+``dft_no_stores`` drop the transform, the stencil's sums or the output
+stores; ``dft_sync_stage`` stages through registers in place of
+``cp.async``, ``dft_occ2`` and ``dft_occ4`` bound the registers for two
+or four blocks an SM in place of three, ``dft_full_tile`` takes twice the
+tile at two blocks an SM (four stencil items a thread, every thread a
+row DFT); these four must equal it bitwise.  K14 is timed as
 ``StereoDecode`` runs it: launch A writing the squared pilot
 (``stereo_a``, ``apply``'s form) and without it or an entering lock
 (``stereo_a_bare``, ``shard_carry``'s), and launch B from a squared pilot
@@ -83,7 +91,7 @@ Prints the card's name and power limit, each build's registers and
 spills as ``ptxas`` reports them, and one JSON line.  ``--kernels``
 limits the run to some kernels (the sources' names: ``u8_front_demod``,
 ``u8_front``, ``fir``, ``resample``, ``backhalf``, ``fft_stream``,
-``agc_linear``, ``iir``, ``stereo_decode``, ``mix``).
+``agc_linear``, ``iir``, ``stereo_decode``, ``mix``, ``channelize``).
 Needs a CUDA GPU and ``nvcc``.
 """
 
@@ -96,9 +104,10 @@ import subprocess
 
 import torch
 
-from sdr_tpu_torch.kernels import (_build, agc_linear, backhalf, fft_stream,
-                                   fir, iir, mix, resample, stereo_decode,
-                                   u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import (_build, agc_linear, backhalf,
+                                   channelize, fft_stream, fir, iir, mix,
+                                   resample, stereo_decode, u8_front,
+                                   u8_front_demod)
 from sdr_tpu_torch.ops.design import blackman, hamming, windowed_sinc
 from sdr_tpu_torch.ops.fir import prepare_phase_table
 from sdr_tpu_torch.ops.quantized import u8_front_plan
@@ -276,7 +285,7 @@ VARIANTS = {
         "acc[r] = __fadd_rn(acc[r], __fmul_rn(tj[jj], w[OFF + jj + r]));",
         "acc[r] = __fmaf_rn(tj[jj], w[OFF + jj + r], acc[r]);")]),
     "fft_no_stores": (("fft_stream",), [(
-        "slot < fc, magnitude", "slot < fc && H < 0, magnitude")]),
+        "if (slot < fc)\n", "if (slot < fc && H < 0)\n")]),
     "fft_no_stage": (("fft_stream",), [(
         "  if (cnt <= 0) return;",
         "  if (cnt <= 0 || nthreads > 0) return;")]),
@@ -414,6 +423,25 @@ VARIANTS = {
     "iir_serial_runs": (("iir",), [(
         "__device__ __forceinline__ void block_scan(const double* pw, "
         "double* w,\n", SERIAL_RUNS)]),
+    "dft_no_dft": (("channelize",), [(
+        "const bool busy = slot < rows_here;", "const bool busy = false;")]),
+    "dft_no_sums": (("channelize",), [(
+        "    if (it < items) {\n      const int g = it / lanes;\n"
+        "      const int j",
+        "    if (it < 0) {\n      const int g = it / lanes;\n"
+        "      const int j")]),
+    "dft_no_stores": (("channelize",), [(
+        "    out[i] = make_float4(", "    if (H < 0) out[i] = make_float4(")]),
+    "dft_sync_stage": (("channelize",), [(
+        "if (kAsync && aligned16(dv)) {",
+        "if (kAsync && aligned16(dv) && cnt < 0) {")]),
+    "dft_occ2": (("channelize",), [(
+        "__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)")]),
+    "dft_occ4": (("channelize",), [(
+        "__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 4)")]),
+    "dft_full_tile": (("channelize",), [
+        ("constexpr int kDftRows = 4096;", "constexpr int kDftRows = 8192;"),
+        ("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)")]),
 }
 EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "fir_iq_both_planes", "fir_iq_inline",
@@ -422,14 +450,15 @@ EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "agc_wave2", "agc_wave8", "agc_smem_level2", "agc_bounds5", "agc_bounds6", "agc_stream_stores",
          "iir_one_wave", "iir_wave2", "iir_wave32", "iir_stream_stores",
          "iir_bounds8", "iir_bounds10", "stereo_bounds1", "stereo_blocks2",
-         "stereo_one_buffer", "stereo_single_stage", "pilot_stride"}
+         "stereo_one_buffer", "stereo_single_stage", "pilot_stride",
+         "dft_sync_stage", "dft_occ2", "dft_occ4", "dft_full_tile"}
 CALL_KERNEL = {"fir65": "fir", "fir_dec8": "fir", "fir_dec16": "fir",
                "fir_iq8": "fir", "fir_iq16": "fir", "fir_cm8": "fir",
                "resample_stereo": "resample", "agc_gains": "agc_linear",
                "iir_final": "iir", "iir_deemph": "iir",
                "iir_deemph_final": "iir", "stereo_a": "stereo_decode",
                "stereo_a_bare": "stereo_decode", "stereo_b": "stereo_decode",
-               "mix_complex": "mix"}
+               "mix_complex": "mix", "branch_dft": "channelize"}
 
 
 def variant(kernel: _build.Kernel, name: str, patches) -> _build.Kernel:
@@ -477,7 +506,8 @@ def main(argv=None) -> int:
     mods = {"u8_front_demod": u8_front_demod, "u8_front": u8_front,
             "fir": fir, "resample": resample, "backhalf": backhalf,
             "fft_stream": fft_stream, "agc_linear": agc_linear, "iir": iir,
-            "stereo_decode": stereo_decode, "mix": mix}
+            "stereo_decode": stereo_decode, "mix": mix,
+            "channelize": channelize}
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", nargs="+", choices=sorted(mods),
                     default=sorted(mods))
@@ -548,6 +578,12 @@ def main(argv=None) -> int:
     lo_c = Mix(0.25, device=dev)._table(DEC_N)
     carry_c = torch.polar(torch.ones(ROWS, device=dev),
                           torch.rand(ROWS, generator=g, device=dev) * 6.28)
+    if "channelize" in args.kernels:
+        hb_w = torch.randn(12, 64, generator=g, device=dev)
+        x_w = torch.randn(ROWS, 64 * WB_N, generator=g, device=dev,
+                          dtype=torch.complex64)
+        hist_w = torch.randn(ROWS, 11 * 64, generator=g, device=dev,
+                             dtype=torch.complex64)
 
     calls = {
         "u8_front_demod": lambda: u8_front_demod.u8_front_demod(
@@ -581,6 +617,8 @@ def main(argv=None) -> int:
         "stereo_b": lambda: stereo_decode.stereo_decode(
             sd._taps, hst, xst, gate, sd.gain, sd.pilot_floor, sq_b),
         "mix_complex": lambda: mix.mix_complex(lo_c, carry_c, xc),
+        "branch_dft": lambda: channelize.branch_dft(hb_w, hist_w, x_w,
+                                                    WB_N),
     }
     out = {"card": card, "clone_ms": {
         "u8 [32, 10485760]": time_ms(x.clone),

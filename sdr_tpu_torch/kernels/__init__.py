@@ -6,19 +6,20 @@ kernel for CUDA tensors and takes the plain version only for CPU tensors.
 ``KERNELS`` lists them as K1 to K14: K1-K5 replace the JAX package's five
 Pallas kernels and K6 (the sequential AGC) its ``lax.scan`` recurrence.
 K7-K11 take the place of passes that XLA fuses for the JAX package and
-the port ran as several eager ones: K7 the channelizer's branch filter,
-K8 the oscillator mix (planar, and complex64 in its complex form), K9
-the waterfall's ``FftStream`` (frame, window, FFT, ``|X|`` and shift in
-one pass), K10 the interleaved-IQ converts and K11 the FM demod (planar
-and complex).  K12 and K13 take the place of the JAX package's
+the port ran as several eager ones: K7 the channelizer's branch filter
+(and K7 + DFT, a second launch of its source, the branch filter and the
+DFT across the branches in one pass), K8 the oscillator mix (planar, and
+complex64 in its complex form), K9 the waterfall's ``FftStream`` (frame,
+window, FFT, ``|X|`` and shift in one pass), K10 the interleaved-IQ
+converts and K11 the FM demod (planar and complex).  K12 and K13 take the place of the JAX package's
 ``associative_scan`` recurrences: K12 the linear AGC's affine scan (a
 row's whole map, or the gains from each row's entering gain), K13 one
 IIR section (``DcBlocker``, each biquad of ``Iir``).  K14 takes the place
 of ``StereoDecode``'s five 65-tap filters and the glue XLA fuses around
 them: launch A the pilot power and lock, launch B the cascade.  K9 takes
 the transform at the power-of-two frame sizes from 64 to 16,384; at any
-other size, and in ``ops.fftops`` and the channelizer's ``torch.fft``
-over its branches, cuFFT still does.
+other size, in ``ops.fftops``, and across the channelizer's branches at a
+C the fused launch does not take, cuFFT still does.
 """
 
 from sdr_tpu_torch.kernels import (agc, agc_linear, backhalf, channelize,

@@ -67,13 +67,15 @@ class Kernel:
 
     ``functions`` maps each exported launch function to its argument
     types, the stream excluded.  ``launches`` counts successful launches
-    made through :meth:`launch` and nothing else."""
+    made through :meth:`launch` and nothing else; ``function_launches``
+    the same by launch function (set both to 0, or empty, together)."""
 
     def __init__(self, name: str, functions: dict):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.functions = functions
         self.launches = 0
+        self.function_launches = {}
         self.build_log = ""
         self._lib = None
 
@@ -136,6 +138,7 @@ class Kernel:
             msg = lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{fn} launch failed: {msg}")
         self.launches += 1
+        self.function_launches[fn] = self.function_launches.get(fn, 0) + 1
 
 
 def build_all(kernels) -> None:

@@ -20,6 +20,20 @@ the sign of a zero and nowhere else: compare them by the largest absolute
 difference (0), not by bit patterns.  A geometry whose staged rows do not
 fit a block's shared memory raises (``(P + 3) * 2C + P * C`` floats at
 most 58,112 on an H100; :func:`plan`).
+
+K7 + DFT (:func:`branch_dft`, the second launch of the same source) is the
+filterbank in one launch: K7's sums, then the C-point DFT across the
+branches in the block, ``Y[..., m, k] = sum_r v[..., m, r] exp(-2 pi i k
+r / C)``, complex64 ``[..., num, C]``, so ``Y.transpose(-1, -2)`` is the
+channel-major view K3's complex form reads in place.  The JAX package runs
+the stencil, XLA's FFT and a transpose (sdr_tpu/ops/channelize.py:108-116).
+The DFT is K9's (``csrc/dft.cuh``, the twiddles of
+``fft_stream.twiddles``), so the launch agrees with its plain version
+(:func:`branch_dft_reference`: K7's plain version, then ``torch.fft``)
+within 1e-5 of each output row's peak ``|Y|``; a row's output depends on
+its inputs alone, so split calls equal one call bitwise.  It takes C a
+power of two from 64 to 1,024 whose tile fits a block (:func:`dft_plan`);
+:func:`dft_route` sends every other shape to K7 and cuFFT.
 """
 
 from __future__ import annotations
@@ -28,14 +42,23 @@ import ctypes
 
 import torch
 
+from sdr_tpu_torch.kernels import fft_stream
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 
-__all__ = ["KERNEL", "branch_filter", "branch_filter_reference", "plan"]
+__all__ = ["DFT_SIZES", "KERNEL", "branch_dft", "branch_dft_reference",
+           "branch_filter", "branch_filter_reference", "dft_plan",
+           "dft_route", "plan"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("channelize", {
     "launch_branch_filter": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I],
+    "launch_branch_dft": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _I, _I],
 })
+
+DFT_SIZES = tuple(1 << k for k in range(6, 11))     # 64 .. 1,024
+SMEM_LIMIT = 232_448        # an H100's shared memory a block (opt-in)
+_KR = 4                     # output rows a thread sums
+_DFT_ROWS = 4_096           # C x tile rows at most
 
 
 def plan(n_channels: int, taps_per_branch: int, num: int,
@@ -125,3 +148,90 @@ def branch_filter(hb: torch.Tensor, hist: torch.Tensor, x: torch.Tensor,
                   ptr(x), ptr(v), rows, hist.shape[-1], x.shape[-1], num, C,
                   P)
     return v
+
+
+def _dft_smem(C: int, P: int, T: int) -> int:
+    """Shared-memory bytes of a fused tile of T rows: the staged rows and
+    taps, or the DFT's two padded planes where they take more."""
+    return 4 * max((T + P - 1) * 2 * C + P * C, 2 * T * (C + C // 32))
+
+
+def dft_plan(n_channels: int, taps_per_branch: int,
+             num: int | None = None) -> dict:
+    """The fused launch's plan (``csrc/channelize.cu:dft_plan``) for
+    ``num`` output rows (None: as many as a tile takes): ``{"tile":
+    output rows a block, "smem": shared-memory bytes a block}``.  The tile
+    is 4,096 / C rows, fewer where ``num`` ends first or while the staged
+    rows and taps exceed an H100's block (``SMEM_LIMIT``).
+    Raises for C not a power of two from 64 to 1,024, and where not even a
+    tile of 4 rows fits."""
+    C, P = int(n_channels), int(taps_per_branch)
+    if C not in DFT_SIZES:
+        raise ValueError(f"the fused branch DFT takes C a power of two from "
+                         f"64 to 1,024, not {C}")
+    if P < 1:
+        raise ValueError(f"{P} taps a branch")
+    T = _DFT_ROWS // C
+    if num is not None:
+        T = max(_KR, min(T, -(-int(num) // _KR) * _KR))
+    while T > _KR and _dft_smem(C, P, T) > SMEM_LIMIT:
+        T -= _KR
+    smem = _dft_smem(C, P, T)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the fused branch DFT's staged rows and taps do "
+                         f"not fit a block at C = {C}, P = {P} ({smem} "
+                         f"bytes, {SMEM_LIMIT} at most)")
+    return {"tile": T, "smem": smem}
+
+
+def dft_route(n_channels: int, taps_per_branch: int) -> str:
+    """``"fused"`` where :func:`dft_plan` takes the shape, else
+    ``"k7+fft"``: the route ``channelize_rows`` takes, chosen by shape
+    before any launch."""
+    try:
+        dft_plan(n_channels, taps_per_branch)
+    except ValueError:
+        return "k7+fft"
+    return "fused"
+
+
+def _check_dft(hb, hist, x, num):
+    _check(hb, hist, x, num)
+    dft_plan(hb.shape[1], hb.shape[0], num)
+
+
+def branch_dft_reference(hb: torch.Tensor, hist: torch.Tensor,
+                         x: torch.Tensor, num: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`branch_dft`: K7's plain version,
+    then ``torch.fft.fft`` across the branches."""
+    num = int(num)
+    _check_dft(hb, hist, x, num)
+    return torch.fft.fft(branch_filter_reference(hb, hist, x, num), dim=-1)
+
+
+def branch_dft(hb: torch.Tensor, hist: torch.Tensor, x: torch.Tensor,
+               num: int) -> torch.Tensor:
+    """The filterbank's ``Y[..., m, k] = sum_r v[..., m, r] exp(-2 pi i k r
+    / C)`` over K7's ``v``, complex64 ``[..., num, C]``.  Launches K7 + DFT
+    for CUDA tensors (a failed build or launch raises); CPU tensors take
+    the plain version.  Raises for a shape :func:`dft_plan` refuses."""
+    num = int(num)
+    if x.device.type == "cpu":
+        return branch_dft_reference(hb, hist, x, num)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_dft(hb, hist, x, num)
+    P, C = hb.shape
+    rows = cuda_rows(x=x, hist=hist)
+    for name, t in (("hist", hist), ("x", x)):
+        if t.numel() and t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
+    y = torch.empty(x.shape[:-1] + (num, C), dtype=torch.complex64,
+                    device=x.device)
+    if num == 0 or rows == 0:
+        return y
+    tw = fft_stream.twiddles(C, x.device)
+    KERNEL.launch("launch_branch_dft", x.device, ptr(hb), ptr(hist), ptr(x),
+                  ptr(tw), ptr(y), rows, hist.shape[-1], x.shape[-1], num, C,
+                  P)
+    return y

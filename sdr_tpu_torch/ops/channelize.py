@@ -11,9 +11,11 @@ taps ``h[r::C]``, then one FFT across the branches.  The branch filter
 is the JAX package's stencil form: the row-major view ``x2[..., m, r] =
 x[..., mC + r]`` read as P shifted views weighted by the tap rows,
 summed in the order p = 0..P-1, so the branch axis is the contiguous
-last one for the FFT; one transpose gives ``[..., C, M]``.  The stencil,
-which XLA fuses into one pass, is the kernel K7 here
-(``kernels/channelize.py``); the FFT is ``torch.fft`` (cuFFT).
+last one for the FFT; one transpose gives ``[..., C, M]``.  On the card
+the stencil and the FFT are one launch, K7 + DFT, where C is a power of
+two from 64 to 1,024 whose tile fits a block (``kernels/channelize.py``,
+``dft_route``); any other C takes the stencil on K7, then ``torch.fft``
+(cuFFT).
 Not ported: the JAX package's ``'gather'`` form, its differential oracle
 (the tests hold this form against both).
 """
@@ -23,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdr_tpu_torch.kernels.channelize import branch_filter
+from sdr_tpu_torch.kernels.channelize import (branch_dft, branch_filter,
+                                              dft_route)
 from sdr_tpu_torch.ops import design
 
 __all__ = ["branch_taps", "channelize_rows", "channelizer_taps",
@@ -53,8 +56,12 @@ def channelize_rows(hb: torch.Tensor, hist: torch.Tensor, x: torch.Tensor,
                     num: int) -> torch.Tensor:
     """The filterbank over ``cat(hist, x)`` with the tap rows ``hb``:
     ``num`` samples a channel, ``[..., C, num]`` (a transposed view of the
-    FFT's output).  The branch filter is K7 (``kernels/channelize.py``),
-    which reads ``hist`` and ``x`` through two pointers."""
+    DFT's output).  One launch, K7 + DFT, where ``dft_route`` says
+    ``"fused"``; else K7, then ``torch.fft``.  Both read ``hist`` and
+    ``x`` through two pointers; CPU tensors take the plain versions."""
+    P, C = hb.shape
+    if dft_route(C, P) == "fused":
+        return branch_dft(hb, hist, x, num).transpose(-1, -2)
     v = branch_filter(hb, hist, x, num)                    # [..., m, r]
     return torch.fft.fft(v, dim=-1).transpose(-1, -2)      # [..., C, num]
 

@@ -25,7 +25,7 @@
   ``FftStream``         windowed overlapping FFT frames (the waterfall;
                         K9 at power-of-two sizes 64-16,384)
   ``Channelize``        polyphase DFT filterbank: wideband -> C channels
-                        (the branch filter on K7)
+                        (K7 + DFT in one launch; K7 and cuFFT at other C)
   ====================  ====================================================
 
 The ops with a u8, resampler, filterbank or frame history read it and
@@ -1075,9 +1075,10 @@ class Channelize(StreamOp):
 
     Carry: the trailing ``(P - 1) * C`` wideband samples (P taps a
     branch), zeros at warmup, so every block emits ``n/C`` samples a
-    channel with the branch filters' history.  The branch filter (K7)
-    reads the carry and the block through two pointers; the new carry is
-    a copy of the last ``(P - 1) * C`` samples only."""
+    channel with the branch filters' history.  The filterbank (K7 + DFT
+    in one launch where C is a power of two from 64 to 1,024, else K7
+    and cuFFT) reads the carry and the block through two pointers; the
+    new carry is a copy of the last ``(P - 1) * C`` samples only."""
 
     def __init__(self, taps, n_channels: int, device="cuda"):
         self.n_channels = int(n_channels)

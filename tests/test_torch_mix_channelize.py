@@ -287,7 +287,8 @@ def test_kernels_hold_k7_and_k8():
     assert KERNELS[6] is channelize.KERNEL and KERNELS[7] is mix.KERNEL
     assert channelize.KERNEL.source == CSRC / "channelize.cu"
     assert mix.KERNEL.source == CSRC / "mix.cu"
-    assert set(channelize.KERNEL.functions) == {"launch_branch_filter"}
+    assert set(channelize.KERNEL.functions) == {"launch_branch_filter",
+                                                "launch_branch_dft"}
     assert set(mix.KERNEL.functions) == {"launch_mix_planar",
                                          "launch_mix_complex"}
 

@@ -21,9 +21,9 @@ import pytest
 import torch
 
 from sdr_tpu_torch import kernel_variants
-from sdr_tpu_torch.kernels import (agc_linear, backhalf, fft_stream, fir,
-                                   iir, mix, resample, stereo_decode,
-                                   u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import (agc_linear, backhalf, channelize,
+                                   fft_stream, fir, iir, mix, resample,
+                                   stereo_decode, u8_front, u8_front_demod)
 from sdr_tpu_torch.kernels.u8_front import pack_taps, tap_words
 from sdr_tpu_torch.ops.quantized import front_acc, u8_front_plan
 
@@ -149,7 +149,7 @@ def test_tap_words_cache_is_bounded():
 MODS = {"u8_front_demod": u8_front_demod, "u8_front": u8_front, "fir": fir,
         "resample": resample, "backhalf": backhalf, "fft_stream": fft_stream,
         "agc_linear": agc_linear, "iir": iir,
-        "stereo_decode": stereo_decode, "mix": mix}
+        "stereo_decode": stereo_decode, "mix": mix, "channelize": channelize}
 
 
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
