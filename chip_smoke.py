@@ -180,8 +180,11 @@ nvcc per source, all at once), then:
 7. the transmitter, ``apps.fm_tx`` (10/3 and 8/1 ``Fir`` resamplers on
    K2, ``FmMod``) on a 60 s, 1 kHz WAV: K2 at both stages on a streamed
    block and on the whole recording as one block (bitwise, timed beside
-   ``conv_transpose1d``); the CLI's entry point in this process
-   (launches {resample: 124}) and as a command (its wall time, the same
+   ``conv_transpose1d``); the CLI's entry point in this process (its
+   compiled step running the first block eagerly, captured at the second
+   and replayed 61 times; the eager block and the capture's calls
+   launching K2 8 times), the chain streamed op by op (launches
+   {resample: 124}) and the CLI as a command (its wall time, the same
    file); the streamed output against one block over the whole
    recording (the resampled stream bitwise, the modulated one within
    1e-3); and the round trip, its i16 IQ as u8 through ``fm_chain()``
@@ -297,14 +300,19 @@ nvcc per source, all at once), then:
    separation); ``main`` in this process against an unpaced radio under
    the port's ``Timer`` (samples/s against real time, blocks dropped and
    launches: a figure, not a check) for mono, ``--batched 8`` and
-   stereo (K11, K13 and the audio FIR launched once a block, as K4 is,
-   and K14 twice: checked); the
+   stereo, each through the compiled call ``prime`` captured at its
+   second call on silence (one graph captured: checked; the replays
+   printed), the launches those of ``prime``'s eager call and the
+   capture's calls (K11, K13
+   and the audio FIR launched as often as K4, and K14 twice as often:
+   checked); the
    native loader (its g++ build time, ``--native`` giving
    the file CLI's WAV, ``native_file_source(repeat=True)`` the file twice
    over, 64 UDP datagrams of 65,440 bytes through ``fm_chain()`` on the
    card bitwise the same blocks from a file); ``Pipeline.scan`` over
-   [8, 1,310,720] (bitwise ``Pipeline.run``, launches {u8_front_demod:
-   8, resample: 8, fir: 8}); ``Timer`` and ``timed`` reading at least the
+   [8, 1,310,720] (bitwise ``Pipeline.run`` and the eager run, 8 replays
+   of the step ``run`` captured and no launch from Python; the eager
+   run's launches {u8_front_demod: 8, resample: 8, fir: 8}); ``Timer`` and ``timed`` reading at least the
    CUDA-event time of a block-parallel call queued behind a device-side
    sleep; and ``profile`` writing a trace;
 14. the roofline, after phase 10, from the calls phases 2-10 already
@@ -314,7 +322,33 @@ nvcc per source, all at once), then:
    of light, the io floor (the first stage's input read and the last
    stage's output written, over the memory rate) and each floor's share
    of the device time; no chain's device time may be under its io floor
-   (data sheet) divided by 1.05.
+   (data sheet) divided by 1.05;
+15. the compiled calls, after phase 14 (run before 11): for each of the
+   ten block-parallel chains of phases 2-10 at their full width,
+   ``compile_time_batched`` (a CUDA graph captured on a copy of the
+   recording) replayed bitwise the eager ``run_time_batched`` on the
+   recording, on a second recording (seed + 1) copied in (one input copy
+   counted) and with seeded carries threaded through its static buffers
+   (the carries bitwise too), one replay under
+   ``torch.cuda.set_sync_debug_mode('error')``, both spans and both
+   ``queued_split``s in turns (eager, compiled, compiled, eager), the
+   capture's time, the device bytes an eager call and a replay allocate
+   and the bytes the graph's pool holds, the device time of a recording
+   on the card copied into the call's input, each chain's graphs freed
+   before the next; the
+   streamed ``Pipeline.run`` (the compiled step) over 8 blocks bitwise the
+   eager run op by op on mono, stereo and AM, with one block's split
+   eager and compiled, and the pipeline's pool freed as soon as the
+   pipeline is dropped (the cyclic collector off); and a ``Map`` calling
+   ``.item()`` refused at capture.  Launch counts stay on eager calls (a
+   replay counts none): the streamed launch checks of phases 3-10 run op
+   by op, and each of those phases then holds ``Pipeline.run`` (the
+   first block eager, one capture, the other blocks replays) bitwise the
+   eager stream (the exact variants: ``process``); a replay's device
+   kernels, read by ``torch.profiler``, are the eager call's name for
+   name and count for count (the wideband bank's K7 + DFT and no cuFFT
+   kernel); phase 13's live runs, which replay the step ``prime``
+   captured, report the graphs captured and replayed.
 
 Every failed check raises, so any failure exits nonzero.  Without a CUDA
 GPU it exits nonzero before printing any result.
@@ -323,6 +357,7 @@ GPU it exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import socket
@@ -1505,8 +1540,8 @@ def run_stereo_chain(raw, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    blocks = list(pipe.run(raw[i:i + STREAM_BLOCK] for i in
-                           range(0, raw.numel(), STREAM_BLOCK)))
+    blocks = eager_stream(pipe, (raw[i:i + STREAM_BLOCK] for i in
+                                 range(0, raw.numel(), STREAM_BLOCK)))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"u8_front": 1, "fm_demod": 1, "iir": 1,
@@ -1515,9 +1550,11 @@ def run_stereo_chain(raw, ops, kernels):
     streamed = torch.cat(blocks, dim=-1)
     dstream = (streamed - y).abs().max().item()
     require(dstream <= 1e-5, f"stereo streamed vs block-parallel {dstream}")
-    print(f"stereo streamed Pipeline.run at {STREAM_BLOCK}-byte blocks: max "
+    print(f"stereo streamed op by op at {STREAM_BLOCK}-byte blocks: max "
           f"abs diff to block-parallel {dstream}; "
           f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+    compiled_run(pipe, list(raw.split(STREAM_BLOCK)), streamed, "stereo",
+                 raw.numel() // 2)
 
     small = raw[:4 * STREAM_BLOCK].cpu()
     cpu_ops = fm_chain(front="quantized", stereo=True, deemphasis=75e-6,
@@ -1819,21 +1856,33 @@ def require_no_layout_copy(what: str) -> None:
             "layout K3 reads")
 
 
+PROFILE_LEAD = 8                      # spin kernels before a profiled call
+
+
 def device_kernels(fn, word: str) -> dict:
     """The device kernels of one ``fn()`` under ``torch.profiler`` whose
-    names hold ``word`` (any case): {name: launches}."""
+    names hold ``word`` (any case): {name: launches}.  Late in a long
+    process the profiler loses the first kernels of a session (the first
+    three of a call, fills and copies and K7 + DFT, were missing), so
+    PROFILE_LEAD spin kernels of about 1 ms run first, and at least one
+    of them must be recorded; they are left out of the result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(SLEEP_CYCLES // 10)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     names = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA]
-    require(names, "the profiler recorded no device kernel")
-    return {e.key: e.count for e in names if word in e.key.lower()}
+    require(any("spin_kernel" in e.key for e in names),
+            "the profiler recorded none of the spin kernels before the call")
+    return {e.key: e.count for e in names
+            if word in e.key.lower() and "spin_kernel" not in e.key}
 
 
 def require_launches(launches: dict, want: dict, what: str) -> None:
@@ -1893,8 +1942,9 @@ def run_exact_chain(raw, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    streamed = torch.cat(list(pipe.run(raw[i:i + STREAM_BLOCK] for i in
-                                       range(0, raw.numel(), STREAM_BLOCK))))
+    streamed = torch.cat(eager_stream(pipe, (
+        raw[i:i + STREAM_BLOCK] for i in range(0, raw.numel(),
+                                               STREAM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"iq_convert": 1, "fm_demod": 1},
@@ -1904,11 +1954,13 @@ def run_exact_chain(raw, ops, kernels):
     # changes the code path that computes a sample (1 ulp on the CPU)
     dstream = max_err(streamed, y)
     require(dstream <= 1e-6,
-            f"exact streamed Pipeline.run vs block-parallel {dstream} > 1e-6")
-    print(f"exact streamed Pipeline.run at {STREAM_BLOCK}-byte blocks: max "
+            f"exact streamed op by op vs block-parallel {dstream} > 1e-6")
+    print(f"exact streamed op by op at {STREAM_BLOCK}-byte blocks: max "
           f"abs diff to block-parallel {dstream} (bitwise equal: "
           f"{torch.equal(streamed, y)}); "
           f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+    compiled_run(pipe, list(raw.split(STREAM_BLOCK)), streamed, "exact",
+                 raw.numel() // 2)
 
     device = ops[0].device
     fused = run_time_batched(fm_chain(device=device), raw, ROWS)
@@ -1925,17 +1977,24 @@ def run_exact_chain(raw, ops, kernels):
                               small.cpu())
         torch.cuda.synchronize()
         reset_launches(kernels)
-        _, got = Pipeline(fm_chain(front="exact", device=device, **kw),
-                          block_in=STREAM_BLOCK).process(small)
+        variant = Pipeline(fm_chain(front="exact", device=device, **kw),
+                           block_in=STREAM_BLOCK)
+        got = torch.cat(eager_stream(variant, small.split(STREAM_BLOCK)))
         torch.cuda.synchronize()
         diff = max_err(got.cpu(), ref)
         require(diff <= 1e-5, f"exact chain {kw}: card vs CPU plain chain "
                               f"{diff} > 1e-5")
         require_per_block(kernels, {"iq_convert": 1, "fm_demod": 1}, 4,
                           f"exact chain {kw} streamed")
+        # process, as a user calls it: the compiled step (the first block
+        # eager, the second captured, two replays)
+        _, proc = variant.process(small)
+        require(same_bits(proc, got), f"exact chain {kw}: process "
+                "(compiled) != the eager stream")
         print(f"exact chain {kw or '(complex)'} streamed on 4 blocks: card "
-              f"vs CPU plain chain max abs diff {diff}; launches "
-              f"{ {k.name: k.launches for k in kernels} }")
+              f"vs CPU plain chain max abs diff {diff}; launches op by op "
+              f"{ {k.name: k.launches for k in kernels} }; process "
+              "(compiled) bitwise the eager stream")
     return launches
 
 
@@ -2382,8 +2441,8 @@ def run_am_chain(raw, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    streamed = torch.cat(list(pipe.run(raw[i:i + AM_BLOCK] for i in
-                                       range(0, raw.numel(), AM_BLOCK))))
+    streamed = torch.cat(eager_stream(pipe, (
+        raw[i:i + AM_BLOCK] for i in range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"iq_convert": 1, "mix": 1, "agc_linear": 1,
@@ -2391,9 +2450,11 @@ def run_am_chain(raw, ops, kernels):
                       raw.numel() // AM_BLOCK, "AM streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-4, f"AM streamed vs block-parallel {dstream}")
-    print(f"AM streamed Pipeline.run at {AM_BLOCK}-byte blocks: max abs diff "
+    print(f"AM streamed op by op at {AM_BLOCK}-byte blocks: max abs diff "
           f"to block-parallel {dstream}; "
           f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+    compiled_run(pipe, list(raw.split(AM_BLOCK)), streamed, "AM",
+                 raw.numel() // 2)
 
     _, ref = Pipeline(am_chain(device="cpu"), block_in=AM_BLOCK,
                       device="cpu").process(raw[:4 * AM_BLOCK].cpu())
@@ -2836,8 +2897,8 @@ def run_am_approx(raw, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    streamed = torch.cat(list(pipe.run(raw[i:i + AM_BLOCK] for i in
-                                       range(0, raw.numel(), AM_BLOCK))))
+    streamed = torch.cat(eager_stream(pipe, (
+        raw[i:i + AM_BLOCK] for i in range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"iq_convert": 1, "iir": 1, "mix": 1},
@@ -2845,9 +2906,11 @@ def run_am_approx(raw, ops, kernels):
     dstream = max_err(streamed, y)
     require(dstream <= 1e-3,
             f"AM sequential-AGC streamed vs block-parallel {dstream}")
-    print(f"AM sequential-AGC streamed Pipeline.run at {AM_BLOCK}-byte "
+    print(f"AM sequential-AGC streamed op by op at {AM_BLOCK}-byte "
           f"blocks: max abs diff to block-parallel {dstream}; "
           f"{raw.numel() // 2 / t_stream:.6e} complex input samples/s")
+    compiled_run(pipe, list(raw.split(AM_BLOCK)), streamed,
+                 "AM sequential-AGC", raw.numel() // 2)
     linear = run_time_batched(am_chain(planar=False, device=ops[0].device),
                               raw, ROWS)
     dlin = max_err(linear, y)
@@ -2891,8 +2954,10 @@ def check_tx_kernels(audio, ops):
 
 def run_fm_tx(kernels, device):
     """The transmitter on a TX_SECONDS, 1 kHz WAV: ``apps.fm_tx`` in this
-    process with the launch counters read around it (124 K2 launches:
-    two a block) and as a user runs it (``python -m``, its wall time as
+    process with the launch counters read around it (its compiled step
+    captured once, 2 K2 launches in each of the capture's calls, and
+    replayed once a block), the same chain streamed op by op (124 K2
+    launches: two a block), and as a user runs it (``python -m``, its wall time as
     IQ samples/s against real time; the same file); its streamed output
     against the same chain run as one block over the whole recording;
     then the round trip, the i16 IQ converted to u8 as
@@ -2914,19 +2979,33 @@ def run_fm_tx(kernels, device):
         ops = fm_tx.tx_chain(TX_RATE, 75_000, device=device)
         rows = check_tx_kernels(audio, ops)
 
-        # the CLI's entry point in this process: the path's launches
+        # the CLI's entry point in this process: its compiled step runs the
+        # first block eagerly, captures at the second and replays it there
+        # and after; the path's launches op by op
+        from sdr_tpu_torch.utils import graphs
         ours = os.path.join(tmp, "tx.iq")
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
+        before = (graphs.captures, graphs.replays)
         t0 = time.perf_counter()
         require(fm_tx.main(["--in", wav, "--out", ours]) == 0,
                 "fm_tx in this process")
         torch.cuda.synchronize()
         t_in = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        cli = {k.name: k.launches for k in kernels}
         nb = audio.numel() // TX_BLOCK
-        require_launches(launches, {"resample": 2 * nb}, "transmitter path")
+        replayed = (graphs.captures - before[0], graphs.replays - before[1])
+        require(replayed == (1, nb - 1), f"fm_tx: captures and replays "
+                f"{replayed}, expected (1, {nb - 1})")
+        require_launches(cli, {"resample": 2 * (1 + graphs.WARMUP + 1)},
+                         "transmitter CLI (the eager block and the "
+                         "capture's calls)")
+        _, launches = counted(lambda: eager_stream(
+            Pipeline(ops, block_in=TX_BLOCK, in_dtype=torch.float32),
+            audio[:nb * TX_BLOCK].split(TX_BLOCK)), kernels)
+        require_launches(launches, {"resample": 2 * nb},
+                         "transmitter path op by op")
         iq = torch.from_numpy(np.fromfile(ours, np.int16))
         n_iq = nb * TX_BLOCK * 80 // 3
         require(iq.numel() == 2 * n_iq, f"fm_tx wrote {iq.numel()} values")
@@ -2945,7 +3024,8 @@ def run_fm_tx(kernels, device):
                 "fm_tx cli and fm_tx.main wrote different files")
         print(f"fm_tx: {TX_SECONDS} s at {TX_RATE} Hz in {nb} blocks of "
               f"{TX_BLOCK} -> {n_iq} IQ samples ({2 * iq.numel()} bytes of "
-              f"i16); launches {launches}; in this process {t_in:.3f} s "
+              f"i16); launches {launches} op by op, {cli} in the CLI's "
+              f"eager block and capture, {nb - 1} replays; in this process {t_in:.3f} s "
               f"({n_iq / t_in:.6e} IQ samples/s), as a command {t_cli:.3f} "
               f"s ({n_iq / t_cli:.6e} IQ samples/s, "
               f"{n_iq / t_cli / FS_IN:.2f}x real time at {FS_IN} S/s)")
@@ -3221,19 +3301,21 @@ def run_waterfall(raw, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    streamed = torch.cat(list(pipe.run(raw[i:i + WF_BLOCK] for i in
-                                       range(0, raw.numel(), WF_BLOCK))),
-                         dim=-2)
+    streamed = torch.cat(eager_stream(pipe, (
+        raw[i:i + WF_BLOCK] for i in range(0, raw.numel(), WF_BLOCK))),
+        dim=-2)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"iq_convert": 1, "fft_stream": 1},
                       raw.numel() // WF_BLOCK, "waterfall streamed")
     require(torch.equal(streamed, y),
-            "waterfall streamed Pipeline.run != block-parallel (max diff "
+            "waterfall streamed op by op != block-parallel (max diff "
             f"{max_err(streamed, y)})")
-    print(f"waterfall streamed Pipeline.run at {WF_BLOCK}-byte blocks: "
+    print(f"waterfall streamed op by op at {WF_BLOCK}-byte blocks: "
           f"equal to block-parallel; {raw.numel() // 2 / t_stream:.6e} "
           "complex input samples/s")
+    compiled_run(pipe, list(raw.split(WF_BLOCK)), streamed, "waterfall",
+                 raw.numel() // 2, dim=-2)
 
     # K9 and pocketfft round differently: relative to each frame's peak
     _, ref = Pipeline(waterfall_chain(device="cpu"), block_in=WF_BLOCK,
@@ -3707,9 +3789,8 @@ def run_channelizer_wideband(x, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    streamed = torch.cat(list(pipe.run(x[i:i + CH_BLOCK] for i in
-                                       range(0, x.numel(), CH_BLOCK))),
-                         dim=-1)
+    streamed = torch.cat(eager_stream(pipe, (
+        x[i:i + CH_BLOCK] for i in range(0, x.numel(), CH_BLOCK))), dim=-1)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"channelize": 1, "fm_demod": 1},
@@ -3721,10 +3802,13 @@ def run_channelizer_wideband(x, ops, kernels):
     dstream = max_err(streamed, y)
     require(torch.equal(streamed, y),
             f"bank streamed vs block-parallel not bitwise ({dstream})")
-    print(f"wideband channelizer streamed Pipeline.run at {CH_BLOCK}-sample "
+    print(f"wideband channelizer streamed op by op at {CH_BLOCK}-sample "
           f"blocks: max abs diff to block-parallel {dstream} (bitwise "
           f"equal: {torch.equal(streamed, y)}); "
           f"{x.numel() / t_stream:.6e} wideband complex input samples/s")
+    compiled_run(pipe, list(x.split(CH_BLOCK)), streamed,
+                 "wideband channelizer", x.numel(),
+                 unit="wideband complex input samples/s")
 
     _, ref = Pipeline(channelizer_chain(CH_C, wideband=True, device="cpu"),
                       block_in=CH_BLOCK, in_dtype=torch.complex64,
@@ -3772,8 +3856,8 @@ def run_channelizer_narrowband(x, ops, kernels):
     torch.cuda.synchronize()
     reset_launches(kernels)
     t0 = time.perf_counter()
-    streamed = torch.cat(list(pipe.run(x[:, i:i + blk] for i in
-                                       range(0, NB_SAMPLES, blk))), dim=-1)
+    streamed = torch.cat(eager_stream(pipe, (
+        x[:, i:i + blk] for i in range(0, NB_SAMPLES, blk))), dim=-1)
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"fm_demod": 1}, NB_BLOCKS,
@@ -3781,11 +3865,14 @@ def run_channelizer_narrowband(x, ops, kernels):
     dstream = max_err(streamed, y)
     require(dstream <= 1e-6,
             f"narrowband streamed vs block-parallel {dstream}")
-    print(f"narrowband channelizer streamed Pipeline.run at [{CH_C}, {blk}] "
+    print(f"narrowband channelizer streamed op by op at [{CH_C}, {blk}] "
           f"blocks: max abs diff to block-parallel {dstream} (bitwise "
           f"equal: {torch.equal(streamed, y)}); "
           f"{x.numel() / t_stream:.6e} channel complex input samples/s "
           "(all channels)")
+    compiled_run(pipe, list(x.split(blk, dim=-1)), streamed,
+                 "narrowband channelizer", x.numel(),
+                 unit="channel complex input samples/s (all channels)")
     n, m = NB_SAMPLES // NB_BLOCKS, NB_SAMPLES // NB_BLOCKS * 3 // 80
     ref = run_time_batched(channelizer_chain(CH_C, device="cpu"),
                            x[:8, :n].cpu(), 1, device="cpu")
@@ -4499,21 +4586,30 @@ def live_command(payload: bytes, extra, out) -> bytes:
 def live_in_process(payload: bytes, extra, out, kernels, device):
     """The FM CLI's ``main`` in this process against a mock radio that
     sends as fast as loopback allows, under the port's ``Timer``: its
-    launches, blocks dropped, and input samples/s against real time (a
-    figure, not a check)."""
+    launches (those of ``prime``'s eager call, warm-up and capture: the
+    live blocks replay the compiled call), the graphs captured (one, in
+    ``prime``; a short last group of ``--batched`` runs eagerly) and
+    replayed, blocks dropped, and input samples/s against real time
+    (a figure, not a check)."""
     import contextlib
     import io as iolib
     from sdr_tpu_torch.apps import fm
     from sdr_tpu_torch.stream import Timer
+    from sdr_tpu_torch.utils import graphs
     radio = MockRadio(payload, None)
     err = iolib.StringIO()
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
+    before = (graphs.captures, graphs.replays)
     with contextlib.redirect_stderr(err), Timer(device) as t:
         require(fm.main(["--in", radio.url, "--out", str(out), *LIVE_ARGS,
                          *extra]) == 0, "live main")
     launches = {k.name: k.launches for k in kernels}
+    captures = graphs.captures - before[0]
+    replays = graphs.replays - before[1]
+    require(captures == 1, f"live main {extra}: {captures} graphs captured, "
+            "expected 1 (in prime)")
     what = f"live main {' '.join(extra) or '(mono)'}, unpaced"
     radio.join(what)
     _, ch, pcm = read_wav(out)
@@ -4524,7 +4620,8 @@ def live_in_process(payload: bytes, extra, out, kernels, device):
           f"{t.seconds:.4f} s (Timer, the pipeline's construction and the "
           f"connection included): {rate:.6e} complex input samples/s, "
           f"{rate / FS_IN:.2f}x real time (1.28e6 S/s); {dropped}; "
-          f"launches {launches}")
+          f"graphs captured {captures}, replays {replays}; launches "
+          f"{launches}")
     return launches
 
 
@@ -4595,7 +4692,9 @@ def check_native(path: Path, payload: bytes, device, wav_file: bytes,
 
 def check_surface(raw, device, kernels, tmp: Path, card: str):
     """``Pipeline.scan`` over [SCAN_BLOCKS, STREAM_BLOCK] (bitwise
-    ``Pipeline.run``, its launches), ``Timer`` and ``timed`` against the
+    ``Pipeline.run`` and the eager run, replays of the step ``run``
+    captured and no launch from Python; the eager run's launches),
+    ``Timer`` and ``timed`` against the
     CUDA-event time of a block-parallel call queued behind a device-side
     sleep (they wait for the card), and ``profile`` writing a trace."""
     from sdr_tpu_torch.apps.chains import fm_chain
@@ -4606,14 +4705,26 @@ def check_surface(raw, device, kernels, tmp: Path, card: str):
     ops = fm_chain(device=device)
     pipe = Pipeline(ops, block_in=STREAM_BLOCK, device=device)
     x = raw[:SCAN_BLOCKS * STREAM_BLOCK].view(SCAN_BLOCKS, STREAM_BLOCK)
+    from sdr_tpu_torch.utils import graphs
     run = torch.stack(list(pipe.run(x.unbind(0))))
-    (_, ys), launches = counted(lambda: pipe.scan(x), kernels)
+    before = (graphs.captures, graphs.replays)
+    (_, ys), scan_launches = counted(lambda: pipe.scan(x), kernels)
     require(torch.equal(ys, run), "Pipeline.scan != Pipeline.run")
+    require((graphs.captures - before[0], graphs.replays - before[1])
+            == (0, SCAN_BLOCKS) and not any(scan_launches.values()),
+            f"Pipeline.scan: not {SCAN_BLOCKS} replays of run's capture "
+            f"(launches {scan_launches})")
+    eager, launches = counted(lambda: eager_stream(pipe, x.unbind(0)),
+                              kernels)
+    require(torch.equal(ys, torch.stack(eager)),
+            "Pipeline.scan != the eager run")
     require_launches(launches, {"u8_front_demod": SCAN_BLOCKS,
                                 "resample": SCAN_BLOCKS,
-                                "fir": SCAN_BLOCKS}, "Pipeline.scan")
-    print(f"Pipeline.scan over {list(x.shape)}: bitwise Pipeline.run, "
-          f"ys {list(ys.shape)}, launches {launches}")
+                                "fir": SCAN_BLOCKS}, "eager scan")
+    print(f"Pipeline.scan over {list(x.shape)}: bitwise Pipeline.run and "
+          f"the eager run, ys {list(ys.shape)}, {SCAN_BLOCKS} replays of the "
+          f"step run captured, no launch from Python; the eager run's "
+          f"launches {launches}")
 
     def queued():
         a = torch.cuda.Event(enable_timing=True)
@@ -4723,6 +4834,330 @@ def run_live(seed: int, device, kernels, card: str):
         paths["scan"] = check_surface(mono, device, kernels, tmp, card)
     print(f"live phase ran in {time.perf_counter() - t0:.1f} s")
     return paths
+
+
+COMPILED_STREAM_BLOCKS = 8             # blocks of the streamed jit_step check
+
+
+def byte_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes (any dtype, complex as its two parts)."""
+    t = torch.view_as_real(t) if t.is_complex() else t
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+def same_tree(a, b) -> bool:
+    """Two carry trees (or outputs) equal bit for bit, leaf by leaf."""
+    from sdr_tpu_torch.stream.pipeline import flatten_carries
+    la, lb = flatten_carries(a), flatten_carries(b)
+    return len(la) == len(lb) and all(
+        u.shape == v.shape and u.dtype == v.dtype
+        and torch.equal(byte_view(u), byte_view(v)) for u, v in zip(la, lb))
+
+
+def eager_stream(pipe, blocks, carries=None) -> list:
+    """The streamed run op by op (``Pipeline.apply`` a block, the carries
+    threaded): the eager form the compiled ``Pipeline.run`` must equal,
+    and the form whose launches count once a block."""
+    cs = pipe.init() if carries is None else carries
+    ys = []
+    for blk in blocks:
+        cs, y = pipe.apply(cs, blk.contiguous())
+        ys.append(y)
+    return ys
+
+
+def compiled_run(pipe, blocks: list, streamed, what: str, items: int,
+                 dim: int = -1,
+                 unit: str = "complex input samples/s") -> None:
+    """The streamed run as a user drives it, ``Pipeline.run`` (the first
+    block eager, the step captured at the second and replayed after),
+    over ``blocks``: bitwise ``streamed``, the eager stream op by op
+    joined along ``dim``; its rate in ``items`` (input samples) a second;
+    its graphs freed after."""
+    from sdr_tpu_torch.utils import graphs
+    before = (graphs.captures, graphs.replays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(pipe.run(blocks))
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    n = len(got)
+    counts = (graphs.captures - before[0], graphs.replays - before[1])
+    require(counts == (1, n - 1), f"{what} Pipeline.run: captures and "
+            f"replays {counts}, expected (1, {n - 1})")
+    require(same_bits(torch.cat(got, dim=dim), streamed),
+            f"{what} Pipeline.run (compiled) != the eager stream")
+    print(f"{what} Pipeline.run (compiled: 1 block eager, 1 capture, "
+          f"{n - 1} replays): bitwise the eager stream op by op; "
+          f"{items / t:.6e} {unit}")
+    pipe.clear_compiled()
+
+
+def compiled_inputs(name: str, seed: int, device):
+    """(ops, recording, blocks a call) of a block-parallel chain of phases
+    2-10, the recording made from ``seed``."""
+    from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
+                                           fm_chain, waterfall_chain)
+    from sdr_tpu_torch.apps.channelizer import synthesize
+    u8 = ROWS * ROW_BYTES
+    if name == "mono":
+        return fm_chain(device=device), synth_broadcast(u8, seed, device), ROWS
+    if name in ("stereo", "stereo_fused"):
+        return (stereo_ops(name == "stereo_fused", device),
+                synth_stereo_broadcast(u8, seed, device), ROWS)
+    if name == "exact":
+        return (fm_chain(front="exact", device=device),
+                synth_broadcast(u8, seed, device), ROWS)
+    if name in ("am", "am_approx"):
+        ops = am_chain(agc_approx=1, device=device) if name == "am_approx" \
+            else am_chain(device=device)
+        return ops, synth_am(u8, seed, device), ROWS
+    if name in ("waterfall", "waterfall_complex"):
+        return (waterfall_chain(planar=name == "waterfall", device=device),
+                synth_broadcast(u8, seed, device), ROWS)
+    if name == "channelizer_wideband":
+        return (channelizer_chain(CH_C, wideband=True, device=device),
+                synth_wideband_bank(ROWS * CH_BLOCK, seed, device), ROWS)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = synthesize(CH_C, NB_SAMPLES, FS_IN, device)
+    x += 0.01 * torch.randn(x.shape, generator=g, dtype=x.dtype,
+                            device=device)
+    return channelizer_chain(CH_C, device=device), x, NB_BLOCKS
+
+
+COMPILED_CHAINS = ("mono", "stereo", "stereo_fused", "exact", "am",
+                   "am_approx", "waterfall", "waterfall_complex",
+                   "channelizer_wideband", "channelizer")
+
+
+def footprint(fn) -> int:
+    """Device bytes one call of ``fn`` allocates at its peak beyond what
+    was allocated before it (its intermediates and output)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def compiled_chain(name: str, seed: int, device, card: str) -> dict:
+    """One block-parallel chain eager and compiled: each replay bitwise
+    the eager call on the recording, on a second recording copied in, and
+    with seeded carries threaded through the call's static buffers; one
+    replay with ``set_sync_debug_mode('error')``; both spans and both
+    ``queued_split``s in turns (eager, compiled, compiled, eager); the
+    device bytes an eager call and a replay allocate and the bytes the
+    graph's pool holds; an on-card recording's copy into the input."""
+    from sdr_tpu_torch.parallel.sharded import (compile_time_batched,
+                                                run_time_batched)
+    from sdr_tpu_torch.profile_fm import queued_split, span_ms
+    from sdr_tpu_torch.stream.pipeline import flatten_carries
+    from sdr_tpu_torch.utils import graphs
+
+    ops, raw, nb = compiled_inputs(name, seed, device)
+    _, raw2, _ = compiled_inputs(name, seed + 1, device)
+    eager = run_time_batched(ops, raw, nb)
+    eager2 = run_time_batched(ops, raw2, nb)
+    torch.cuda.synchronize()
+    eager_bytes = footprint(lambda: run_time_batched(ops, raw, nb))
+    # the call captures on its input tensor, which the second recording
+    # is copied into
+    t0 = time.perf_counter()
+    call = compile_time_batched(ops, raw.clone(), nb)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    y = call()
+    require(same_bits(y, eager), f"compiled {name}: replay != eager call")
+    y2 = call(raw2)
+    require(call.input_copies == 1, f"compiled {name}: input copies "
+            f"{call.input_copies}, expected 1")
+    require(same_bits(y2, eager2),
+            f"compiled {name}: replay on the second recording != eager")
+    require(y2.data_ptr() == y.data_ptr(), f"compiled {name}: the output "
+            "is not the call's own buffer")
+    call(raw)
+    require(call.input_copies == 2, f"compiled {name}: input copies "
+            f"{call.input_copies}, expected 2")
+    # one replay that must not wait for the card (the input on the card)
+    y = sync_free(call)
+    require(same_bits(y, eager), f"compiled {name}: sync-free replay")
+    # the device kernels one replay runs, by the profiler (a replay counts
+    # no launch from Python): the eager call's, name for name and count
+    # for count (memsets and copies too); the wideband bank's K7 + DFT
+    # and no cuFFT kernel
+    eager_kernels = device_kernels(lambda: run_time_batched(ops, raw, nb), "")
+    replay_kernels = device_kernels(call, "")
+    require(replay_kernels == eager_kernels,
+            f"compiled {name}: the replay's kernels {replay_kernels} != "
+            f"the eager call's {eager_kernels}")
+    if name == "channelizer_wideband":
+        require(any("branch_dft_kernel" in k for k in replay_kernels)
+                and not any("fft" in k.lower() for k in replay_kernels),
+                f"compiled {name}: the replay's kernels {replay_kernels}")
+
+    # seeded carries: the state after the second recording, threaded
+    # through the call's buffers (written back inside the graph)
+    cs, _ = run_time_batched(ops, raw2, nb, return_carries=True)
+    ce, ye = run_time_batched(ops, raw, nb, carries=cs, return_carries=True)
+    withc = compile_time_batched(ops, raw, nb, carries=cs,
+                                 return_carries=True)
+    cg, yg = withc()
+    require(same_bits(yg, ye) and same_tree(cg, ce),
+            f"compiled {name}: replay with carries != eager (output "
+            f"{same_bits(yg, ye)}, carries {same_tree(cg, ce)})")
+    ce2, ye2 = run_time_batched(ops, raw, nb, carries=ce,
+                                return_carries=True)
+    cg2, yg2 = withc(carries=cg)
+    require(withc.carry_copies == len(flatten_carries(cs)),
+            f"compiled {name}: carries copied {withc.carry_copies} times")
+    require(same_bits(yg2, ye2) and same_tree(cg2, ce2),
+            f"compiled {name}: the threaded second call != eager")
+    pool = graphs.pool_bytes(call.pool)
+    del withc, cg, cg2, yg, yg2, ce, ce2, ye, ye2, cs
+    torch.cuda.empty_cache()
+    # a replay allocates nothing: the graph's intermediates and output
+    # live in its pool for as long as the call does
+    replay_bytes = footprint(call)
+
+    def eager_call():
+        return run_time_batched(ops, raw, nb)
+
+    turns = {}
+    for label, fn in (("eager", eager_call), ("compiled", call),
+                      ("compiled", call), ("eager", eager_call)):
+        turns.setdefault(label, []).append(
+            dict(span_ms=span_ms(fn), **queued_split(fn)))
+    # a recording already on the card copied into the call's input (what
+    # process(parallel_blocks=) pays a segment on the card)
+    copy_in = queued_split(lambda: call.x.copy_(raw2))["device_ms"]
+    del call
+    torch.cuda.empty_cache()
+    rec = {"chain": name, "blocks": nb, "input": list(raw.shape),
+           "capture_ms": capture_ms, "eager_call_bytes": eager_bytes,
+           "replay_bytes": replay_bytes, "pool_bytes": pool,
+           "copy_in_device_ms": copy_in, "kernels": replay_kernels,
+           "card": card}
+    for label, runs in turns.items():
+        for i, r in enumerate(runs):
+            for k, v in r.items():
+                rec[f"{label}{i + 1}_{k}"] = v
+    e = [r["device_ms"] for r in turns["eager"]]
+    c = [r["device_ms"] for r in turns["compiled"]]
+    print(f"compiled {name}: bitwise the eager call on two recordings and "
+          f"with threaded carries; a replay's device kernels by the "
+          f"profiler, the eager call's: {replay_kernels}; "
+          f"capture {capture_ms:.1f} ms; span eager "
+          f"{[r['span_ms'] for r in turns['eager']]} ms, compiled "
+          f"{[r['span_ms'] for r in turns['compiled']]} ms; device eager "
+          f"{e}, compiled {c}; enqueue eager "
+          f"{[r['enqueue_ms'] for r in turns['eager']]}, compiled "
+          f"{[r['enqueue_ms'] for r in turns['compiled']]} ms; device "
+          f"bytes an eager call allocates {eager_bytes}, a replay "
+          f"{replay_bytes}, the graph's pool holds {pool}; the input copied "
+          f"in on the card {copy_in} ms; {card}")
+    return rec
+
+
+def compiled_stream(name: str, seed: int, device, card: str) -> dict:
+    """The streamed compiled step (``Pipeline.run``) over
+    COMPILED_STREAM_BLOCKS blocks bitwise the eager run op by op (the
+    blocks yielded earlier unchanged by later replays; ``StereoDecode``'s
+    history written back inside the graph), and one block's
+    ``queued_split`` eager and compiled."""
+    from sdr_tpu_torch.profile_fm import queued_split
+    from sdr_tpu_torch.stream import Pipeline
+    from sdr_tpu_torch.utils import graphs
+
+    ops, raw, _ = compiled_inputs(name, seed, device)
+    blk = AM_BLOCK if name == "am" else STREAM_BLOCK
+    blocks = [raw[i * blk:(i + 1) * blk]
+              for i in range(COMPILED_STREAM_BLOCKS)]
+    pipe = Pipeline(ops, block_in=blk, device=device)
+    want = eager_stream(pipe, blocks)
+    got = list(pipe.run(blocks))
+    require(all(same_bits(a, b) for a, b in zip(got, want)),
+            f"compiled {name}: streamed jit_step != the eager run")
+    step = pipe.jit_step()
+    x = blocks[1].contiguous()
+    box = {"cs": step(pipe.init(), blocks[0])[0],
+           "ce": pipe.apply(pipe.init(), blocks[0].contiguous())[0]}
+
+    def compiled():
+        box["cs"], y = step(box["cs"], x)
+        return y
+
+    def eager():
+        box["ce"], y = pipe.apply(box["ce"], x)
+        return y
+
+    e1, c1, c2, e2 = (queued_split(f) for f in (eager, compiled, compiled,
+                                                 eager))
+    print(f"compiled {name} streamed over {COMPILED_STREAM_BLOCKS} blocks "
+          f"of {blk}: bitwise the eager run; one block: device eager "
+          f"{e1['device_ms']}, {e2['device_ms']} ms, compiled "
+          f"{c1['device_ms']}, {c2['device_ms']} ms; enqueue eager "
+          f"{e1['enqueue_ms']}, {e2['enqueue_ms']} ms, compiled "
+          f"{c1['enqueue_ms']}, {c2['enqueue_ms']} ms; {card}")
+    # dropping the pipeline (its ops and steps) frees its graphs and their
+    # pool at once: no reference cycle waits for the cyclic collector
+    pool = step.pool
+    held = graphs.pool_bytes(pool)
+    gc.disable()
+    try:
+        del pipe, step, box, compiled, eager, ops
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = graphs.pool_bytes(pool)
+    finally:
+        gc.enable()
+    require(held > 0 and left == 0, f"compiled {name} streamed: the "
+            f"pool held {held} bytes, {left} after the pipeline was dropped")
+    print(f"compiled {name} streamed: its pool of {held} bytes freed when "
+          f"the pipeline was dropped (the cyclic collector off)")
+    return {"chain": f"{name}_streamed", "block": blk,
+            "eager": [e1, e2], "compiled": [c1, c2], "pool_bytes": held,
+            "card": card}
+
+
+def check_capture_refuses_sync(device) -> str:
+    """A chain with an op that waits for the card (a ``Map`` calling
+    ``.item()``) cannot be captured: its compiled step raises, with no
+    eager run in its place, and the card runs the next call."""
+    from sdr_tpu_torch.stream import Map, Pipeline, Scale
+    pipe = Pipeline([Scale(2.0, device=device),
+                     Map(lambda x: x * float(x.max().item()),
+                         device=device)],
+                    block_in=4096, in_dtype=torch.float32, device=device)
+    x = torch.ones(4096, device=device)
+    try:
+        pipe.jit_step()(pipe.init(), x)
+    except Exception as e:          # the capture's own error, as it is
+        err = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    else:
+        raise RuntimeError("check failed: a capture that syncs with the "
+                           "host did not raise")
+    torch.cuda.synchronize()
+    y = pipe.apply(pipe.init(), x)[1]
+    require(bool((y == 4.0).all()), "the card after a refused capture")
+    print(f"a Map calling .item() refused at capture: {err}")
+    return err
+
+
+def run_compiled(seed: int, device, card: str) -> list:
+    """Phase 15: the compiled calls (``compile_time_batched``,
+    ``Pipeline.jit_step``) on every block-parallel chain of phases 2-10
+    and the streamed mono, stereo and AM chains; each chain's graphs
+    freed before the next."""
+    t0 = time.perf_counter()
+    recs = [compiled_chain(name, seed, device, card)
+            for name in COMPILED_CHAINS]
+    recs += [compiled_stream(name, seed, device, card)
+             for name in ("mono", "stereo", "am")]
+    check_capture_refuses_sync(device)
+    print(json.dumps({"compiled": recs}))
+    print(f"compiled phase ran in {time.perf_counter() - t0:.1f} s")
+    return recs
 
 
 def print_rows(rows, card: str) -> None:
@@ -4915,6 +5350,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     roofline = run_roofline(card)
     print(f"roofline phase in {time.perf_counter() - t0:.1f} s")
+
+    # the compiled calls: every block-parallel chain of phases 2-10 as a
+    # CUDA graph, the streamed step on mono, stereo and AM
+    run_compiled(args.seed, device, card)
 
     # the sharded paths: NCCL at world 1, four gloo ranks sharing the
     # card, the channelizer CLI under torchrun

@@ -18,8 +18,10 @@ WAV at 3/80 of the input rate (48 kHz): mono, or L/R with ``--stereo``
     python -m sdr_tpu_torch.apps.fm --in capture.iq --out audio.wav \\
         --front quantized --stereo --deemphasis 75e-6
 
-A live input first runs the chain once on a block of silence (``prime``),
-so the card's start-up is paid before the radio streams.  ``--audio``
+Blocks run through the compiled step (``Pipeline.run``: a CUDA graph
+captured at the second block and replayed after).  A live input first
+runs the chain twice on blocks of silence (``prime``), so the card's
+start-up and the capture are paid before the radio streams.  ``--audio``
 plays the audio live through the optional ``sounddevice`` package
 instead (and fails without it); ``--native`` reads a recording through
 the C++ ring-buffer loader (built with g++ on first use).  The
@@ -43,14 +45,17 @@ from sdr_tpu_torch.utils import parse_size
 
 
 def prime(pipe: Pipeline, block: int, batched: int) -> None:
-    """Run the chain once, in the form the stream will take, on blocks of
+    """Run the chain twice, in the form the stream will take, on blocks of
     silence (u8 0x80), and wait for the result: the card's lazy start-up
-    (module loads, library handles, the kernels' caches) is then paid
-    before a live radio streams, which cannot wait for it.  The stream
-    itself starts from fresh carries, so its output is unchanged."""
+    (module loads, library handles, the kernels' caches) in the first
+    call and the capture of the compiled call (``Pipeline.run``'s step,
+    or ``run_batched``'s group) in the second are then paid before a live
+    radio streams, which cannot wait for them, so the first live block
+    replays.  The stream itself starts
+    from fresh carries, so its output is unchanged."""
     silence = np.full(block, 0x80, np.uint8)
-    ys = (pipe.run_batched([silence] * batched, batched) if batched
-          else pipe.run([silence]))
+    ys = (pipe.run_batched([silence] * 2 * batched, batched) if batched
+          else pipe.run([silence] * 2))
     for y in ys:
         y.cpu()
 

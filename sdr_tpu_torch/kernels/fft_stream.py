@@ -34,6 +34,7 @@ import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, ptr
 from sdr_tpu_torch.ops import fftops
+from sdr_tpu_torch.utils.graphs import keep
 
 __all__ = ["KERNEL", "SIZES", "fft_stream", "fft_stream_reference",
            "kernel_route", "plan", "twiddles"]
@@ -113,7 +114,7 @@ def twiddles(size: int, device) -> torch.Tensor:
         pairs = np.stack([table.real, table.imag], axis=-1)
         _TWIDDLES[key] = torch.as_tensor(pairs.astype(np.float32),
                                          device=device)
-    return _TWIDDLES[key]
+    return keep(_TWIDDLES[key])
 
 
 def _check(hist, x, window, hop):

@@ -35,6 +35,7 @@ import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 from sdr_tpu_torch.ops.iir import companion, linear_recurrence
+from sdr_tpu_torch.utils.graphs import keep
 
 __all__ = ["KERNEL", "SPAN", "TILE", "iir_section", "iir_section_reference",
            "scratch_doubles"]
@@ -154,7 +155,7 @@ def iir_section(x: torch.Tensor, b, coeffs, xin: torch.Tensor,
         s_out.copy_(s0)
         return y, s_out
     key = (b, tuple(float(c) for c in coeffs))
-    params, powers = _params(*key), _powers(*key, x.device)
+    params, powers = _params(*key), keep(_powers(*key, x.device))
     doubles = scratch_doubles(rows, n, p)
     scratch = torch.empty(doubles, dtype=torch.float64, device=x.device)
     KERNEL.launch("launch_iir_section", x.device, ptr(x), ptr(xin), ptr(s0),

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
+from sdr_tpu_torch.utils.graphs import keep
 
 __all__ = ["KERNEL", "period_table", "period_words", "resample",
            "resample_reference"]
@@ -57,7 +58,7 @@ def period_words(I: int, D: int, offset: int,
         if len(_PERIODS) >= _PERIODS_KEPT:
             _PERIODS.pop(next(iter(_PERIODS)))
         _PERIODS[key] = words
-    return words
+    return keep(words)
 
 
 def _check(table, I, D, x, hist, offset, num, start):

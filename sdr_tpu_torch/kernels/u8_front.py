@@ -22,6 +22,7 @@ import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
 from sdr_tpu_torch.ops.quantized import front_acc
+from sdr_tpu_torch.utils.graphs import keep
 
 __all__ = ["KERNEL", "pack_taps", "tap_words", "u8_front",
            "u8_front_reference"]
@@ -61,12 +62,12 @@ def tap_words(taps: torch.Tensor) -> torch.Tensor:
     modified in place, so a stream op's launches reuse them."""
     hit = _WORDS.get(id(taps))
     if hit is not None and hit[0]() is taps and hit[1] == taps._version:
-        return hit[2]
+        return keep(hit[2])
     words = torch.as_tensor(pack_taps(taps.tolist()), device=taps.device)
     if len(_WORDS) >= _WORDS_KEPT:
         _WORDS.pop(next(iter(_WORDS)))
     _WORDS[id(taps)] = (weakref.ref(taps), taps._version, words)
-    return words
+    return keep(words)
 
 
 def _check(taps, factor, x, hist, num, start):

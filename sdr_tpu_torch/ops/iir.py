@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from sdr_tpu_torch.utils.graphs import keep
+
 __all__ = ["linear_recurrence", "biquad", "sosfilt", "deemphasis_taps"]
 
 CHUNK = 128
@@ -49,8 +51,17 @@ def _key(M: np.ndarray) -> tuple:
     return tuple(float(v) for v in M.ravel())
 
 
-@functools.lru_cache(maxsize=64)
 def _constants(M: tuple, n: int, device: torch.device):
+    """:func:`_made_constants`, each tensor held by a graph being
+    captured (``utils.graphs.keep``)."""
+    out = _made_constants(M, n, device)
+    for t in out[:4]:
+        keep(t)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _made_constants(M: tuple, n: int, device: torch.device):
     """The closed form's constants for n steps of the p x p state map M
     (a row-major tuple of float64), built in float64 and held on
     ``device`` in f32, so a call moves nothing from the host:
@@ -75,10 +86,14 @@ def _constants(M: tuple, n: int, device: torch.device):
             torch.as_tensor(pw[1:, 0, :], **f32), _key(pw[n]))
 
 
-@functools.lru_cache(maxsize=64)
 def companion_power(coeffs: tuple, n: int, device: torch.device):
     """``C^n`` of :func:`companion` from float64, as an f32 tensor on
-    ``device``."""
+    ``device``, made once (and held by a graph being captured)."""
+    return keep(_companion_power(coeffs, n, device))
+
+
+@functools.lru_cache(maxsize=64)
+def _companion_power(coeffs: tuple, n: int, device: torch.device):
     return torch.as_tensor(np.linalg.matrix_power(companion(coeffs), n),
                            dtype=torch.float32, device=device)
 

@@ -27,6 +27,12 @@ Over several processes (``torch.distributed``, one rank a card):
 
 Each runner returns the rank's own output; ``multihost.gather_time_sharded``
 joins them on one rank for a sink.
+
+:func:`compile_time_batched` is the one-process call compiled: the dry
+run and the chain's function built once, the call captured as a CUDA graph
+on its input tensor and replayed (what ``jax.jit`` of
+``run_time_batched`` is to the JAX package's bench).  The sharded runners
+stay eager: capturing their collectives is not supported.
 """
 
 from __future__ import annotations
@@ -37,10 +43,14 @@ import torch
 
 from sdr_tpu_torch.parallel.halo import gather_ranks, group_backend
 from sdr_tpu_torch.stream.block import StreamOp
-from sdr_tpu_torch.stream.pipeline import Pipeline, as_input
+from sdr_tpu_torch.stream.pipeline import (Pipeline, StaticCarries,
+                                           _clone_tree, _unflatten,
+                                           as_input, as_tensor)
 from sdr_tpu_torch.utils.device import resolve_device
+from sdr_tpu_torch.utils.graphs import Captured, new_pool
 
-__all__ = ["time_sharded_fn", "run_time_batched", "run_time_sharded",
+__all__ = ["time_sharded_fn", "run_time_batched", "compile_time_batched",
+           "CompiledBatched", "run_time_sharded",
            "run_channel_sharded", "run_grid_sharded"]
 
 _MAX_DIMS = 8       # dims of a local input the shape check carries
@@ -164,6 +174,134 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
         return _restack(out, t_axis)
     cb, yb = out
     return _last_row(cb), _restack(yb, t_axis)
+
+
+def _write_spans(x: torch.Tensor, parts) -> None:
+    """Copy ``parts`` (tensors ``[*lead, k]``) into consecutive spans of
+    ``x``'s last axis, which they fill."""
+    pos = 0
+    for part in parts:
+        k = part.shape[-1]
+        x[..., pos:pos + k].copy_(part)
+        pos += k
+    if pos != x.shape[-1]:
+        raise ValueError(f"{pos} samples written into {x.shape[-1]}")
+
+
+class CompiledBatched:
+    """:func:`compile_time_batched`'s call: ``call(x=None, carries=None)``
+    replays the block-parallel run of ``ops`` on :attr:`x`, the input it
+    was captured on.  ``x`` (a tensor of that shape and dtype, or an
+    array) is copied into it first, counted in ``input_copies``; with no
+    argument the call runs on ``x``'s current contents.  Returns the
+    output, and with ``return_carries`` the carries after the last block
+    first.  The output is the graph's own tensor, as a donated buffer is:
+    the next call overwrites it, so clone what must outlive it (a copy
+    at every call would cost the card a pass over the output: 1.34 GB of
+    the waterfall's frames).
+
+    Made with ``carries``, the call holds one static buffer a carry leaf
+    (:class:`StaticCarries`): the graph reads them as the stream state
+    entering the first block, and with ``return_carries`` writes the
+    state after the last block back into them, at its end, and returns
+    them (donated: the next call continues from them; other carries
+    passed as ``carries`` are copied in, counted in ``carry_copies``).
+    Made without, the stream starts from its warm-up state at every call,
+    and returned carries are fresh copies."""
+
+    def __init__(self, ops, x: torch.Tensor, nblocks: int, carries,
+                 return_carries: bool, device: torch.device, pool):
+        ops = list(ops)
+        n, lead = x.shape[-1], x.shape[:-1]
+        if n % nblocks:
+            raise ValueError(f"signal length {n} not divisible by {nblocks}")
+        self.x = x
+        self.nblocks = nblocks
+        self.pool = pool
+        self.return_carries = bool(return_carries)
+        self.input_copies = 0
+        self.static = (None if carries is None
+                       else StaticCarries(carries, device))
+        t_axis = Pipeline(ops, block_in=n // nblocks, batch_shape=lead,
+                          in_dtype=x.dtype, device=device).time_axis_out
+        fn = time_sharded_fn(
+            ops, initials=None if self.static is None else _unflatten(
+                self.static.tree, iter(self.static.bufs)),
+            return_carries=return_carries)
+        static = self.static
+
+        def call():
+            xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
+            out = fn(xb.contiguous())
+            if not return_carries:
+                return _restack(out, t_axis), None
+            cb, yb = out
+            last = _last_row(cb)
+            if static is None:
+                return _restack(yb, t_axis), last
+            static.write(last)
+            return _restack(yb, t_axis), None
+
+        self.graph = Captured(call, device, pool, mutated=(
+            static.bufs if static is not None and return_carries else ()))
+
+    @property
+    def carry_copies(self) -> int:
+        return 0 if self.static is None else self.static.copies
+
+    def write(self, parts) -> None:
+        """Copy ``parts`` into consecutive spans of :attr:`x` (a group's
+        blocks), each counted in ``input_copies``."""
+        _write_spans(self.x, [as_tensor(p) for p in parts])
+        self.input_copies += len(parts)
+
+    def __call__(self, x=None, carries=None):
+        if x is not None and x is not self.x:
+            x = as_tensor(x)
+            if tuple(x.shape) != tuple(self.x.shape) or \
+                    x.dtype != self.x.dtype:
+                raise ValueError(
+                    f"input {x.dtype} {tuple(x.shape)}, the compiled call "
+                    f"takes {self.x.dtype} {tuple(self.x.shape)}")
+            self.x.copy_(x)
+            self.input_copies += 1
+        if carries is not None:
+            if self.static is None:
+                raise ValueError("carries given to a call compiled without "
+                                 "them: compile with carries=")
+            self.static.load(carries)
+        y, last = self.graph.replay()
+        if not self.return_carries:
+            return y
+        if self.static is None:
+            return _clone_tree(last), y
+        return self.static.result(), y
+
+
+def compile_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
+                         carries=None, return_carries: bool = False,
+                         device="cuda", group=None) -> CompiledBatched:
+    """:func:`run_time_batched` compiled (its ``jax.jit`` in the JAX
+    package's bench): the Pipeline dry run and the chain's function are
+    built once, then the call is captured as a CUDA graph on ``x``
+    itself (a tensor on ``device``; an array or a tensor elsewhere is
+    copied there first) and replayed by the returned
+    :class:`CompiledBatched`, whose output is bitwise the eager call's on
+    the same input and carries, in a tensor the next call overwrites, its
+    graph in a memory pool of its own.  On the CPU the call keeps the
+    function and runs it again on the same buffers.
+
+    Raises for ``group``: the sharded runners' collectives are not
+    captured (they stay eager, :func:`run_time_sharded`).  A capture that
+    fails raises; nothing falls back to an eager run."""
+    if group is not None:
+        raise NotImplementedError(
+            "compile_time_batched does not capture collectives: run a "
+            "sharded call eagerly (run_time_batched with group=)")
+    device = resolve_device(device)
+    x = as_input(x, device)
+    return CompiledBatched(ops, x, nblocks, carries, return_carries, device,
+                           new_pool(device))
 
 
 def run_time_sharded(ops: Sequence[StreamOp], mesh, x_local,

@@ -21,6 +21,11 @@ before it), then in one process:
    the device's clock, host gaps included; then ``SPLIT_REPS`` calls each
    queued behind a device-side sleep (:func:`queued_split`): the device's
    time for a call without host gaps, and the host's time to enqueue it;
+   then the same for the compiled call (``compile_time_batched``: a CUDA
+   graph captured on the input and replayed, :func:`time_compiled`), its
+   capture's time, its memory pool's bytes and the host time of the
+   graph's launch alone (``cudaGraphLaunch``), in turns with the eager
+   call (eager, compiled, compiled, eager);
 2. ``REPS`` calls under ``torch.profiler``: the device time of each kernel
    by name and their sum (busy), the kernels a call (the profiler's count,
    memsets included), the device time of the PyTorch ops each
@@ -151,6 +156,31 @@ def queued_split(fn, reps: int = SPLIT_REPS) -> dict:
     return out
 
 
+def time_compiled(ops, raw, nblocks: int):
+    """The compiled block-parallel call beside the eager one: ``(capture
+    ms, bitwise equal to the eager call, pool bytes, the call)``."""
+    from sdr_tpu_torch.parallel.sharded import compile_time_batched
+    from sdr_tpu_torch.utils.graphs import pool_bytes
+    t0 = time.perf_counter()
+    call = compile_time_batched(ops, raw, nblocks)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(call(), run_time_batched(ops, raw, nblocks))
+    return capture_ms, same, pool_bytes(call.pool), call
+
+
+def span_ms(fn) -> float:
+    """Median ms of REPS back-to-back calls, each between CUDA events."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
 def _ranged(label, fn, *args):
     with record_function(label):
         return fn(*args)
@@ -228,15 +258,29 @@ def main(argv=None) -> int:
     launches = {k.name: k.launches for k in KERNELS if k.launches}
     print(f"the port's kernel launches in one call: {launches}")
 
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
-    for a, b in ev:
-        a.record()
-        run_time_batched(ops, raw, nblocks)
-        b.record()
-    torch.cuda.synchronize()
-    span = float(np.median([a.elapsed_time(b) for a, b in ev]))
-    split = queued_split(lambda: run_time_batched(ops, raw, nblocks))
+    def eager():
+        return run_time_batched(ops, raw, nblocks)
+
+    span = span_ms(eager)
+    split = queued_split(eager)
+    capture_ms, same_compiled, pool, call = time_compiled(ops, raw, nblocks)
+    turns = [(label, span_ms(fn), queued_split(fn)) for label, fn in
+             (("compiled", call), ("compiled", call), ("eager", eager))]
+    # the graph's launch alone: what a replay's enqueue is made of
+    launch = queued_split(call.graph.graph.replay)
+    compiled = {"capture_ms": capture_ms, "pool_bytes": pool,
+                "bitwise_equal_to_eager": same_compiled,
+                "graph_launch_enqueue_ms": launch["enqueue_ms"],
+                "turns": [{"call": label, "span_ms": ms, "queued": q}
+                          for label, ms, q in turns]}
+    print(f"compiled call: capture {capture_ms:.1f} ms, pool {pool} "
+          f"bytes, bitwise the eager call: {same_compiled}; the graph's "
+          f"launch alone enqueues in {launch['enqueue_ms']} ms; in turns "
+          f"(eager first, above): " + "; ".join(
+              f"{label} span {ms} ms, device {q['device_ms']} ms, "
+              f"enqueue {q['enqueue_ms']} ms" for label, ms, q in turns))
+    del call
+    torch.cuda.empty_cache()
 
     labels = label_ops(ops)
     with profile(activities=[ProfilerActivity.CPU,
@@ -291,6 +335,7 @@ def main(argv=None) -> int:
                       "input_dtype": str(raw.dtype), "blocks": nblocks,
                       "reps": REPS,
                       "span_ms": span, "device_busy_ms": busy,
+                      "compiled": compiled,
                       "idle_share": 1 - busy / span, "queued": split,
                       "profiled_wall_ms": wall, "ops_ms": by_op,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},

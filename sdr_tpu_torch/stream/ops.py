@@ -73,6 +73,7 @@ from sdr_tpu_torch.parallel.halo import (exclusive_affine_prefix,
                                          right_shift_scalar, substitute_first)
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.utils.device import resolve_device
+from sdr_tpu_torch.utils.graphs import keep
 
 __all__ = ["IqConvertU8", "IqConvertI16", "U8FrontDemod", "U8FrontEnd",
            "Fir", "FmDemod", "FmMod", "StereoDecode", "ResampleFirScale",
@@ -755,7 +756,7 @@ class Mix(StreamOp):
             if len(self._tables) >= self._TABLES_KEPT:
                 self._tables.pop(next(iter(self._tables)))
             self._tables[key] = t
-        return t
+        return keep(t)
 
     def _table(self, n: int) -> torch.Tensor:
         make = oscillator_planar if self.planar else oscillator
