@@ -12,7 +12,7 @@ archive``) over the given process-group backend, to compare two trees'
 spans on one card in one run.
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``.
-It builds the CUDA kernels K1-K14 from ``sdr_tpu_torch/csrc`` (one
+It builds the CUDA kernels K1-K16 from ``sdr_tpu_torch/csrc`` (one
 nvcc per source, all at once), then:
 
 1. prints the toolchain and the card's name and power limit, and
@@ -92,12 +92,17 @@ nvcc per source, all at once), then:
    ones, within 1e-5 of each row's peak |y| of its plain version (the
    worst row printed), its final-state launch bitwise the full launch's
    state, timed beside ``torch.cumsum`` over the same rows (a one-pass
-   scan, not the same function); the block-parallel chain with the
+   scan, not the same function); K15 as ``StereoDecode``'s and the
+   de-emphasis ``Iir``'s ``shard_carry`` launch it (the lock's scalar
+   prefixes and state over [32] rows, the IIR's order-2 prefixes over
+   [32, 2]; see phase 5); the block-parallel chain with the
    counters read around one call ({u8_front: 1, fir: 1, resample: 1,
-   fm_demod: 1, iir: 2, stereo_decode: 3}), its L/R separation, the
+   fm_demod: 1, iir: 2, stereo_decode: 3, affine_prefix: 2}), its L/R
+   separation, the
    pilot lock of every row, 20 timed calls and peak memory; the same chain
    with ``ResampleFirScale(fused=True)`` (K5; {u8_front: 1, backhalf: 1,
-   fm_demod: 1, iir: 2, stereo_decode: 3}) against it; the streamed run
+   fm_demod: 1, iir: 2, stereo_decode: 3, affine_prefix: 2}) against it;
+   the streamed run
    (K4, K11 and K13 once a block, K14 twice) against the block-parallel
    one and the plain CPU
    chain; and the stereo CLI;
@@ -154,11 +159,31 @@ nvcc per source, all at once), then:
    4,097} and 2*4,096*k +- 1 for k in {1, 3}, misaligned bases, seeded
    entering inputs and states; a two-section ``Iir`` streamed and
    block-parallel against the CPU); each timed with its bound beside
-   ``torch.cumsum``; the block-parallel chain (launches {fir: 2, mix: 1,
-   iq_convert: 1, agc_linear: 2, iir: 2}, the tone at 80 kS/s, peak
-   memory, 20 timed calls), the streamed run at 1,048,576-byte blocks
-   (K12 and K13 once a block; within 1e-4) and the plain CPU chain; and
-   ``apps.am``;
+   ``torch.cumsum``; K15 as ``Agc.shard_carry`` (the prefixes and the
+   state ``A * g0 + B``) and ``DcBlocker.shard_carry`` (alpha^n read at a
+   row stride of 0) launch it over [32] rows: each launch's outputs
+   (prefixes, states from the op's and a seeded state, total; with and
+   without 3 maps composed before) bitwise its plain version, two
+   launches equal, the scalar form bitwise the parent's eager doubling
+   and epilogue (the stereo IIR's order-2 form within 1e-6 of a lane's
+   peak of the parent's cuBLAS composition), each op's device kernels by
+   ``torch.profiler`` (its K15 launches and no elementwise multiply or
+   add: no eager doubling), and at 200 extra geometries (B in {1, 2, 3,
+   31, 32, 33, 64, 1,000} x lanes [1], [2], [3], [128], [64, 2] x the
+   scalar form and p in {1, 2, 3, 4}, with and without the state and the
+   maps before, signed zeros, a row stride of 0), timed beside its plain
+   version, the parent's composition and an empty launch
+   (``torch.cuda._sleep(0)``; its bound is far below a launch); K16 over
+   the gained planes [32, 2, 327,680] bitwise its plain version and
+   compared with the parent's ``torch.sqrt(re**2 + im**2)``, and at 60
+   extra geometries (n in {1, 3, 4, 5, 4,097} x bases 0-3 floats off
+   16-byte alignment x leading dims [], [3], [2, 3]), timed with its bound
+   beside ``torch.linalg.vector_norm(x, dim=-2)``; the block-parallel
+   chain (launches {fir: 2, mix: 1, iq_convert: 1, agc_linear: 2, iir: 2,
+   affine_prefix: 2, am_envelope: 1}, the tone at 80 kS/s, peak memory,
+   20 timed calls), the streamed run at 1,048,576-byte blocks (K12, K13
+   and K16 once a block, K15 never; within 1e-4) and the plain CPU
+   chain; and ``apps.am``;
 6. the AM path with the sequential AGC, ``am_chain(agc_approx=1)`` (the
    complex form; the 64-tap decimate-by-16 ``Fir`` on K3's complex form
    (its row as exact's, at [32, 5,242,880] -> 327,677), then K6 twice:
@@ -172,8 +197,8 @@ nvcc per source, all at once), then:
    4,096 samples of all 32 rows (card), two whole rows of 327,680 (their
    CPU copy) and the whole batch (card), with its bytes and latency
    bounds and the linear form's time beside it; the block-parallel chain
-   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2, mix: 1}, no
-   layout copy before K3, the tone,
+   (launches {fir: 2, agc_scan: 2, iq_convert: 1, iir: 2, mix: 1,
+   affine_prefix: 1}, no layout copy before K3, the tone,
    peak memory, 20 timed calls), the streamed run at 1,048,576-byte
    blocks (K8 and K13 once a block; within 1e-3) and the linear complex
    chain (within 1e-4);
@@ -282,10 +307,17 @@ nvcc per source, all at once), then:
    ``am_chain(agc_approx=1)`` (K8's complex form once a rank; through the
    envelope bitwise,
    the R sweeps' gains crossing ranks; the whole chain 1e-4, its
-   ``DcBlocker`` prefix); and the channelizer CLI under ``torchrun``
-   (four gloo ranks, ``--wideband``), its WAVs the one-process CLI's.
-   Each sharded call's median span and host time in the collectives,
-   labelled as no scaling figure;
+   ``DcBlocker`` prefix); K15's group path on seeded maps of 32 rows in
+   both forms (each rank's whole map by K15, gathered, then its prefixes
+   and states after the ranks before: 2 launches a composition on every
+   rank, each rank bitwise K15 and its plain version given the ranks
+   before, within 1e-5 of a lane's peak of one process over all the
+   rows; at NCCL world 1 bitwise one process), K15 launched twice a
+   composition in every chain that composes (stereo 4, AM 4, AM
+   sequential 2) and K16 once on AM; and the channelizer CLI under
+   ``torchrun`` (four gloo ranks, ``--wideband``), its WAVs the
+   one-process CLI's.  Each sharded call's median span and host time in
+   the collectives, labelled as no scaling figure;
 12. after phase 13, prints its own run time, ``{"kernels": [...]}``
    (every kernel with its launches on each path, the live ones included),
    the card line again, and last ``{"ok": true, "device": {...}}``;
@@ -402,9 +434,9 @@ TX_BLOCK = 46_080                     # fm_tx's default block
 # shard_carry, A and B in its apply), the back half (K2 -> K3's audio FIR,
 # or K5 fused), K13 (the de-emphasis's final state and output)
 STEREO_LAUNCHES = {"u8_front": 1, "fir": 1, "resample": 1, "fm_demod": 1,
-                   "iir": 2, "stereo_decode": 3}
+                   "iir": 2, "stereo_decode": 3, "affine_prefix": 2}
 STEREO_FUSED_LAUNCHES = {"u8_front": 1, "backhalf": 1, "fm_demod": 1,
-                         "iir": 2, "stereo_decode": 3}
+                         "iir": 2, "stereo_decode": 3, "affine_prefix": 2}
 
 
 def require(cond, msg: str) -> None:
@@ -1193,6 +1225,10 @@ def check_stereo_kernels(raw, ops, seed: int):
     # K13 as the de-emphasis Iir runs over the back half's output
     rows.append(check_iir_kernel(
         "K13 iir (stereo de-emphasis, [32, 2, 196,608])", ops[4], y5, seed))
+    # K15 as StereoDecode's and the de-emphasis Iir's shard_carry launch it
+    rows += check_affine_prefix_kernel([
+        ("stereo StereoDecode lock", lambda: stereo.shard_carry(comp)),
+        ("stereo de-emphasis Iir", lambda: ops[4].shard_carry(y5))], seed)
     return rows
 
 
@@ -1545,7 +1581,8 @@ def run_stereo_chain(raw, ops, kernels):
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"u8_front": 1, "fm_demod": 1, "iir": 1,
-                                "fir": 1, "stereo_decode": 2},
+                                "fir": 1, "stereo_decode": 2,
+                                "affine_prefix": 0},
                       raw.numel() // STREAM_BLOCK, "stereo streamed")
     streamed = torch.cat(blocks, dim=-1)
     dstream = (streamed - y).abs().max().item()
@@ -1856,33 +1893,42 @@ def require_no_layout_copy(what: str) -> None:
             "layout K3 reads")
 
 
-PROFILE_LEAD = 8                      # spin kernels before a profiled call
+PROFILE_LEAD = 32                     # spin kernels before a profiled call
+PROFILE_SETTLE_S = 0.02               # host time before the first of them
+PROFILE_TRIES = 3                     # sessions until one records the lead
 
 
 def device_kernels(fn, word: str) -> dict:
     """The device kernels of one ``fn()`` under ``torch.profiler`` whose
     names hold ``word`` (any case): {name: launches}.  Late in a long
     process the profiler loses the first kernels of a session (the first
-    three of a call, fills and copies and K7 + DFT, were missing), so
-    PROFILE_LEAD spin kernels of about 1 ms run first, and at least one
-    of them must be recorded; they are left out of the result."""
+    three of a call, fills and copies and K7 + DFT, were missing; once,
+    all of 8 spin kernels launched back to back), so the session first
+    waits PROFILE_SETTLE_S on the host, then runs PROFILE_LEAD spin kernels
+    of about 0.25 ms, each waited for, and at least one of them must be
+    recorded (a session that recorded none is run again, up to
+    PROFILE_TRIES sessions); they are left out of the result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD):
-            torch.cuda._sleep(SLEEP_CYCLES // 10)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    names = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
-    require(any("spin_kernel" in e.key for e in names),
-            "the profiler recorded none of the spin kernels before the call")
-    return {e.key: e.count for e in names
-            if word in e.key.lower() and "spin_kernel" not in e.key}
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(SLEEP_CYCLES // 40)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if any("spin_kernel" in e.key for e in names):
+            return {e.key: e.count for e in names
+                    if word in e.key.lower() and "spin_kernel" not in e.key}
+    raise RuntimeError("check failed: the profiler recorded none of the "
+                       f"spin kernels before the call in {PROFILE_TRIES} "
+                       "sessions")
 
 
 def require_launches(launches: dict, want: dict, what: str) -> None:
@@ -2424,9 +2470,12 @@ def run_am_chain(raw, ops, kernels):
     peak = torch.cuda.max_memory_allocated()
     # the planar mix; the channel decimator's seam and main launches; K12's
     # reduce (Agc.shard_carry) and scan (Agc.apply); K13's final state
-    # (DcBlocker.shard_carry) and output (DcBlocker.apply)
+    # (DcBlocker.shard_carry) and output (DcBlocker.apply); K15 in each
+    # shard_carry (Agc, DcBlocker); K16 in AmDemod
     require_launches(launches, {"fir": 2, "mix": 1, "iq_convert": 1,
-                                "agc_linear": 2, "iir": 2}, "AM path")
+                                "agc_linear": 2, "iir": 2,
+                                "affine_prefix": 2, "am_envelope": 1},
+                     "AM path")
     out = y.cpu().numpy()
     require(out.shape == (ROWS * ROW_BYTES // 32,), f"AM output {out.shape}")
     require(np.isfinite(out).all(), "AM output finite")
@@ -2446,7 +2495,8 @@ def run_am_chain(raw, ops, kernels):
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
     require_per_block(kernels, {"iq_convert": 1, "mix": 1, "agc_linear": 1,
-                                "iir": 1},
+                                "iir": 1, "am_envelope": 1,
+                                "affine_prefix": 0},
                       raw.numel() // AM_BLOCK, "AM streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-4, f"AM streamed vs block-parallel {dstream}")
@@ -2720,6 +2770,356 @@ def agc_linear_geometries(device, seed: int) -> int:
     return count
 
 
+K15_REPLACES = ("none: sdr_tpu/parallel/halo.py:71 exclusive_affine_prefix "
+                "and :99 exclusive_matrix_affine_prefix (one all_gather and "
+                "one lax.scan in the jitted program)")
+K16_REPLACES = ("none: sdr_tpu/stream/ops.py:944 (AmDemod planar, "
+                "sqrt(re**2 + im**2), one XLA fusion)")
+PREFIX_REL = 1e-6                     # K15's matrix form vs the parent's
+GROUP_REL = 1e-5                      # ranks' prefixes vs one process (H7)
+
+
+def record_prefixes(fn) -> list:
+    """The K15 launches ``fn()`` makes, each as the keyword arguments of
+    ``kernels/affine_prefix.py:_launch`` (the maps as the op passes
+    them)."""
+    from sdr_tpu_torch.kernels import affine_prefix as k15
+    calls, real = [], k15._launch
+
+    def spy(m, v, pre=None, s0=None, maps=True, state=False, total=False):
+        calls.append(dict(m=m, v=v, pre=pre, s0=s0, maps=maps, state=state,
+                          total=total))
+        return real(m, v, pre, s0, maps, state, total)
+
+    k15._launch = spy
+    try:
+        fn()
+    finally:
+        k15._launch = real
+    return calls
+
+
+def parent_prefix(m, v, pre=None):
+    """The port's prefixes before K15 (parallel/halo.py's eager
+    doubling): ``@`` composes the matrix form; with ``pre`` the ranks
+    before are composed in rank order, then every local prefix after
+    them."""
+    if m.shape == v.shape:
+        def compose(late, early):
+            return late[0] * early[0], late[0] * early[1] + late[1]
+        ident = (torch.ones_like(m[:1]), torch.zeros_like(v[:1]))
+    else:
+        def compose(late, early):
+            return (late[0] @ early[0],
+                    (late[0] @ early[1][..., None])[..., 0] + late[1])
+        p = m.shape[-1]
+        ident = (torch.eye(p, dtype=m.dtype, device=m.device).expand(
+            m[:1].shape), torch.zeros_like(v[:1]))
+    cur, d = (m, v), 1
+    while d < cur[0].shape[0]:
+        new = compose(tuple(t[d:] for t in cur), tuple(t[:-d] for t in cur))
+        cur = tuple(torch.cat([t[:d], n]) for t, n in zip(cur, new))
+        d *= 2
+    local = tuple(torch.cat([i.expand_as(t[:1]), t[:-1]])
+                  for i, t in zip(ident, cur))
+    if pre is None or pre[0].shape[0] == 0:
+        return local
+    enter = (pre[0][0], pre[1][0])
+    for r in range(1, pre[0].shape[0]):
+        enter = compose((pre[0][r], pre[1][r]), enter)
+    return compose(local, enter)
+
+
+def parent_state(m, v, s0, pre=None):
+    """The callers' epilogues before K15: ``A * s0 + B``, ``enter + A @
+    s0``."""
+    A, c = parent_prefix(m, v, pre)
+    if m.shape == v.shape:
+        return A * s0 + c
+    if not isinstance(s0, torch.Tensor):
+        s0 = torch.full(v.shape[1:], s0, dtype=v.dtype, device=v.device)
+    return c + (A @ s0[..., None])[..., 0]
+
+
+def lane_rel(got, want, inner: int) -> float:
+    """The largest ``|got - want|`` of a lane over the lane's largest
+    ``|want|``: a lane's entries are its rows' (axis 0) and the map's
+    ``inner`` trailing dims (2 for a matrix, 1 for a vector, 0 for the
+    scalar form)."""
+    if want.numel() == 0:
+        return 0.0
+    dims = (0,) + tuple(range(want.ndim - inner, want.ndim))
+    d = (got - want).abs().amax(dim=dims)
+    peak = want.abs().amax(dim=dims)
+    return (d / peak.clamp_min(1e-30)).max().item()
+
+
+def k15_outputs(c, s0=None):
+    """Every output of one K15 launch over a recorded call (prefixes,
+    states from ``s0`` or the call's own, total) and its plain
+    versions'."""
+    from sdr_tpu_torch.kernels import affine_prefix as k15
+    s0 = c["s0"] if s0 is None else s0
+    got = k15._launch(c["m"], c["v"], c["pre"], s0, True, s0 is not None,
+                      True)
+    want = (k15.exclusive_prefix_reference(c["m"], c["v"], c["pre"]),
+            None if s0 is None else k15.entering_state_reference(
+                c["m"], c["v"], s0, c["pre"]),
+            k15.inclusive_total_reference(c["m"], c["v"]))
+    return got, want
+
+
+def k15_call(c) -> tuple:
+    """One K15 launch over a recorded call: its outputs, flat."""
+    from sdr_tpu_torch.kernels import affine_prefix as k15
+    (A, c_), st, (tm, tv) = k15._launch(**c)
+    return tuple(t for t in (A, c_, st, tm, tv) if t is not None)
+
+
+def k15_work(c) -> tuple:
+    """(bytes, f32 operations) of one recorded K15 call: each distinct
+    input element read once (a map at a row stride of 0 once), each
+    output written once; the doubling's compositions, the entering map's
+    and the epilogue's."""
+    def distinct(t):
+        n = 1
+        for size, stride in zip(t.shape, t.stride()):
+            n *= size if stride else 1
+        return n
+    m, v = c["m"], c["v"]
+    B = v.shape[0]
+    p = 1 if m.shape == v.shape else v.shape[-1]
+    lanes = v.numel() // (B * p)
+    comp = p * p * (2 * p - 1) + p * 2 * p         # a composition's ops
+    levels, d = 0, 1
+    while d < B:
+        levels += B - d
+        d *= 2
+    R = 0 if c["pre"] is None else c["pre"][0].shape[0]
+    ops = lanes * comp * (levels + max(R - 1, 0) + (B if R else 0))
+    outs = 0
+    if c["maps"]:
+        outs += B * lanes * (p * p + p)
+    if c["state"]:
+        outs += B * lanes * p
+        ops += lanes * B * 2 * p
+    if c["total"]:
+        outs += lanes * (p * p + p)
+    ins = distinct(m) + distinct(v) + (0 if R == 0 else R * lanes * (
+        p * p + p))
+    if isinstance(c["s0"], torch.Tensor):
+        ins += distinct(c["s0"])
+    return 4 * (ins + outs), ops
+
+
+def require_no_doubling(fn, what: str, launches: int) -> dict:
+    """``fn()``'s device kernels under ``torch.profiler``: ``launches``
+    K15 kernels and none of the eager doubling's elementwise multiplies
+    or adds (the compositions before K15)."""
+    names = device_kernels(fn, "")
+    k15 = sum(n for k, n in names.items()
+              if "prefix_warp_kernel" in k or "prefix_thread_kernel" in k)
+    eager = {k: n for k, n in names.items()
+             if "MulFunctor" in k or "CUDAFunctor_add" in k}
+    require(k15 == launches and not eager,
+            f"{what}: K15 launched {k15} times (expected {launches}), "
+            f"elementwise multiplies and adds {eager}; kernels {names}")
+    return names
+
+
+def check_affine_prefix_kernel(cases, seed: int):
+    """K15 as the ops' ``shard_carry`` launch it at the path's shapes
+    (``cases``: (what, the call)): each recorded launch bitwise its plain
+    version in all its outputs (the prefixes, the states from the op's
+    and from a seeded state, the total; the ranks before composed in too),
+    two launches bitwise equal; the scalar form bitwise the parent's eager
+    doubling and its epilogue, the matrix form within 1e-6 of each lane's
+    largest entry of the parent's (cuBLAS composes it); the op's kernels
+    by the profiler, no eager doubling.  Timed beside its plain version,
+    the parent's composition and an empty launch (its bound is far below
+    any launch)."""
+    from sdr_tpu_torch.kernels import affine_prefix as k15
+    rows = []
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0), 100)
+    for what, fn in cases:
+        calls = record_prefixes(fn)
+        require(len(calls) >= 1, f"K15 {what}: no launch")
+        names = require_no_doubling(fn, f"K15 {what}", len(calls))
+        c = calls[0]
+        m, v = c["m"], c["v"]
+        g = torch.Generator(device=v.device).manual_seed(seed + 15)
+        scalar = m.shape == v.shape
+        seeded = torch.rand(v.shape[1:], generator=g, device=v.device) * 2 - 1
+        R = 3
+        pre = tuple(torch.stack([t[0]] * R) * 0.5 for t in (m, v))
+        for s0 in (c["s0"], seeded):
+            for pre_ in (c["pre"], pre):
+                cc = dict(c, pre=pre_)
+                got, want = k15_outputs(cc, s0)
+                for u, w in zip(got, want):
+                    if w is not None:
+                        require(same_bits(u, w), f"K15 {what}: not bitwise "
+                                "its plain version")
+                former = parent_prefix(m, v, pre_)
+                if scalar:
+                    require(same_bits(got[0], former), f"K15 {what}: the "
+                            "prefixes differ from the parent's doubling")
+                    if s0 is not None:
+                        require(same_bits(got[1], parent_state(
+                            m, v, s0, pre_)), f"K15 {what}: the state "
+                            "differs from the parent's")
+                else:
+                    rel = max(lane_rel(got[0][0], former[0], 2),
+                              lane_rel(got[0][1], former[1], 1))
+                    require(rel <= PREFIX_REL, f"K15 {what}: {rel} of a "
+                            "lane's peak from the parent's prefixes")
+        out = k15._launch(**c)
+        check_repeatable(lambda: k15_call(c), f"K15 {what}")
+        rel = 0.0
+        if not scalar:
+            ref = parent_state(m, v, c["s0"], c["pre"]) if c["state"] \
+                else parent_prefix(m, v, c["pre"])[1]
+            mine = out[1] if c["state"] else out[0][1]
+            rel = lane_rel(mine, ref, 1)
+        ms = time_steady(lambda: k15_call(c), 50, f"K15 {what}")
+
+        def plain():
+            return (k15.entering_state_reference(m, v, c["s0"], c["pre"])
+                    if c["state"] else
+                    k15.exclusive_prefix_reference(m, v, c["pre"]))
+
+        def former():
+            return (parent_state(m, v, c["s0"], c["pre"]) if c["state"]
+                    else parent_prefix(m, v, c["pre"]))
+
+        nb, ops = k15_work(c)
+        b, by = bound(nb, ops, "f32")
+        shape = list(v.shape if scalar else v.shape[:-1])
+        form = "scalar" if scalar else f"p = {v.shape[-1]}"
+        rows.append(dict(
+            name=f"K15 affine_prefix ({what} {shape}, {form}"
+                 f"{', with the state' if c['state'] else ''})",
+            kernel="affine_prefix", route="cuda",
+            source="sdr_tpu_torch/csrc/affine_prefix.cu",
+            replaces=K15_REPLACES, max_abs_err=0.0, bitwise=True,
+            launches_a_call=len(calls), parent_lane_rel=rel,
+            ms=ms, plain_ms=time_ms(plain, 10, 1), former_ms=time_ms(
+                former, 10, 1), empty_launch_ms=empty_ms, bound_ms=b,
+            bound_by=by, bound_fraction=b / ms, library_ms=None,
+            library_note="none: no PyTorch call composes affine maps; "
+                         "empty_launch_ms is an empty kernel "
+                         "(torch.cuda._sleep(0)) back to back",
+            op_kernels=names))
+        print(f"K15 {what}: {len(calls)} launch(es) in shard_carry, "
+              f"bitwise its plain version (prefixes, states, total; with "
+              f"and without 3 maps before), "
+              f"{'bitwise the parent' if scalar else f'{rel} of a lane peak from the parent'}"
+              f"; {ms:.5f} ms against the parent's composition "
+              f"{rows[-1]['former_ms']:.5f} and an empty launch "
+              f"{empty_ms:.5f}; the op's device kernels {names}")
+    return rows
+
+
+def affine_prefix_geometries(device, seed: int) -> int:
+    """K15 bitwise its plain version at B in {1, 2, 3, 31, 32, 33, 64,
+    1,000} x lanes [1], [2], [3], [128], [64, 2] x the scalar form and p in
+    {1, 2, 3, 4}, each with and without the state and 3 maps before (4
+    launches), signed zeros in the maps, and the rows' matrices read at a
+    row stride of 0 (a fifth); returns the count."""
+    from sdr_tpu_torch.kernels import affine_prefix as k15
+    g = torch.Generator(device=device).manual_seed(seed + 16)
+
+    def u(*shape):
+        t = torch.rand(shape, generator=g, device=device) * 2 - 1
+        return torch.where(torch.rand(shape, generator=g, device=device)
+                           < 0.05, torch.full_like(t, -0.0), t)
+
+    count = 0
+    for B in (1, 2, 3, 31, 32, 33, 64, 1000):
+        for lanes in ((1,), (2,), (3,), (128,), (64, 2)):
+            for p in (0, 1, 2, 3, 4):
+                inner = () if p == 0 else (p,)
+                mi = () if p == 0 else (p, p)
+                scale = 1.0 if p == 0 else 1.0 / p
+                m, v = u(B, *lanes, *mi) * scale, u(B, *lanes, *inner)
+                pre = (u(3, *lanes, *mi) * scale, u(3, *lanes, *inner))
+                s0 = u(*lanes, *inner)
+                for pre_ in (None, pre):
+                    for st in (None, s0):
+                        got, want = k15_outputs(dict(
+                            m=m, v=v, pre=pre_, s0=st), st)
+                        for a, b in zip(got, want):
+                            if b is not None:
+                                require(same_bits(a, b), f"K15 at B {B}, "
+                                        f"lanes {lanes}, p {p}: not bitwise")
+                same = m[:1].expand_as(m)
+                got, want = k15_outputs(dict(m=same, v=v, pre=pre, s0=s0),
+                                        s0)
+                require(all(same_bits(a, b) for a, b in zip(got, want)),
+                        f"K15 at B {B}, lanes {lanes}, p {p}, a row "
+                        "stride of 0: not bitwise")
+                count += 1
+    return count
+
+
+def check_am_envelope_kernel(x, seed: int):
+    """K16 over the AM path's gained planes ``x`` [32, 2, n] (``Agc``'s
+    output, ``AmDemod``'s input): bitwise its plain version (K12's
+    envelope: an f32 sum, a float64 root rounded once), compared with the
+    parent's four eager passes ``torch.sqrt(re**2 + im**2)`` (bitwise or
+    by how much), two launches equal, and at extra geometries (n in {1,
+    3, 4, 5, 4,097} x bases 0-3 floats off 16-byte alignment x leading
+    dims [], [3], [2, 3]).  Timed with its bound, its plain version, the
+    parent's passes and ``torch.linalg.vector_norm(x, dim=-2)`` (one call
+    of the same function)."""
+    from sdr_tpu_torch.kernels import am_envelope as k16
+    from sdr_tpu_torch.kernels.agc_linear import envelope
+
+    def former(t):
+        return torch.sqrt(t[..., 0, :] ** 2 + t[..., 1, :] ** 2)
+
+    y = k16.am_envelope(x)
+    require(torch.isfinite(y).all().item(), "K16 output finite")
+    require(same_bits(y, envelope(x)), "K16 vs its plain version not bitwise")
+    check_repeatable(lambda: k16.am_envelope(x), "K16")
+    old = former(x)
+    ndiff = int((bits(y) != bits(old)).sum().item())
+    derr = max_err(y, old)
+    g = torch.Generator(device=x.device).manual_seed(seed + 17)
+    count = 0
+    for n in (1, 3, 4, 5, 4097):
+        for lead in ((), (3,), (2, 3)):
+            for off in range(4):
+                t = misaligned(torch.rand(lead + (2, n), generator=g,
+                                          device=x.device) * 4 - 2, off)
+                require(same_bits(k16.am_envelope(t), envelope(t)),
+                        f"K16 at n {n}, lead {lead}, offset {off}")
+                count += 1
+    lib = torch.linalg.vector_norm(x, dim=-2)
+    lib_err = max_err(lib, y)
+    ms = time_steady(lambda: k16.am_envelope(x), 20, "K16")
+    b, by = bound(nbytes(x, y), 4 * y.numel(), "f32")
+    row = dict(
+        name=f"K16 am_envelope (AM planar {list(x.shape)})",
+        kernel="am_envelope", route="cuda",
+        source="sdr_tpu_torch/csrc/am_envelope.cu", replaces=K16_REPLACES,
+        max_abs_err=0.0, bitwise=True, geometries=count, ms=ms,
+        plain_ms=time_ms(lambda: envelope(x), 3, 1), bound_ms=b,
+        bound_by=by, bound_fraction=b / ms,
+        library_ms=time_ms(lambda: torch.linalg.vector_norm(x, dim=-2), 20),
+        library_max_abs_diff=lib_err,
+        library_note="torch.linalg.vector_norm(x, dim=-2), one call",
+        former_ms=time_ms(lambda: former(x), 20),
+        former_bitwise=ndiff == 0, former_samples_differing=ndiff,
+        former_max_abs_diff=derr)
+    print(f"K16 am_envelope: bitwise its plain version at {list(x.shape)} "
+          f"and at {count} extra geometries; against the parent's "
+          f"torch.sqrt(re**2 + im**2): "
+          f"{'bitwise' if ndiff == 0 else f'{ndiff} samples differ, max {derr}'}"
+          f"; vector_norm max abs diff {lib_err}")
+    return row
+
+
 def section_of(op, x):
     """The first IIR section ``op`` (a ``DcBlocker`` or an ``Iir``) runs
     over the rows ``x`` block-parallel: (feed-forward taps, feedback
@@ -2877,9 +3277,9 @@ def run_am_approx(raw, ops, kernels):
     y, launches = counted_call(ops, raw, kernels)
     peak = torch.cuda.max_memory_allocated()
     # the decimator's seam and main launches; the sweep and the apply; the
-    # DcBlocker's final state and output on K13
+    # DcBlocker's final state and output on K13, its prefix on K15
     require_launches(launches, {"fir": 2, "agc_scan": 2, "iq_convert": 1,
-                                "iir": 2, "mix": 1},
+                                "iir": 2, "mix": 1, "affine_prefix": 1},
                      "AM path, sequential AGC")
     require_no_layout_copy("AM path, sequential AGC")
     out = y.cpu().numpy()
@@ -2901,7 +3301,8 @@ def run_am_approx(raw, ops, kernels):
         raw[i:i + AM_BLOCK] for i in range(0, raw.numel(), AM_BLOCK))))
     torch.cuda.synchronize()
     t_stream = time.perf_counter() - t0
-    require_per_block(kernels, {"iq_convert": 1, "iir": 1, "mix": 1},
+    require_per_block(kernels, {"iq_convert": 1, "iir": 1, "mix": 1,
+                                "affine_prefix": 0},
                       raw.numel() // AM_BLOCK, "AM sequential-AGC streamed")
     dstream = max_err(streamed, y)
     require(dstream <= 1e-3,
@@ -4095,6 +4496,72 @@ def sync_free(fn):
         torch.cuda.set_sync_debug_mode(0)
 
 
+def group_prefix_maps(seed: int, device) -> dict:
+    """Seeded maps of a stream of ROWS rows in both of K15's forms, at the
+    paths' lane shapes: {form: (m, v, s0)}, the scalar form [ROWS] (the
+    AGC's, the DC blocker's, the lock's) and the matrix form [ROWS, 2]
+    lanes of order 2 (the stereo Iir's)."""
+    g = torch.Generator(device=device).manual_seed(seed + 18)
+
+    def u(*shape):
+        return torch.rand(shape, generator=g, device=device) * 2 - 1
+
+    return {"scalar": (u(ROWS), u(ROWS), u()),
+            "matrix": (u(ROWS, 2, 2, 2) * 0.5, u(ROWS, 2, 2), u(2, 2))}
+
+
+def group_prefixes(maps: dict, group, rows: slice) -> dict:
+    """Each form's prefixes and entering states over ``rows`` of
+    ``maps`` through ``parallel/halo.py`` with ``group`` (K15's group
+    path: two launches a composition): {name: tensor}."""
+    from sdr_tpu_torch.parallel import halo
+    out = {}
+    for form, (m, v, s0) in maps.items():
+        A, c = halo.exclusive_affine_prefix(m[rows], v[rows], group)
+        out[f"{form}.A"], out[f"{form}.c"] = A, c
+        out[f"{form}.state"] = halo.entering_state(m[rows], v[rows], s0,
+                                                   group)
+    return out
+
+
+def check_group_prefixes(got: list, maps: dict, what: str) -> float:
+    """Rank r's ``got[r]`` (:func:`group_prefixes` over its span of the
+    rows) against this process: bitwise K15 and its plain version given
+    the whole maps of the ranks before (each rank's total by K15), both
+    forms; within 1e-5 of each lane's peak of one process over all the
+    rows (another order of composition, H7).  Returns that distance."""
+    from sdr_tpu_torch.kernels import affine_prefix as k15
+    ranks = len(got)
+    per = ROWS // ranks
+    worst = 0.0
+    for form, (m, v, s0) in maps.items():
+        whole = k15.exclusive_prefix(m, v)
+        whole_state = k15.entering_state(m, v, s0)
+        parts = [(m[r * per:(r + 1) * per], v[r * per:(r + 1) * per])
+                 for r in range(ranks)]
+        totals = [torch.stack(t) for t in zip(
+            *(k15.inclusive_total(*pt) for pt in parts))]
+        for r, (mr, vr) in enumerate(parts):
+            pre = (totals[0][:r], totals[1][:r])
+            (A, c), st, _ = k15._launch(mr, vr, pre, s0, state=True)
+            plain = k15.exclusive_prefix_reference(mr, vr, pre)
+            plain_st = k15.entering_state_reference(mr, vr, s0, pre)
+            mine = (got[r][f"{form}.A"], got[r][f"{form}.c"],
+                    got[r][f"{form}.state"])
+            require(same_bits(mine, (A, c, st)) and same_bits(
+                mine, (*plain, plain_st)), f"{what} rank {r} {form}: the "
+                "prefixes are not K15's over the ranks before, bitwise")
+            rows = slice(r * per, (r + 1) * per)
+            inner = 0 if form == "scalar" else 1
+            worst = max(worst,
+                        lane_rel(mine[0], whole[0][rows], 2 * inner),
+                        lane_rel(mine[1], whole[1][rows], inner),
+                        lane_rel(mine[2], whole_state[rows], inner))
+    require(worst <= GROUP_REL, f"{what}: {worst} of a lane's peak from "
+            "one process over all the rows")
+    return worst
+
+
 def run_nccl_world1(seed: int, device, kernels, card: str):
     """``run_time_sharded`` over a one-rank NCCL group in this process, at
     the single-device paths' full width: the mono chain (bitwise
@@ -4120,7 +4587,8 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
                 ("mono", synth_broadcast, fm_chain(device=device),
                  {"u8_front_demod": 2, "resample": 1, "fir": 1}),
                 ("stereo_fused", synth_stereo_broadcast,
-                 stereo_ops(True, device), STEREO_FUSED_LAUNCHES)):
+                 stereo_ops(True, device),
+                 dict(STEREO_FUSED_LAUNCHES, affine_prefix=4))):
             raw = synth(ROWS * ROW_BYTES, seed, device)
             one = lambda: run_time_batched(  # noqa: E731
                 ops, raw, ROWS, device=device)
@@ -4131,7 +4599,10 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
             got, launches = counted(lambda: sync_free(fn), kernels)
             require(torch.equal(got, want), f"NCCL world 1 {name}: sharded "
                     f"!= run_time_batched (max diff {max_err(got, want)})")
-            require(launches == batched, f"NCCL world 1 {name}: launches "
+            # with a group K15 launches twice a composition: the rank's
+            # whole map (gathered), then the prefixes
+            expect = dict(batched, affine_prefix=2 * batched["affine_prefix"])
+            require(launches == expect, f"NCCL world 1 {name}: launches "
                     f"{launches}, run_time_batched's {batched}")
             if want_launches is not None:
                 require_launches(launches, want_launches,
@@ -4150,6 +4621,19 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
                               "the same work without a group", card)
             paths[f"sharded_nccl_{name}"] = launches
             del raw, want, got
+        # K15's group path at world 1: rank 0 composes nothing before its
+        # rows, so the prefixes are the one-process ones, bitwise
+        maps = group_prefix_maps(seed, device)
+        got, launches = counted(lambda: sync_free(lambda: group_prefixes(
+            maps, mesh.get_group("t"), slice(None))), kernels)
+        require_launches(launches, {"affine_prefix": 8},
+                         "NCCL world 1 prefixes (2 a composition)")
+        worst = check_group_prefixes([got], maps, "NCCL world 1")
+        require(worst == 0.0, f"NCCL world 1 prefixes {worst} from one "
+                "process, not bitwise")
+        print(f"NCCL world 1: K15's group path (a total gathered, then the "
+              f"prefixes) bitwise one process in both forms; launches "
+              f"{launches}")
     finally:
         dist.destroy_process_group()
     return paths
@@ -4241,6 +4725,10 @@ def write_shard_inputs(d: Path, seed: int, device):
     refs["am_approx_demod"] = run_time_batched(ops[:5], raw, ROWS,
                                                device=device)
     del raw, x
+    maps = group_prefix_maps(seed, device)
+    np.savez(d / "prefix_maps.npz", **{
+        f"{form}.{i}": t.cpu().numpy() for form, ts in maps.items()
+        for i, t in enumerate(ts)})
     return {k: v.cpu() for k, v in refs.items()}
 
 
@@ -4330,6 +4818,17 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
             ops, tmesh, raw, nblocks=per, device=device))
         scenario("am_approx_demod", lambda: run_time_sharded(
             ops[:5], tmesh, raw, nblocks=per, device=device))
+        # K15's group path on seeded maps, this rank's span of the rows
+        z = np.load(d / "prefix_maps.npz")
+        maps = {form: tuple(torch.from_numpy(z[f"{form}.{i}"]).to(device)
+                            for i in range(3))
+                for form in ("scalar", "matrix")}
+        got, launches = counted(lambda: group_prefixes(
+            maps, tmesh.get_group("t"), slice(rank * per, (rank + 1) * per)),
+            KERNELS)
+        np.savez(d / f"prefixes.{rank}.npz",
+                 **{k: t.cpu().numpy() for k, t in got.items()})
+        report["prefixes"] = {"launches": launches}
     finally:
         dist.destroy_process_group()
     (d / f"rank{rank}.json").write_text(json.dumps(report))
@@ -4341,23 +4840,29 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
 SHARD_CHECKS = {
     "mono": (0.0, ("u8_front_demod", "resample", "fir")),
     "stereo": (1e-5, ("u8_front", "fm_demod", "resample", "fir", "iir",
-                      "stereo_decode")),
+                      "stereo_decode", "affine_prefix")),
     "stereo_fused": (1e-5, ("u8_front", "fm_demod", "backhalf", "iir",
-                            "stereo_decode")),
+                            "stereo_decode", "affine_prefix")),
     "wideband": (1e-4, ("channelize", "fir", "fm_demod", "resample")),
     "channel": (0.0, ("fir", "fm_demod", "resample")),
     "grid": (0.0, ("fir", "fm_demod", "resample")),
-    "am": (1e-4, ("iq_convert", "mix", "fir", "agc_linear", "iir")),
-    "am_approx": (1e-4, ("iq_convert", "mix", "fir", "agc_scan", "iir")),
+    "am": (1e-4, ("iq_convert", "mix", "fir", "agc_linear", "iir",
+                  "affine_prefix", "am_envelope")),
+    "am_approx": (1e-4, ("iq_convert", "mix", "fir", "agc_scan", "iir",
+                         "affine_prefix")),
     "am_approx_demod": (0.0, ("iq_convert", "mix", "fir", "agc_scan")),
 }
 # scenario -> the exact launches of the kernels named, on every rank:
 # StereoDecode on K14 alone (A in shard_carry, A and B in apply), K3 only
-# for the unfused back half's audio FIR, the complex Mix on K8 once
+# for the unfused back half's audio FIR, the complex Mix on K8 once; K15
+# twice a composition (the lock and the de-emphasis; the AGC and the DC
+# blocker; the DC blocker), K16 once
 SHARD_EXACT = {
-    "stereo": {"stereo_decode": 3, "fir": 1},
-    "stereo_fused": {"stereo_decode": 3, "fir": 0},
-    "am_approx": {"mix": 1},
+    "stereo": {"stereo_decode": 3, "fir": 1, "affine_prefix": 4},
+    "stereo_fused": {"stereo_decode": 3, "fir": 0, "affine_prefix": 4},
+    "am": {"affine_prefix": 4, "am_envelope": 1},
+    "am_approx": {"mix": 1, "affine_prefix": 2},
+    "am_approx_demod": {"affine_prefix": 0},
 }
 
 
@@ -4437,6 +4942,26 @@ def run_gloo_ranks(seed: int, device, card: str):
                   f"{tol or 'bitwise'}; bitwise equal: {exact}); launches "
                   f"per rank {per_rank}; median span per rank {spans} ms, "
                   f"host collectives {colls} ms -- {SHARD_LABEL}; {card}")
+        # K15's group path: each rank's prefixes K15's over the ranks
+        # before it, bitwise
+        z = np.load(d / "prefix_maps.npz")
+        maps = {form: tuple(torch.from_numpy(z[f"{form}.{i}"]).to(device)
+                            for i in range(3))
+                for form in ("scalar", "matrix")}
+        got = []
+        for r in range(SHARD_RANKS):
+            zr = np.load(d / f"prefixes.{r}.npz")
+            got.append({k: torch.from_numpy(zr[k]).to(device) for k in zr})
+        worst = check_group_prefixes(got, maps, "gloo ranks")
+        per_rank = [rep["prefixes"]["launches"] for rep in reports]
+        for r, launches in enumerate(per_rank):
+            require_launches(launches, {"affine_prefix": 8},
+                             f"gloo rank {r} prefixes (2 a composition)")
+        paths["sharded_gloo_prefixes"] = {
+            k: [lr[k] for lr in per_rank] for k in per_rank[0]}
+        print(f"sharded prefixes over {SHARD_RANKS} gloo ranks: each rank's "
+              f"K15's over the ranks before it, bitwise (both forms); "
+              f"{worst} of a lane's peak from one process over all the rows")
     return paths
 
 
@@ -5279,21 +5804,36 @@ def main(argv=None) -> int:
     arows.append(check_decimator_kernel(
         "K3 fir (AM channel filter, planar [32, 2], f = 16, 64 taps)",
         ops[2], mixed))
-    # K12 over the channel filter's planes, K13 over the envelope
-    _, xd = ops[2].apply(ops[2].shard_carry(mixed), mixed)
+    # K12 over the channel filter's planes, K15 as Agc.shard_carry
+    # launches it, K16 over the gained planes, K13 and K15 as the
+    # DcBlocker runs over the envelope
+    _, xf = ops[2].apply(ops[2].shard_carry(mixed), mixed)
     del mixed
-    arows += check_agc_linear_kernel(ops[3], xd, args.seed)
-    for op in ops[3:5]:
-        _, xd = op.apply(op.shard_carry(xd), xd)
+    arows += check_agc_linear_kernel(ops[3], xf, args.seed)
+    arows += check_affine_prefix_kernel(
+        [("AM Agc", lambda: ops[3].shard_carry(xf))], args.seed)
+    _, xd = ops[3].apply(ops[3].shard_carry(xf), xf)
+    del xf
+    arows.append(check_am_envelope_kernel(xd, args.seed))
+    _, xd = ops[4].apply((), xd)
     arows.append(check_iir_kernel("K13 iir (AM DcBlocker, [32, 327,680])",
                                   ops[5], xd, args.seed))
+    arows += check_affine_prefix_kernel(
+        [("AM DcBlocker", lambda: ops[5].shard_carry(xd))], args.seed)
     del xd
     iir_count = iir_geometries(device, args.seed)
+    t0 = time.perf_counter()
+    prefix_count = affine_prefix_geometries(device, args.seed)
     for r in srows + arows:
         if r["kernel"] == "iir":
             r["geometries"] = iir_count
+        if r["kernel"] == "affine_prefix":
+            r["geometries"] = prefix_count
     print(f"K13 iir: within 1e-5 of each row's peak of its plain version "
           f"at {iir_count} extra geometries")
+    print(f"K15 affine_prefix: bitwise its plain version at {prefix_count} "
+          f"extra geometries, 5 launches each "
+          f"({time.perf_counter() - t0:.1f} s)")
     print_rows(arows, card)
     am = run_am_chain(raw, ops, KERNELS)
     run_am_cli(raw)

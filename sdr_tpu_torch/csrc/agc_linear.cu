@@ -74,6 +74,7 @@
 
 #include <cuda_runtime.h>
 
+#include "affine.cuh"
 #include "tickets.cuh"
 
 // launches `kernel` on `grid` blocks of `block` threads (the host test
@@ -98,16 +99,10 @@ constexpr int kSpan = 16;               // maps a thread folds in registers
 constexpr int kReduceThreads = 256;
 constexpr int kReduceTile = kSpan * kReduceThreads;   // maps a reduce block
 
-// the map of `late` composed after `early`
-__device__ __forceinline__ float2 compose(float2 late, float2 early) {
-  return make_float2(__fmul_rn(late.x, early.x),
-                     __fadd_rn(__fmul_rn(late.x, early.y), late.y));
-}
-
-// |x| of an I/Q sample: a sample's map is (1 - mu*|x|, mu*ref)
-__device__ __forceinline__ float envelope(float re, float im) {
-  return __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
-}
+// the composition and the envelope (a sample's map is (1 - mu*|x|,
+// mu*ref)) of affine.cuh, shared with K15 and K16
+using affine::compose;
+using affine::envelope;
 
 // the map held d lanes lower in this thread's chunk (4 lanes, a thread a
 // sub-chunk); every thread of the block calls it

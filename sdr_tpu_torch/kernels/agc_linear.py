@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels._build import Kernel, cuda_rows, ptr
+from sdr_tpu_torch.kernels.affine_prefix import compose, doubling
 
 __all__ = ["KERNEL", "CHUNK", "SUB", "linear_scan", "affine_reduce",
            "envelope", "agc_affine", "agc_affine_reference", "agc_gains",
@@ -54,26 +55,6 @@ KERNEL = Kernel("agc_linear", {
 })
 
 
-def _compose(late, early):
-    """The maps ``late`` after ``early``, each ``(a, b)``: ``y -> a*y +
-    b``."""
-    return late[0] * early[0], late[0] * early[1] + late[1]
-
-
-def _doubling(a: torch.Tensor, b: torch.Tensor):
-    """The inclusive prefix of the maps ``y -> a*y + b`` over the leading
-    axis by the doubling of parallel/halo.py's ``exclusive_affine_prefix``
-    (without its process group): ``log2`` steps, each composing every map
-    after the one ``d`` before it."""
-    cur = (a, b)
-    d = 1
-    while d < a.shape[0]:
-        new = _compose(tuple(t[d:] for t in cur), tuple(t[:-d] for t in cur))
-        cur = tuple(torch.cat([t[:d], u]) for t, u in zip(cur, new))
-        d *= 2
-    return cur
-
-
 def _exclusive(a: torch.Tensor, b: torch.Tensor):
     """The inclusive prefix ``(a, b)`` over the leading axis shifted by
     one: the identity first."""
@@ -82,9 +63,10 @@ def _exclusive(a: torch.Tensor, b: torch.Tensor):
 
 
 def _inner(a: torch.Tensor, b: torch.Tensor, axis: int):
-    """:func:`_doubling` over ``axis``."""
-    return tuple(t.movedim(0, axis) for t in _doubling(a.movedim(axis, 0),
-                                                       b.movedim(axis, 0)))
+    """K15's plain :func:`~sdr_tpu_torch.kernels.affine_prefix.doubling`
+    over ``axis``."""
+    return tuple(t.movedim(0, axis) for t in doubling(a.movedim(axis, 0),
+                                                      b.movedim(axis, 0)))
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -93,7 +75,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     ``b`` ``[..., N]`` and ``y0`` ``[...]``.
 
     Each sample's map ``y -> a*y + b`` is composed with those before it by
-    the doubling of :func:`_doubling` (log2 steps of whole-tensor ops, no
+    the doubling of K15's plain version (log2 steps of whole-tensor ops, no
     per-sample loop) at three levels: inside each sub-chunk of SUB
     samples (the inclusive prefixes I), over each chunk's CHUNK / SUB
     sub-chunk maps (I at a sub-chunk's last sample; X their exclusive
@@ -113,7 +95,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     QA, QB = _inner(IA[..., -1], IB[..., -1], -1)        # [..., nc, L // S]
     XA, XB = (t.movedim(0, -1) for t in _exclusive(QA.movedim(-1, 0),
                                                    QB.movedim(-1, 0)))
-    PA, PB = _exclusive(*_doubling(QA[..., -1].movedim(-1, 0),
+    PA, PB = _exclusive(*doubling(QA[..., -1].movedim(-1, 0),
                                    QB[..., -1].movedim(-1, 0)))
     enter = (PA * y0 + PB).movedim(0, -1)                 # [..., nc]
     g = XA * enter[..., None] + XB                        # [..., nc, L // S]
@@ -134,7 +116,7 @@ def affine_reduce(a: torch.Tensor, b: torch.Tensor):
             a = torch.nn.functional.pad(a, (0, 1), value=1.0)
             b = torch.nn.functional.pad(b, (0, 1))
         # the earlier map of each pair first, then the later one
-        a, b = _compose((a[..., 1::2], b[..., 1::2]),
+        a, b = compose((a[..., 1::2], b[..., 1::2]),
                         (a[..., 0::2], b[..., 0::2]))
     return a[..., 0], b[..., 0]
 

@@ -6,15 +6,16 @@ The JAX package fetches a shard's seam state from its left neighbour with
 the same exchange is a shift along the batch axis.  The affine prefixes,
 which the JAX package builds from an ``all_gather`` and a sequential scan,
 are an exclusive composition over the B rows ("all shards to my left" is
-rows ``< b``), computed by doubling in ``log2(B)`` whole-batch steps: each
-op is a launch on the card, so a loop over the 32 rows would cost the host
-~100 launches.
+rows ``< b``), computed by doubling (``log2(B)`` levels) in one launch of
+K15 (kernels/affine_prefix.py), with the state entering each row
+(:func:`entering_state`) in the same launch.
 
 ``group`` (a ``torch.distributed`` process group, e.g. a ``DeviceMesh``
 axis) spreads one stream's rows over its ranks: the rows of rank r follow
 every row of the ranks before it.  Row 0 of rank r > 0 then takes its
 halo from rank r-1's last row, and the prefixes compose the whole maps of
-the ranks before r ahead of the local ones.  Every exchange is one
+the ranks before r ahead of the local ones (a K15 launch for the rank's
+whole map, the gather, a K15 launch for the prefixes).  Every exchange is one
 ``all_gather``, which serves world size 1, gloo and NCCL alike (a send to
 one's own rank is refused).  The messages are small (a halo row, a few
 scalars a map) and travel on the group's device: CUDA tensors for NCCL,
@@ -30,9 +31,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from sdr_tpu_torch.kernels import affine_prefix
+
 __all__ = ["left_halo", "right_shift_scalar", "substitute_first",
            "exclusive_affine_prefix", "exclusive_matrix_affine_prefix",
-           "first_row", "gather_ranks", "group_backend"]
+           "entering_state", "first_row", "gather_ranks", "group_backend"]
 
 
 def group_rank(group=None) -> int:
@@ -124,35 +127,18 @@ def substitute_first(value, initial, group=None):
     return value
 
 
-def _exclusive_scan(compose, identity, maps, group):
-    """Exclusive prefix composition over the leading [B] axis of ``maps``
-    (a tuple of tensors, one map per row), by doubling: ``log2(B)`` steps
-    of whole-batch ops rather than B steps of row ops.  ``compose(later,
-    earlier)`` composes two batches of maps; ``identity`` is one map.
-
-    With ``group``: the whole map of each rank's rows is gathered (at
-    every world size, 1 included), the maps of the ranks before this one
-    are composed in rank order, and every local prefix is composed after
-    them, so the ranks' rows form one stream."""
-    cur = maps
-    d = 1
-    while d < cur[0].shape[0]:
-        new = compose(tuple(t[d:] for t in cur), tuple(t[:-d] for t in cur))
-        cur = tuple(torch.cat([t[:d], n]) for t, n in zip(cur, new))
-        d *= 2
-    # cur[b] composes rows 0..b; row b enters with rows 0..b-1
-    local = tuple(torch.cat([i.expand_as(t[:1]), t[:-1]])
-                  for i, t in zip(identity, cur))
+def _ranks_before(m: torch.Tensor, v: torch.Tensor, group):
+    """The whole maps of the ranks before this one, in rank order (K15's
+    ``pre``), or None without a group.  Each rank's inclusive total (one
+    K15 launch) is gathered, at every world size, 1 included: first its
+    ``m``, then its ``v``, so every rank makes the same collectives in the
+    same order (H14)."""
     if group is None:
-        return local
-    totals = tuple(gather_ranks(t[-1:], group) for t in cur)
-    enter = None
-    for r in range(dist.get_rank(group)):
-        m = tuple(t[r] for t in totals)
-        enter = m if enter is None else compose(m, enter)
-    if enter is None:           # rank 0: nothing before it
-        return local
-    return compose(local, enter)
+        return None
+    tm, tv = affine_prefix.inclusive_total(m, v)
+    gm, gv = gather_ranks(tm[None], group), gather_ranks(tv[None], group)
+    r = dist.get_rank(group)
+    return gm[:r, 0], gv[:r, 0]
 
 
 def exclusive_affine_prefix(a: torch.Tensor, b: torch.Tensor, group=None):
@@ -160,12 +146,9 @@ def exclusive_affine_prefix(a: torch.Tensor, b: torch.Tensor, group=None):
     ``y -> a*y + b`` (``a``, ``b`` ``[B, ...]``): ``(A, B)`` with row b the
     composition of the maps of rows ``< b`` (the identity for row 0), so
     the state entering row b is ``A[b] * y0 + B[b]``.  With ``group`` the
-    rows of the ranks before this one come first."""
-    one = torch.ones((1,) + a.shape[1:], dtype=a.dtype, device=a.device)
-    return _exclusive_scan(
-        lambda late, early: (late[0] * early[0],
-                             late[0] * early[1] + late[1]),
-        (one, torch.zeros_like(one)), (a, b), group)
+    rows of the ranks before this one come first.  One K15 launch (two
+    with a group) on the card."""
+    return affine_prefix.exclusive_prefix(a, b, _ranks_before(a, b, group))
 
 
 def exclusive_matrix_affine_prefix(M: torch.Tensor, v: torch.Tensor,
@@ -175,13 +158,18 @@ def exclusive_matrix_affine_prefix(M: torch.Tensor, v: torch.Tensor,
     Returns ``(A, c)``, row b the composition of the maps of rows ``< b``
     (the identity for row 0): the state entering row b is
     ``A[b] @ s0 + c[b]``.  With ``group`` the rows of the ranks before
-    this one come first."""
-    p = M.shape[-1]
-    eye = torch.eye(p, dtype=M.dtype, device=M.device).expand(
-        (1,) + M.shape[1:])
-    return _exclusive_scan(
-        lambda late, early: (late[0] @ early[0],
-                             (late[0] @ early[1][..., None])[..., 0]
-                             + late[1]),
-        (eye, torch.zeros((1,) + v.shape[1:], dtype=v.dtype,
-                          device=v.device)), (M, v), group)
+    this one come first.  A map the same on every row may come expanded
+    (a row stride of 0): K15 reads it in place."""
+    return affine_prefix.exclusive_prefix(M, v, _ranks_before(M, v, group))
+
+
+def entering_state(m: torch.Tensor, v: torch.Tensor, s0, group=None):
+    """The state entering each row of a block-parallel run from ``s0``,
+    the state before the stream's first row (a tensor, or a number): in
+    the scalar form (``m``, ``v`` ``[B, ...]``) ``A * s0 + B``, in the
+    matrix form (``[B, ..., p, p]``, ``[B, ..., p]``) ``c + A @ s0``, of
+    the prefixes of :func:`exclusive_affine_prefix` (with ``group`` the
+    ranks before this one first), in one K15 launch (two with a
+    group)."""
+    return affine_prefix.entering_state(m, v, s0,
+                                        _ranks_before(m, v, group))

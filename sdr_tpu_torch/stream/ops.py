@@ -44,12 +44,15 @@ consume one (``map_batch_shape``); the ops after them batch over it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from sdr_tpu_torch.kernels import agc_linear, fft_stream
 from sdr_tpu_torch.kernels import stereo_decode as stereo_kernel
 from sdr_tpu_torch.kernels import iir as iir_kernel
+from sdr_tpu_torch.kernels.am_envelope import am_envelope
 from sdr_tpu_torch.kernels.backhalf import resample_fir
 from sdr_tpu_torch.kernels.fir import fir_strided
 from sdr_tpu_torch.kernels.fm_demod import (fm_demod_complex,
@@ -67,7 +70,8 @@ from sdr_tpu_torch.ops.fir import (FirSpec, _resample_positions,
 from sdr_tpu_torch.ops.iir import companion_power
 from sdr_tpu_torch.ops.quantized import u8_front_plan
 from sdr_tpu_torch.ops.shift import oscillator, oscillator_planar
-from sdr_tpu_torch.parallel.halo import (exclusive_affine_prefix,
+from sdr_tpu_torch.parallel.halo import (entering_state,
+                                         exclusive_affine_prefix,
                                          exclusive_matrix_affine_prefix,
                                          first_row, left_halo,
                                          right_shift_scalar, substitute_first)
@@ -529,20 +533,20 @@ class StereoDecode(StreamOp):
 
     def shard_carry(self, xb, initial=None, group=None):
         h = left_halo(xb, self.H, group=group)
-        lock0 = torch.zeros(xb.shape[:-1], dtype=_F32, device=xb.device)
+        lock0 = 0.0
         if initial is not None:
             h = substitute_first(h, initial[0], group)
-            lock0 += torch.as_tensor(initial[1], dtype=_F32,
-                                     device=xb.device)
+            lock0 = torch.as_tensor(initial[1], dtype=_F32, device=xb.device)
         if not self.pilot_lock:
-            return (h, lock0)
+            zeros = torch.zeros(xb.shape[:-1], dtype=_F32, device=xb.device)
+            return (h, zeros if initial is None else zeros + lock0)
         # the exact entering lock state: each row's decision is an affine
-        # map on the lock, composed by the scalar affine prefix; r comes
-        # from the same extended block apply will see
+        # map on the lock, composed by the scalar affine prefix, and
+        # A * lock0 + B in the same K15 launch; r comes from the same
+        # extended block apply will see
         _, a, b = stereo_kernel.pilot_lock(self._bp19, h, xb, None,
                                            self.lock_hi, self.lock_lo)
-        A, B = exclusive_affine_prefix(a, b, group)
-        return (h, A * lock0 + B)
+        return (h, entering_state(a, b, lock0, group))
 
 
 class ResampleFirScale(StreamOp):
@@ -679,14 +683,15 @@ class Iir(StreamOp):
             # each row's final state from a zero state
             _, v = iir_kernel.iir_section(x, b, coeffs, xin, zero,
                                           store=False)
+            # C^n is the same on every row: K15 reads it in place
             Mn = companion_power(tuple(float(c) for c in coeffs), n,
-                                 x.device)
-            A, enter = exclusive_matrix_affine_prefix(
-                Mn.expand(v.shape[:-1] + (2, 2)), v, group)
-            if initial is not None:
+                                 x.device).expand(v.shape[:-1] + (2, 2))
+            if initial is None:
+                _, enter = exclusive_matrix_affine_prefix(Mn, v, group)
+            else:
                 s0 = torch.as_tensor(initial[1][..., s, :], dtype=_F32,
                                      device=x.device).flip(-1)
-                enter = enter + (A @ s0[..., None])[..., 0]
+                enter = entering_state(Mn, v, s0, group)
             xin_list.append(xin)
             yout_list.append(enter.flip(-1))
             if s + 1 < self.sos.shape[0]:
@@ -710,11 +715,6 @@ class Scale(StreamOp):
 def _rot(ar, ai, br, bi):
     """``(ar + j*ai) * (br + j*bi)`` as planar pairs."""
     return ar * br - ai * bi, ar * bi + ai * br
-
-
-def _envelope(x: torch.Tensor) -> torch.Tensor:
-    """``|x|`` of planar I/Q ``[..., 2, n]``, all-real."""
-    return torch.sqrt(x[..., 0, :] ** 2 + x[..., 1, :] ** 2)
 
 
 class Mix(StreamOp):
@@ -841,7 +841,9 @@ class AmDemod(StreamOp):
         return tuple(batch_shape)[:-1] if self.planar else tuple(batch_shape)
 
     def apply(self, carry, x):
-        return carry, _envelope(x) if self.planar else am_demod(x)
+        if self.planar:
+            return carry, am_envelope(x.contiguous())
+        return carry, am_demod(x)
 
 
 class Agc(StreamOp):
@@ -908,10 +910,10 @@ class Agc(StreamOp):
                                              self.reference, planar=True)
             else:
                 A, B = scans.agc_affine(xb, self.mu, self.reference)
-            Ap, Bp = exclusive_affine_prefix(A, B, group)
             g0 = self.initial if initial is None else torch.as_tensor(
                 initial, dtype=_F32, device=xb.device)
-            return Ap * g0 + Bp
+            # the prefixes and Ap * g0 + Bp in one K15 launch
+            return entering_state(A, B, g0, group)
         if self.approx_time_sharding is None:
             raise NotImplementedError(
                 "Agc(method='scan') cannot be time-sharded exactly; use "
@@ -929,6 +931,15 @@ class Agc(StreamOp):
             if first_row(xb.shape[0], group) == 0:  # the stream's first row
                 enter[0] = g0
         return enter
+
+
+@functools.lru_cache(maxsize=64)
+def _alpha_power(alpha: float, n: int, device: torch.device):
+    """``f32(alpha) ** n`` (float64, then rounded to f32) as a 0-dim
+    tensor on ``device``, made once (and held by a graph being captured,
+    through ``keep``)."""
+    return torch.full((), float(np.float32(alpha)) ** n, dtype=_F32,
+                      device=device)
 
 
 class DcBlocker(StreamOp):
@@ -962,13 +973,14 @@ class DcBlocker(StreamOp):
             last = substitute_first(last, initial[0], group)
         _, (_, b) = scans.dc_blocker(xb, last, 0.0, self.alpha,
                                      store=False)
-        a = torch.full_like(b, float(np.float32(self.alpha))
-                            ** xb.shape[-1])
-        A, enter = exclusive_affine_prefix(a, b, group)
-        if initial is not None:
-            enter = enter + A * torch.as_tensor(initial[1], dtype=_F32,
-                                                device=xb.device)
-        return last, enter
+        # alpha^n is the same on every row: K15 reads it in place
+        a = keep(_alpha_power(self.alpha, xb.shape[-1],
+                              b.device)).expand_as(b)
+        if initial is None:
+            return last, exclusive_affine_prefix(a, b, group)[1]
+        return last, entering_state(
+            a, b, torch.as_tensor(initial[1], dtype=_F32, device=xb.device),
+            group)
 
 
 class Map(StreamOp):

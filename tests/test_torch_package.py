@@ -18,7 +18,9 @@ import sdr_tpu_torch.stream as tstream
 from sdr_tpu_torch.apps import am, chains, channelizer, fm, fm_tx, waterfall
 from sdr_tpu_torch.kernels import (KERNELS, agc, backhalf, fir, resample,
                                    u8_front, u8_front_demod)
+from sdr_tpu_torch.kernels import affine_prefix as kaffine_prefix
 from sdr_tpu_torch.kernels import agc_linear as kagc_linear
+from sdr_tpu_torch.kernels import am_envelope as kam_envelope
 from sdr_tpu_torch.kernels import channelize as kchannelize
 from sdr_tpu_torch.kernels import fft_stream as kfft_stream
 from sdr_tpu_torch.kernels import fm_demod as kfm_demod
@@ -244,6 +246,9 @@ def _wrapper_calls(device):
             torch.ones((4, 65), **f32), torch.zeros((2, 192), **f32),
             torch.ones((2, 100), **f32), torch.ones(2, **f32), 2.0, 1e-4,
             torch.ones((2, 228), **f32)),
+        lambda: kaffine_prefix.entering_state(
+            torch.ones((32, 2), **f32), torch.ones((32, 2), **f32), 1.0),
+        lambda: kam_envelope.am_envelope(torch.ones((2, 2, 100), **f32)),
     ]
 
 
@@ -258,13 +263,14 @@ def test_cpu_tensors_take_plain_path_and_launch_nothing():
              kiq_convert.iq_convert_reference,
              kfm_demod.fm_demod_planar_reference,
              kagc_linear.agc_apply_reference, kiir.iir_section_reference,
-             kstereo.stereo_decode_reference]
+             kstereo.stereo_decode_reference,
+             kaffine_prefix.entering_state_reference, kagc_linear.envelope]
     calls = _wrapper_calls("cpu")
-    assert len(calls) == len(plain) == len(KERNELS) == 14
+    assert len(calls) == len(plain) == len(KERNELS) == 16
     for call in calls:
         out = call()
         assert out is not None
-    assert [k.launches for k in KERNELS] == [0] * 14
+    assert [k.launches for k in KERNELS] == [0] * 16
     assert all(k._lib is None for k in KERNELS)   # nothing built or loaded
     # and the wrappers give their plain versions' results
     y = fir.fir_strided(torch.arange(4.0), torch.arange(10.0), 3, 2, 1)
@@ -296,8 +302,9 @@ def test_six_kernels_each_with_its_source():
     AGC scan, K7 and K8 the channelizer's stencil and the planar mix that
     XLA fuses, K9 the waterfall's fused FFT, K10 and K11 the IQ converts
     and the FM demod that XLA fuses, K12 and K13 the linear AGC's and the
-    IIR section's associative scans, K14 StereoDecode's filters and glue;
-    each is built from its own CUDA
+    IIR section's associative scans, K14 StereoDecode's filters and glue,
+    K15 the carries' affine prefixes and K16 AM's planar envelope; each
+    is built from its own CUDA
     source in csrc/, and so are the ceilings probes (not a kernel of any
     path)."""
     from sdr_tpu_torch import measure_ceilings
@@ -305,7 +312,8 @@ def test_six_kernels_each_with_its_source():
     assert names == ["u8_front_demod", "resample", "fir", "u8_front",
                      "backhalf", "agc_scan", "channelize", "mix",
                      "fft_stream", "iq_convert", "fm_demod", "agc_linear",
-                     "iir", "stereo_decode"]
+                     "iir", "stereo_decode", "affine_prefix",
+                     "am_envelope"]
     assert measure_ceilings.KERNEL not in KERNELS
     for k in KERNELS + (measure_ceilings.KERNEL,):
         assert k.source.parent == CSRC and k.source.suffix == ".cu"
