@@ -1894,41 +1894,72 @@ def require_no_layout_copy(what: str) -> None:
 
 
 PROFILE_LEAD = 32                     # spin kernels before a profiled call
+PROFILE_TAIL = 32                     # spin kernels after it
 PROFILE_SETTLE_S = 0.02               # host time before the first of them
-PROFILE_TRIES = 3                     # sessions until one records the lead
+PROFILE_TRIES = 8                     # sessions until two whole ones agree
 
 
 def device_kernels(fn, word: str) -> dict:
     """The device kernels of one ``fn()`` under ``torch.profiler`` whose
     names hold ``word`` (any case): {name: launches}.  Late in a long
-    process the profiler loses the first kernels of a session (the first
-    three of a call, fills and copies and K7 + DFT, were missing; once,
-    all of 8 spin kernels launched back to back), so the session first
-    waits PROFILE_SETTLE_S on the host, then runs PROFILE_LEAD spin kernels
-    of about 0.25 ms, each waited for, and at least one of them must be
-    recorded (a session that recorded none is run again, up to
-    PROFILE_TRIES sessions); they are left out of the result."""
+    process the profiler loses kernels of a session: the first ones (the
+    first three of a call, fills and copies and K7 + DFT; once all of 8
+    spin kernels launched back to back) and the last ones (8 of a 14-kernel
+    graph replay's, its tail).  So a session waits PROFILE_SETTLE_S on the
+    host, runs PROFILE_LEAD spin kernels of about 0.25 ms, each waited for,
+    then ``fn()``, then PROFILE_TAIL more.  It is whole when, in the order
+    the card ran them, a recorded spin kernel comes before the call's
+    first kernel and another after its last, with none between; the
+    result is the first reading two whole sessions gave alike (a loss only
+    takes kernels away), within PROFILE_TRIES sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def spin(n):
+        for _ in range(n):
+            torch.cuda._sleep(SLEEP_CYCLES // 40)
+            torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
+    readings, seen = [], []
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_SETTLE_S)
-            for _ in range(PROFILE_LEAD):
-                torch.cuda._sleep(SLEEP_CYCLES // 40)
-                torch.cuda.synchronize()
+            spin(PROFILE_LEAD)
             fn()
             torch.cuda.synchronize()
-        names = [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
-        if any("spin_kernel" in e.key for e in names):
-            return {e.key: e.count for e in names
-                    if word in e.key.lower() and "spin_kernel" not in e.key}
-    raise RuntimeError("check failed: the profiler recorded none of the "
-                       f"spin kernels before the call in {PROFILE_TRIES} "
-                       "sessions")
+            spin(PROFILE_TAIL)
+        ran = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        spun = ["spin_kernel" in e.name for e in ran]
+        if False in spun:
+            lead, tail = spun.index(False), spun[::-1].index(False)
+        else:           # no kernel of the call: whole only with every spin
+            lead, tail = len(spun), 0
+            if lead == PROFILE_LEAD + PROFILE_TAIL:
+                lead, tail = PROFILE_LEAD, PROFILE_TAIL
+        inner = ran[lead:len(ran) - tail]
+        seen.append((lead, len(inner), tail))
+        if not lead or not tail or any("spin_kernel" in e.name
+                                       for e in inner):
+            continue
+        got = {}
+        for e in inner:
+            got[e.name] = got.get(e.name, 0) + 1
+        if got in readings:
+            if len(seen) > 2 or any((a, b) != (PROFILE_LEAD, PROFILE_TAIL)
+                                    for a, _, b in seen):
+                print(f"profiler: {len(seen)} sessions for one reading "
+                      f"(spin kernels before, the call's, spin kernels "
+                      f"after: {seen})")
+            return {k: n for k, n in got.items() if word in k.lower()}
+        readings.append(got)
+    raise RuntimeError(f"check failed: in {PROFILE_TRIES} profiler sessions "
+                       "no two whole ones agreed (spin kernels before, the "
+                       f"call's, spin kernels after: {seen})")
 
 
 def require_launches(launches: dict, want: dict, what: str) -> None:
@@ -2694,20 +2725,26 @@ def check_agc_linear_kernel(agc_op, x, seed: int):
     check_repeatable(lambda: k12.agc_affine(x, mu, ref, True), "K12 reduce")
     y, f = k12.agc_apply(x, mu, ref, enter)
     A, B = k12.agc_affine(x, mu, ref, True)
+    yg, fg = k12.agc_gains(m, mu, ref, enter)
     cumsum_ms = time_ms(lambda: torch.cumsum(x, -1), 20)
     rows = []
-    for mode, fn, plain, outs in (
+    # operations a sample: the envelope (4), the map (2), the recurrence
+    # (2), the scaling (2); the gains over envelopes made beforehand (the
+    # complex AM form) take the map and the recurrence only
+    for mode, fn, plain, ins, outs, ops, what in (
             ("scan", lambda: k12.agc_apply(x, mu, ref, enter),
-             lambda: k12.agc_apply_reference(x, mu, ref, enter), (y, f)),
+             lambda: k12.agc_apply_reference(x, mu, ref, enter),
+             (x, enter), (y, f), 10, f"AM planar {list(x.shape)}"),
             ("reduce", lambda: k12.agc_affine(x, mu, ref, True),
-             lambda: k12.agc_affine_reference(x, mu, ref, True), (A, B))):
-        ins = (x, enter) if mode == "scan" else (x,)
-        # the envelope (4), the map (2), the recurrence (2), the scaling (2)
-        b, by = bound(nbytes(*ins, *outs),
-                      (10 if mode == "scan" else 8) * m.numel(), "f32")
+             lambda: k12.agc_affine_reference(x, mu, ref, True),
+             (x,), (A, B), 8, f"AM planar {list(x.shape)}"),
+            ("gains", lambda: k12.agc_gains(m, mu, ref, enter),
+             lambda: k12.agc_gains_reference(m, mu, ref, enter),
+             (m, enter), (yg, fg), 4, f"envelopes {list(m.shape)}")):
+        b, by = bound(nbytes(*ins, *outs), ops * m.numel(), "f32")
         ms = time_steady(fn, 20, f"K12 {mode}")
         rows.append(dict(
-            name=f"K12 agc_linear ({mode}, AM planar {list(x.shape)})",
+            name=f"K12 agc_linear ({mode}, {what})",
             kernel="agc_linear", route="cuda",
             source="sdr_tpu_torch/csrc/agc_linear.cu",
             replaces="none: sdr_tpu/ops/scans.py:44-61 linear_scan "
@@ -4391,37 +4428,47 @@ NCCL_LABEL = "1 rank over NCCL: not a scaling figure"
 
 
 class CollectiveClock:
-    """Host seconds spent in ``torch.distributed.all_gather``, the one
-    collective the port's halo helpers and runners make, while installed
-    (``with``).  For gloo this includes waiting for the other ranks."""
+    """Host seconds spent in ``torch.distributed.all_gather`` (gloo) and
+    ``all_gather_into_tensor`` (NCCL), the collectives the port's halo
+    helpers and runners make, while installed (``with``).  For gloo this
+    includes waiting for the other ranks; a replay of a compiled call
+    makes no collective call on the host."""
+
+    NAMES = ("all_gather", "all_gather_into_tensor")
 
     def __init__(self):
         self.seconds = 0.0
 
     def __enter__(self):
         import torch.distributed as dist
-        self._dist, self._orig = dist, dist.all_gather
+        self._dist = dist
+        self._orig = {n: getattr(dist, n) for n in self.NAMES}
 
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return self._orig(*args, **kwargs)
-            finally:
-                self.seconds += time.perf_counter() - t0
+        def timer(orig):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+            return timed
 
-        dist.all_gather = timed
+        for n, orig in self._orig.items():
+            setattr(dist, n, timer(orig))
         return self
 
     def __exit__(self, *exc):
-        self._dist.all_gather = self._orig
+        for n, orig in self._orig.items():
+            setattr(self._dist, n, orig)
 
 
-def time_sharded(fn, what: str, label: str, card: str):
-    """Median span of SHARD_REPS calls, each between CUDA events, and the
+def time_sharded(fn, what: str, label: str, card: str,
+                 reps: int = SHARD_REPS):
+    """Median span of ``reps`` calls, each between CUDA events, and the
     median host time of a call spent in the collectives; printed with the
     label that says what the figure is not."""
     spans, coll = [], []
-    for _ in range(SHARD_REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         with CollectiveClock() as clock:
@@ -4432,7 +4479,7 @@ def time_sharded(fn, what: str, label: str, card: str):
         spans.append(a.elapsed_time(b))
         coll.append(clock.seconds * 1e3)
     ms, cms = float(np.median(spans)), float(np.median(coll))
-    print(f"{what}: median span {ms} ms over {SHARD_REPS} calls by CUDA "
+    print(f"{what}: median span {ms} ms over {reps} calls by CUDA "
           f"events (min {min(spans)}, max {max(spans)}); host time in the "
           f"collectives {cms} ms a call (median) -- {label}; {card}")
     return ms, cms
@@ -4562,6 +4609,136 @@ def check_group_prefixes(got: list, maps: dict, what: str) -> float:
     return worst
 
 
+HOLD_S = 1.0                # host time the held capture stays open
+
+
+def held_capture(group, device) -> None:
+    """ROADMAP H25: a capture of an NCCL gather in ``torch.cuda.graph``'s
+    default mode ("global", the mode of every capture in the port), held
+    open HOLD_S on the host while the NCCL watchdog thread polls the
+    events of the eager gathers before it, then replayed and checked."""
+    from sdr_tpu_torch.parallel.halo import gather_ranks
+    t = torch.arange(4096, dtype=torch.float32, device=device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gather_ranks(t * 2, group)
+        time.sleep(HOLD_S)
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(out[0], t * 2), "a replay of the held capture's "
+            "gather is wrong")
+    print(f"NCCL world 1: a capture of a gather held open {HOLD_S} s while "
+          f"the watchdog polls, in the 'global' mode: replayed right")
+    del graph
+
+
+SHARD_COMPILED_CHAINS = ("mono", "stereo_fused", "am")
+
+
+def split_nccl_annotations(kernels: dict) -> tuple:
+    """(:func:`device_kernels`' entries but the profiler's annotations of
+    NCCL collectives, those annotations): the profiler lists an eager
+    collective as ``nccl:<op>`` on the device beside its work."""
+    notes = {k: n for k, n in kernels.items() if k.startswith("nccl:")}
+    return {k: n for k, n in kernels.items() if k not in notes}, notes
+
+
+def compiled_world1(name: str, mesh, seed: int, device, card: str) -> dict:
+    """``compile_time_sharded`` over the one-rank NCCL mesh at the path's
+    full width, ROWS blocks: each of four replays bitwise the eager
+    ``run_time_sharded`` (the second after copying a second seeded
+    recording into the call's input, the last two under
+    ``set_sync_debug_mode('error')``); a replay's device kernels by the
+    profiler the eager call's, name for name and count for count (the
+    gathers' NCCL work and K15 twice a composition included); the median
+    span of CHAIN_REPS replays beside the eager sharded call's and the
+    one-process compiled call's (``compile_time_batched``), with the host
+    time in the collectives; the capture's ms and its pool's bytes."""
+    from sdr_tpu_torch.parallel import (compile_time_batched,
+                                        compile_time_sharded,
+                                        run_time_sharded)
+    from sdr_tpu_torch.utils import graphs
+
+    ops, raw, nb = compiled_inputs(name, seed, device)
+    _, raw2, _ = compiled_inputs(name, seed + 1, device)
+
+    def eager(x=raw):
+        return run_time_sharded(ops, mesh, x, nblocks=nb, device=device)
+
+    want, want2 = eager(), eager(raw2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call = compile_time_sharded(ops, mesh, raw.clone(), nblocks=nb,
+                                device=device)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    pool = graphs.pool_bytes(call.pool)
+    what = f"NCCL world 1 compiled {name}"
+    require(same_bits(call(), want), f"{what}: replay != eager sharded call")
+    require(same_bits(call(raw2), want2),
+            f"{what}: replay on the second recording != eager sharded call")
+    require(same_bits(sync_free(lambda: call(raw)), want),
+            f"{what}: a sync-free replay after copying the first recording "
+            "back in != eager sharded call")
+    require(same_bits(sync_free(call), want), f"{what}: sync-free replay")
+    require(call.input_copies == 2, f"{what}: input copies "
+            f"{call.input_copies}, expected 2")
+    # the profiler lists each eager NCCL collective as an annotation
+    # ("nccl:_all_gather_base") beside its device work; a replay makes no
+    # host call, so it has the work alone
+    eager_kernels, gathers = split_nccl_annotations(device_kernels(eager,
+                                                                   ""))
+    replay_kernels, none = split_nccl_annotations(device_kernels(call, ""))
+    require(replay_kernels == eager_kernels and not none,
+            f"{what}: the replay's kernels {replay_kernels} != the eager "
+            f"sharded call's {eager_kernels}")
+    one = compile_time_batched(ops, raw.clone(), nb, device=device)
+    require(same_bits(one(), want), f"{what}: one process != sharded")
+    # what the group adds to the graph, against the one-process graph:
+    # the gathers' device work (NCCL kernels, or at world 1 a copy each)
+    # and K15's second launch a composition
+    one_kernels, _ = split_nccl_annotations(device_kernels(one, ""))
+    added = {k: n - one_kernels.get(k, 0) for k, n in replay_kernels.items()
+             if n != one_kernels.get(k, 0)}
+    n_gathers = sum(gathers.values())
+    comm = sum(n for k, n in added.items() if "memcpy" in k.lower()
+               or "nccl" in k.lower())
+    prefixes = sum(n for k, n in added.items()
+                   if "prefix_warp_kernel" in k or "prefix_thread_kernel" in k)
+    require(comm == n_gathers and sum(added.values()) == comm + prefixes,
+            f"{what}: the graph adds {added} to the one-process graph, "
+            f"the eager call made the collectives {gathers}")
+    rec = {"chain": name, "blocks": nb, "input": list(raw.shape),
+           "capture_ms": capture_ms, "pool_bytes": pool,
+           "kernels": replay_kernels, "eager_collectives": gathers,
+           "added_to_one_process": added, "card": card,
+           "label": NCCL_LABEL}
+    for key, fn, label in (
+            ("compiled", call, NCCL_LABEL),
+            ("eager", eager, NCCL_LABEL),
+            ("one_process_compiled", one, "compile_time_batched, the same "
+             "work without a group"),
+            ("compiled_again", call, NCCL_LABEL)):
+        ms, cms = time_sharded(fn, f"{what}: {key}", label, card,
+                               reps=CHAIN_REPS)
+        rec[f"{key}_span_ms"], rec[f"{key}_collective_ms"] = ms, cms
+    print(f"{what}: bitwise the eager run_time_sharded over 4 replays (one "
+          f"on a second recording, two with the sync debug mode at "
+          f"'error'); a replay's device kernels the eager call's "
+          f"({sum(replay_kernels.values())} launches; the eager call's "
+          f"collectives {gathers}); the graph adds to the one-process "
+          f"graph {added}; capture {capture_ms:.1f} ms, pool "
+          f"{pool} bytes; median spans (ms, {CHAIN_REPS} calls) compiled "
+          f"{rec['compiled_span_ms']}, {rec['compiled_again_span_ms']}, "
+          f"eager {rec['eager_span_ms']}, one-process compiled "
+          f"{rec['one_process_compiled_span_ms']}; host ms in the "
+          f"collectives a call: compiled {rec['compiled_collective_ms']}, "
+          f"eager {rec['eager_collective_ms']} -- {NCCL_LABEL}; {card}")
+    del call, one
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_nccl_world1(seed: int, device, kernels, card: str):
     """``run_time_sharded`` over a one-rank NCCL group in this process, at
     the single-device paths' full width: the mono chain (bitwise
@@ -4571,7 +4748,8 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
     counted call runs with the sync debug mode at 'error' (the shape check
     gathers host tensors over the group's gloo side and never waits for
     the card); each sharded call's span is printed beside the
-    one-process call's."""
+    one-process call's.  Then a held capture (:func:`held_capture`) and
+    the compiled sharded calls (:func:`compiled_world1`)."""
     import torch.distributed as dist
     from sdr_tpu_torch.apps.chains import fm_chain
     from sdr_tpu_torch.parallel import (run_time_batched, run_time_sharded,
@@ -4634,6 +4812,11 @@ def run_nccl_world1(seed: int, device, kernels, card: str):
         print(f"NCCL world 1: K15's group path (a total gathered, then the "
               f"prefixes) bitwise one process in both forms; launches "
               f"{launches}")
+        held_capture(mesh.get_group("t"), device)
+        # the sharded calls compiled, their gathers inside the graph
+        recs = [compiled_world1(name, mesh, seed, device, card)
+                for name in SHARD_COMPILED_CHAINS]
+        print(json.dumps({"sharded_compiled": recs}))
     finally:
         dist.destroy_process_group()
     return paths
@@ -4743,6 +4926,7 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
                                            fm_chain)
     from sdr_tpu_torch.kernels import KERNELS
     from sdr_tpu_torch.parallel import (channel_time_mesh,
+                                        compile_time_sharded,
                                         global_time_sharded,
                                         host_block_iterator,
                                         init_distributed, make_mesh,
@@ -4829,6 +5013,17 @@ def shard_worker(rank: int, d: Path, device: torch.device) -> int:
         np.savez(d / f"prefixes.{rank}.npz",
                  **{k: t.cpu().numpy() for k, t in got.items()})
         report["prefixes"] = {"launches": launches}
+        if device.type == "cuda":
+            # a gloo group's CUDA collectives go through the host: the
+            # compiled call refuses it before any collective, on every rank
+            t0 = time.perf_counter()
+            try:
+                compile_time_sharded(fm_chain(device=device), tmesh,
+                                     span("mono.u8", ROWS * ROW_BYTES),
+                                     nblocks=per, device=device)
+            except ValueError as e:
+                report["compile_refused"] = str(e)
+            report["compile_refused_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     (d / f"rank{rank}.json").write_text(json.dumps(report))
@@ -4959,6 +5154,18 @@ def run_gloo_ranks(seed: int, device, card: str):
                              f"gloo rank {r} prefixes (2 a composition)")
         paths["sharded_gloo_prefixes"] = {
             k: [lr[k] for lr in per_rank] for k in per_rank[0]}
+        if device.type == "cuda":
+            refused = [rep.get("compile_refused") for rep in reports]
+            require(len(set(refused)) == 1 and refused[0] is not None
+                    and "'gloo'" in refused[0]
+                    and "'cpu:gloo,cuda:nccl'" in refused[0],
+                    f"compile_time_sharded over {SHARD_RANKS} gloo ranks: "
+                    f"refusals {refused}")
+            took = [rep["compile_refused_s"] for rep in reports]
+            print(f"compile_time_sharded over {SHARD_RANKS} gloo ranks on "
+                  f"the card: the same ValueError on every rank, in "
+                  f"{max(took):.4f} s at most, before any collective: "
+                  f"{refused[0]}")
         print(f"sharded prefixes over {SHARD_RANKS} gloo ranks: each rank's "
               f"K15's over the ranks before it, bitwise (both forms); "
               f"{worst} of a lane's peak from one process over all the rows")

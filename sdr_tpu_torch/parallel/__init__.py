@@ -10,6 +10,7 @@ from sdr_tpu_torch.parallel.halo import (  # noqa: F401
     left_halo,
     right_shift_scalar,
     exclusive_affine_prefix,
+    capturable,
 )
 from sdr_tpu_torch.parallel.sharded import (  # noqa: F401
     time_sharded_fn,
@@ -17,6 +18,10 @@ from sdr_tpu_torch.parallel.sharded import (  # noqa: F401
     run_time_batched,
     run_channel_sharded,
     run_grid_sharded,
+    compile_time_batched,
+    compile_time_sharded,
+    compile_channel_sharded,
+    compile_grid_sharded,
 )
 from sdr_tpu_torch.parallel import mesh  # noqa: F401
 from sdr_tpu_torch.parallel.multihost import (  # noqa: F401

@@ -16,10 +16,12 @@ every row of the ranks before it.  Row 0 of rank r > 0 then takes its
 halo from rank r-1's last row, and the prefixes compose the whole maps of
 the ranks before r ahead of the local ones (a K15 launch for the rank's
 whole map, the gather, a K15 launch for the prefixes).  Every exchange is one
-``all_gather``, which serves world size 1, gloo and NCCL alike (a send to
-one's own rank is refused).  The messages are small (a halo row, a few
-scalars a map) and travel on the group's device: CUDA tensors for NCCL,
-host tensors for gloo; the data and the kernels stay where they are.
+gather of every rank's message (:func:`gather_ranks`), which serves world
+size 1, gloo and NCCL alike (a send to one's own rank is refused).  The
+messages are small (a halo row, a few scalars a map) and travel on the
+group's device: CUDA tensors for NCCL, into one buffer that a CUDA graph
+captures (:func:`capturable`), host tensors for gloo; the data and the
+kernels stay where they are.
 
 Every rank of a group must make the same calls in the same order: a
 collective that some ranks skip hangs the group.  ``group=None`` is the
@@ -35,7 +37,8 @@ from sdr_tpu_torch.kernels import affine_prefix
 
 __all__ = ["left_halo", "right_shift_scalar", "substitute_first",
            "exclusive_affine_prefix", "exclusive_matrix_affine_prefix",
-           "entering_state", "first_row", "gather_ranks", "group_backend"]
+           "entering_state", "first_row", "gather_ranks", "group_backend",
+           "capturable", "host_gather", "on_every_rank"]
 
 
 def group_rank(group=None) -> int:
@@ -62,14 +65,61 @@ def group_backend(group, device_type: str):
 
 def gather_ranks(t: torch.Tensor, group) -> torch.Tensor:
     """``[world, *t.shape]``: every rank's ``t`` in rank order, on
-    ``t``'s device.  The message goes as is where the group runs NCCL for
-    ``t``'s device, through the host otherwise (gloo)."""
-    wire = t.contiguous()
-    if group_backend(group, t.device.type) != "nccl":
-        wire = wire.cpu()
-    out = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    ``t``'s device.  Where the group runs NCCL for ``t``'s device the
+    ranks' messages land in one buffer (``all_gather_into_tensor``: one
+    NCCL launch, no copy), which a CUDA graph can capture; otherwise
+    (gloo) each message goes through the host, which a graph cannot."""
+    world = dist.get_world_size(group)
+    if group_backend(group, t.device.type) == "nccl":
+        out = t.new_empty((world,) + tuple(t.shape))
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+        return out
+    wire = t.contiguous().cpu()
+    out = [torch.empty_like(wire) for _ in range(world)]
     dist.all_gather(out, wire, group=group)
     return torch.stack(out).to(t.device)
+
+
+def capturable(group, device) -> bool:
+    """Whether ``group``'s collectives on ``device`` can run inside a CUDA
+    graph: on the card only where the group runs NCCL for CUDA tensors
+    (gloo sends every message through the host); on the CPU always, since
+    there is no graph there."""
+    return (torch.device(device).type != "cuda"
+            or group_backend(group, "cuda") == "nccl")
+
+
+def host_gather(t: torch.Tensor, group, device) -> torch.Tensor:
+    """``[world, *t.shape]`` on the host: every rank's small host tensor
+    ``t``, gathered over the group's CPU backend (gloo), so the gather
+    never waits for the card; a group with no CPU backend (NCCL alone)
+    gathers it on ``device`` and reads it back, which waits for the card's
+    queued work (never call it inside a capture)."""
+    if group_backend(group, "cpu") is None:
+        t = t.to(device)
+    return gather_ranks(t, group).cpu()
+
+
+def on_every_rank(fn, group, device):
+    """``fn()`` on this rank, then one :func:`host_gather` of whether it
+    raised: where it raised on any rank of ``group`` it raises on every
+    rank (the rank's own error, or a ``RuntimeError`` naming the ranks
+    where it raised), so no rank goes on to a collective that a peer will
+    never make.  Every rank must make the same collectives inside ``fn``
+    (H14): a rank that raises before one of them leaves its peers waiting
+    there.  Returns ``fn()``'s result."""
+    try:
+        out, err = fn(), None
+    except Exception as e:  # noqa: BLE001 - raised again below, on every rank
+        out, err = None, e
+    raised = host_gather(torch.tensor([err is not None]), group, device)
+    failed = [r for r, bad in enumerate(raised[:, 0].tolist()) if bad]
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError(f"ranks {failed} of the group failed where this "
+                           f"rank succeeded: every rank raises")
+    return out
 
 
 def _from_left(last: torch.Tensor, group):

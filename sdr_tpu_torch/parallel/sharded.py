@@ -28,11 +28,15 @@ Over several processes (``torch.distributed``, one rank a card):
 Each runner returns the rank's own output; ``multihost.gather_time_sharded``
 joins them on one rank for a sink.
 
-:func:`compile_time_batched` is the one-process call compiled: the dry
-run and the chain's function built once, the call captured as a CUDA graph
-on its input tensor and replayed (what ``jax.jit`` of
-``run_time_batched`` is to the JAX package's bench).  The sharded runners
-stay eager: capturing their collectives is not supported.
+:func:`compile_time_batched` is the call compiled: the dry run and the
+chain's function built once, the call captured as a CUDA graph on its
+input tensor and replayed (what ``jax.jit`` of ``run_time_batched`` is to
+the JAX package's bench).  With a group the graph holds the runner's NCCL
+gathers (utils/graphs.py), and :func:`compile_time_sharded`,
+:func:`compile_grid_sharded` and :func:`compile_channel_sharded` are the
+sharded runners compiled, the counterparts of the JAX package's
+``jax.jit(lambda g: run_*_sharded(...))``: one compiled program a rank with
+its collectives inside.
 """
 
 from __future__ import annotations
@@ -40,18 +44,23 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
-from sdr_tpu_torch.parallel.halo import gather_ranks, group_backend
+from sdr_tpu_torch.parallel.halo import (capturable, gather_ranks,
+                                         group_backend, host_gather,
+                                         on_every_rank)
 from sdr_tpu_torch.stream.block import StreamOp
 from sdr_tpu_torch.stream.pipeline import (Pipeline, StaticCarries,
                                            _clone_tree, _unflatten,
-                                           as_input, as_tensor)
+                                           as_input, as_tensor,
+                                           flatten_carries)
 from sdr_tpu_torch.utils.device import resolve_device
 from sdr_tpu_torch.utils.graphs import Captured, new_pool
 
 __all__ = ["time_sharded_fn", "run_time_batched", "compile_time_batched",
            "CompiledBatched", "run_time_sharded",
-           "run_channel_sharded", "run_grid_sharded"]
+           "run_channel_sharded", "run_grid_sharded", "compile_time_sharded",
+           "compile_channel_sharded", "compile_grid_sharded"]
 
 _MAX_DIMS = 8       # dims of a local input the shape check carries
 
@@ -97,6 +106,15 @@ def _last_row(tree):
     return tree[-1].clone()
 
 
+def _from_last_rank(tree, group):
+    """Every leaf of ``tree`` as the group's last rank holds it, on every
+    rank: one gather a leaf, none at world size 1."""
+    if dist.get_world_size(group) == 1:
+        return tree
+    return _unflatten(tree, iter([gather_ranks(leaf, group)[-1]
+                                  for leaf in flatten_carries(tree)]))
+
+
 def _restack(yb, time_axis_out: int = -1):
     """``[B, *lead, ...per-block]`` -> ``[*lead, ...]`` with the block axis
     merged into the stream axis ``time_axis_out`` (negative, of the
@@ -122,14 +140,13 @@ def _require_equal_shapes(x: torch.Tensor, group) -> None:
     group's CPU backend (gloo; ``init_distributed`` asks NCCL groups for
     ``'cpu:gloo,cuda:nccl'``), so the check never waits for the card.  A
     group with no CPU backend (NCCL alone) gathers them on ``x``'s device
-    and reads them back, which waits for the card's queued work."""
+    and reads them back, which waits for the card's queued work
+    (:func:`host_gather`)."""
     dims = x.shape[:_MAX_DIMS]
     meta = torch.full((_MAX_DIMS + 1,), -1, dtype=torch.int64)
     meta[0] = x.ndim
     meta[1:len(dims) + 1] = torch.tensor(dims, dtype=torch.int64)
-    if group_backend(group, "cpu") is None:
-        meta = meta.to(x.device)
-    shapes = gather_ranks(meta, group).cpu()
+    shapes = host_gather(meta, group, x.device)
     if not bool((shapes == shapes[0]).all()):
         got = [tuple(s[1:min(s[0], _MAX_DIMS) + 1].tolist()) for s in shapes]
         raise ValueError(f"the ranks' local inputs differ in shape: {got}")
@@ -207,10 +224,22 @@ class CompiledBatched:
     them (donated: the next call continues from them; other carries
     passed as ``carries`` are copied in, counted in ``carry_copies``).
     Made without, the stream starts from its warm-up state at every call,
-    and returned carries are fresh copies."""
+    and returned carries are fresh copies.
+
+    Made with ``group``, the call is this rank's part of a sharded call
+    (``run_time_batched(group=)``): the graph holds the group's gathers,
+    ``carries`` enter the stream's first block (rank 0's row 0), and
+    with ``return_carries`` each rank returns the state after its own last
+    block, in fresh copies.  The static buffers then take the state after
+    the stream's last block, the last rank's (one gather a leaf, in the
+    graph), so the next call continues the stream on every rank: with no
+    ``carries``, or with the carries the last call returned, which are
+    not copied in.  A call is a collective: every rank of the group calls
+    its compiled call, in the same order as its other collectives."""
 
     def __init__(self, ops, x: torch.Tensor, nblocks: int, carries,
-                 return_carries: bool, device: torch.device, pool):
+                 return_carries: bool, device: torch.device, pool,
+                 group=None):
         ops = list(ops)
         n, lead = x.shape[-1], x.shape[:-1]
         if n % nblocks:
@@ -222,12 +251,14 @@ class CompiledBatched:
         self.input_copies = 0
         self.static = (None if carries is None
                        else StaticCarries(carries, device))
+        self.grouped = group is not None
+        self._returned = None       # the own rows the last call returned
         t_axis = Pipeline(ops, block_in=n // nblocks, batch_shape=lead,
                           in_dtype=x.dtype, device=device).time_axis_out
         fn = time_sharded_fn(
             ops, initials=None if self.static is None else _unflatten(
                 self.static.tree, iter(self.static.bufs)),
-            return_carries=return_carries)
+            return_carries=return_carries, group=group)
         static = self.static
 
         def call():
@@ -239,11 +270,20 @@ class CompiledBatched:
             last = _last_row(cb)
             if static is None:
                 return _restack(yb, t_axis), last
-            static.write(last)
-            return _restack(yb, t_axis), None
+            if group is None:
+                static.write(last)
+                return _restack(yb, t_axis), None
+            static.write(_from_last_rank(last, group))
+            return _restack(yb, t_axis), last
 
-        self.graph = Captured(call, device, pool, mutated=(
-            static.bufs if static is not None and return_carries else ()))
+        def capture():
+            return Captured(call, device, pool, mutated=(
+                static.bufs if static is not None and return_carries
+                else ()))
+
+        # with a group, a rank whose capture raised makes every rank raise
+        self.graph = (capture() if group is None
+                      else on_every_rank(capture, group, device))
 
     @property
     def carry_copies(self) -> int:
@@ -269,13 +309,28 @@ class CompiledBatched:
             if self.static is None:
                 raise ValueError("carries given to a call compiled without "
                                  "them: compile with carries=")
-            self.static.load(carries)
+            if not self._continues(carries):
+                self.static.load(carries)
         y, last = self.graph.replay()
         if not self.return_carries:
             return y
         if self.static is None:
             return _clone_tree(last), y
-        return self.static.result(), y
+        if not self.grouped:
+            return self.static.result(), y
+        self._returned = _clone_tree(last)
+        return self._returned, y
+
+    def _continues(self, carries) -> bool:
+        """Whether ``carries`` are, leaf for leaf, the own rows the last
+        call of a group's call returned: the static buffers already hold
+        the stream's state after that call."""
+        if self._returned is None:
+            return False
+        leaves, mine = flatten_carries(carries), flatten_carries(
+            self._returned)
+        return len(leaves) == len(mine) and all(
+            a is b for a, b in zip(leaves, mine))
 
 
 def compile_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
@@ -291,17 +346,29 @@ def compile_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     graph in a memory pool of its own.  On the CPU the call keeps the
     function and runs it again on the same buffers.
 
-    Raises for ``group``: the sharded runners' collectives are not
-    captured (they stay eager, :func:`run_time_sharded`).  A capture that
-    fails raises; nothing falls back to an eager run."""
-    if group is not None:
-        raise NotImplementedError(
-            "compile_time_batched does not capture collectives: run a "
-            "sharded call eagerly (run_time_batched with group=)")
+    ``group``: ``run_time_batched(group=)`` compiled, this rank's part of
+    a sharded call whose graph holds the group's NCCL gathers.  Every rank
+    of the group compiles the same chain at the same shape and then calls
+    its compiled call in step with the others.  Before any collective, and
+    so on every rank alike, it raises ``ValueError`` on the card for a
+    group whose CUDA collectives cannot be captured (gloo, which goes
+    through the host: ``init_distributed`` asks for
+    ``'cpu:gloo,cuda:nccl'``).  The ranks' input shapes are checked once,
+    here, outside the capture (a replay gathers no shape).  A capture
+    that fails on any rank raises on every rank; nothing falls back to an
+    eager run."""
+    if group is not None and not capturable(group, device):
+        raise ValueError(
+            f"a compiled sharded call on the card captures the group's "
+            f"collectives, which needs NCCL for CUDA tensors; this group "
+            f"runs {group_backend(group, 'cuda')!r} for them: make it with "
+            f"the backend 'cpu:gloo,cuda:nccl' (init_distributed())")
     device = resolve_device(device)
     x = as_input(x, device)
+    if group is not None:
+        _require_equal_shapes(x, group)
     return CompiledBatched(ops, x, nblocks, carries, return_carries, device,
-                           new_pool(device))
+                           new_pool(device), group)
 
 
 def run_time_sharded(ops: Sequence[StreamOp], mesh, x_local,
@@ -337,3 +404,37 @@ def run_grid_sharded(ops: Sequence[StreamOp], mesh, x_local,
     within the time axis's group only."""
     mesh.get_group(channel_axis)        # the axis must exist
     return run_time_sharded(ops, mesh, x_local, time_axis, nblocks, device)
+
+
+def compile_time_sharded(ops: Sequence[StreamOp], mesh, x_local,
+                         axis_name: str = "t", nblocks: int = 1,
+                         carries=None, return_carries: bool = False,
+                         device="cuda") -> CompiledBatched:
+    """:func:`run_time_sharded` compiled (``jax.jit`` of the JAX package's
+    runner): :func:`compile_time_batched` of this rank's span ``x_local``
+    over the group of ``mesh``'s ``axis_name``.  Each call returns this
+    rank's output span, bitwise the eager runner's on the same input, in
+    the graph's own tensor, which the next call overwrites.  Every rank
+    of the axis compiles and calls it together."""
+    return compile_time_batched(ops, x_local, nblocks, carries=carries,
+                                return_carries=return_carries, device=device,
+                                group=mesh.get_group(axis_name))
+
+
+def compile_channel_sharded(ops: Sequence[StreamOp], mesh, x_local,
+                            axis_name: str = "c",
+                            device="cuda") -> CompiledBatched:
+    """:func:`run_channel_sharded` compiled: this rank's channels as one
+    block from warmup, no collective, so any group will do."""
+    mesh.get_group(axis_name)           # the axis must exist
+    return compile_time_batched(ops, x_local, 1, device=device)
+
+
+def compile_grid_sharded(ops: Sequence[StreamOp], mesh, x_local,
+                         channel_axis: str = "c", time_axis: str = "t",
+                         nblocks: int = 1, device="cuda") -> CompiledBatched:
+    """:func:`run_grid_sharded` compiled: the halos gathered within the
+    time axis's group only."""
+    mesh.get_group(channel_axis)        # the axis must exist
+    return compile_time_sharded(ops, mesh, x_local, time_axis, nblocks,
+                                device=device)

@@ -31,6 +31,28 @@ What capture must respect (ROADMAP H10):
 * ``Kernel.launches`` counts Python calls, so a replay counts nothing:
   launch checks run on eager calls.
 
+A function that holds a process group's collectives (a sharded call,
+parallel/sharded.py) is captured the same way, with three more rules
+(ROADMAP H25):
+
+* every rank of the group warms up and captures the same function, so its
+  collectives run in the same order on every rank (H14); the warm-up's
+  first collective creates the NCCL communicator, which must exist before
+  the capture;
+* after the capture the ranks agree that each captured (the caller makes
+  the ``Captured`` under ``parallel.halo.on_every_rank``, one small gather
+  over the group's CPU backend): where a rank's warm-up or capture raised,
+  every rank raises, and no rank waits at its first replay for a peer
+  that never replays;
+* the capture runs in ``torch.cuda.graph``'s default mode, "global",
+  as every other: the NCCL watchdog thread, which polls the events of the
+  warm-up's collectives while the capture runs, does not invalidate it
+  (``chip_smoke.py`` phase 11 holds a capture of a gather open on the
+  host and replays it).
+
+A replay of such a graph is a collective: every rank of the group replays
+its graph, in the same order as its other collectives.
+
 On the CPU, asked for explicitly (``device='cpu'``), there is no graph:
 :class:`Captured` keeps the function and each replay runs it again on the
 same static buffers, so the CPU tests exercise the buffer handling the

@@ -19,6 +19,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 
@@ -448,10 +449,20 @@ def test_cuda_without_a_gpu_raises():
 
 
 def test_a_group_raises():
+    """A group whose CUDA collectives go through the host (gloo) cannot be
+    captured: a compiled call on the card raises ``ValueError`` naming its
+    backend and the one it needs, before any collective and without
+    touching CUDA (a one-rank gloo group in this process)."""
     ops = chains.fm_chain(device="cpu")
-    with pytest.raises(NotImplementedError, match="collectives"):
-        compile_time_batched(ops, broadcast(FM_BLOCK), 1, device="cpu",
-                             group=object())
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError,
+                           match="runs 'gloo'.*'cpu:gloo,cuda:nccl'"):
+            compile_time_batched(ops, broadcast(FM_BLOCK), 1, device="cuda",
+                                 group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_write_back_goes_through_a_temporary_on_overlap():

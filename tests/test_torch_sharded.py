@@ -1,12 +1,21 @@
 """The port's sharded runners over four gloo processes on the CPU, against
 the port's one-process block-parallel run and the JAX package's sharded
-runners (the counterpart of tests/test_parallel.py).
+runners (the counterpart of tests/test_parallel.py), and the compiled
+sharded calls (``compile_time_sharded``, ``compile_channel_sharded``,
+``compile_grid_sharded``, and ``compile_time_batched(group=)`` under
+them) against the eager runners and the JAX package's.
 
 Four worker processes (tests/torch_sharded_worker.py) run every scenario
 once for the module: each rank its span of the inputs made here with
 numpy, on a 4-rank ``"t"`` mesh (time), a ``"c"`` mesh (channels) or the
 2 x 2 ``("c", "t")`` grid.  The JAX references run jitted on a submesh of
-the conftest's virtual CPU devices.
+the conftest's virtual CPU devices.  On the CPU a compiled call keeps its
+function and runs it again on its own buffers (utils/graphs.py), so the
+compiled scenarios hold the buffer handling the card's graphs run: the
+input copied in, the carries entering rank 0's first block and the
+stream's state written back on every rank, the output handed out.  The
+card's capture of the NCCL gathers is checked by ``chip_smoke.py``
+(phase 11, one rank).
 
 Tolerances:
 
@@ -20,7 +29,9 @@ Tolerances:
 * against the JAX package, the bounds the other ``test_torch_*`` files
   hold the same ops to (1e-5 for f32 chains, 2e-5 for the stereo chain,
   1e-6 for ``Mix``, 1e-4 for the wideband filterbank and the FM demod
-  after it, 1e-5 of each frame's peak for FFT frames).
+  after it, 1e-5 of each frame's peak for FFT frames);
+* a compiled call against its eager runner: bitwise on every rank (the
+  same ops on the same inputs).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from sdr_tpu.stream import (Agc as JAgc, Channelize as JChannelize,
                             IqConvertU8 as JIqConvertU8, Mix as JMix,
                             Scale as JScale)
 
+from sdr_tpu_torch.apps import chains
 from sdr_tpu_torch.parallel import halo
 from sdr_tpu_torch.parallel.sharded import run_time_batched
 
@@ -120,6 +132,12 @@ def inputs():
         "halo_b": rng.normal(size=(8, 3)).astype(np.float32),
         "halo_M": (0.5 * rng.normal(size=(8, 3, 2, 2))).astype(np.float32),
         "halo_v": rng.normal(size=(8, 3, 2)).astype(np.float32),
+        # the compiled scenarios' second inputs, and the segments
+        "raw2": u8(WORLD * 2 * 81_920),
+        "raw3": u8(WORLD * 2 * 81_920),
+        "bank_long2": (_fm_bank(4, 2 * 2 * 20_480)
+                       + 0.01 * _cplx(rng, (4, 2 * 2 * 20_480))).astype(
+                           np.complex64),
     }
 
 
@@ -268,11 +286,9 @@ JAX = {
 }
 
 
-def jax_sharded(name, x):
-    """The JAX package's runner of the scenario's mesh, jitted, on the
-    first four virtual CPU devices."""
-    mode = worker.SCENARIOS[name][0]
-    ops = JAX[name][0]()
+def jax_sharded(mode, ops, x):
+    """The JAX package's runner of ``mode``'s mesh over ``ops``, jitted, on
+    the first four virtual CPU devices."""
     if mode == "time":
         mesh = jparallel.make_mesh((WORLD,), ("t",))
         fn = lambda v: jparallel.run_time_sharded(ops, mesh, v)  # noqa
@@ -288,7 +304,8 @@ def jax_sharded(name, x):
 @pytest.mark.parametrize("name", sorted(JAX))
 def test_sharded_matches_jax_sharded(ranks, inputs, name):
     got = joined(ranks, name)
-    want = jax_sharded(name, inputs[worker.SCENARIOS[name][1]])
+    mode, key = worker.SCENARIOS[name][:2]
+    want = jax_sharded(mode, JAX[name][0](), inputs[key])
     assert got.shape == want.shape
     atol = JAX[name][1]
     if atol is None:        # FFT frames: within 1e-5 of each frame's peak
@@ -296,3 +313,130 @@ def test_sharded_matches_jax_sharded(ranks, inputs, name):
         assert err.max() <= 1e-5, err.max()
     else:
         np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+# -- the compiled sharded calls ------------------------------------------
+
+
+def same(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+
+@pytest.mark.parametrize("call", [0, 1])
+@pytest.mark.parametrize("name", sorted(worker.COMPILED))
+def test_compiled_is_the_eager_runner_bitwise(ranks, name, call):
+    """Call 0 on the input the call was compiled on, call 1 after copying
+    the second recording in: every rank's output is the eager runner's on
+    the same span, bit for bit."""
+    for r, out in enumerate(ranks):
+        got, want = out[f"{name}.compiled{call}"], out[f"{name}.eager{call}"]
+        assert same(got, want), (r, np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("name", sorted(worker.COMPILED))
+def test_a_new_input_is_copied_in_once(ranks, name):
+    assert [int(r[f"{name}.input_copies"]) for r in ranks] == [1] * WORLD
+
+
+def _carries(out, form, seg):
+    return [out[k] for k in sorted(
+        (k for k in out if k.startswith(f"segment.{form}{seg}.carry")),
+        key=lambda k: int(k.rsplit("carry", 1)[1]))]
+
+
+@pytest.mark.parametrize("form", worker.SEGMENT_FORMS)
+@pytest.mark.parametrize("seg", [0, 1])
+def test_segmented_compiled_is_the_eager_runner_bitwise(ranks, seg, form):
+    """``am_chain()`` in two segments, the carries entering rank 0's first
+    block and each rank returning its own last block's: the compiled
+    call's outputs and carries are the eager ``run_time_batched(group=)``'s
+    on every rank, bit for bit, whether the second call takes the carries
+    the first returned, none (the stream's state the graph wrote back), or
+    the last rank's."""
+    for r, out in enumerate(ranks):
+        assert same(out[f"segment.{form}{seg}"], out[f"segment.eager{seg}"])
+        got, want = _carries(out, form, seg), _carries(out, "eager", seg)
+        assert len(got) == len(want) > 0
+        assert all(same(a, b) for a, b in zip(got, want)), r
+
+
+@pytest.mark.parametrize("form", worker.SEGMENT_FORMS)
+def test_segmented_copies(ranks, form):
+    """The second call copied its input in, and each carry leaf was
+    copied in once at compile time, and again only where the second call
+    was given other carries than the first returned."""
+    leaves = len(_carries(ranks[0], form, 0))
+    more = leaves if form == "gathered" else 0
+    for out in ranks:
+        assert out[f"segment.{form}.copies"].tolist() == [1, leaves + more]
+
+
+@pytest.mark.parametrize("form", worker.SEGMENT_FORMS)
+def test_segmented_run_is_the_one_process_stream(ranks, inputs, form):
+    """The ranks' two segments joined equal one process over the whole
+    stream with its carries threaded, within 1e-5 (H7)."""
+    ops = chains.am_chain(device="cpu")
+    blocks = WORLD * worker.SEGMENT_BLOCKS
+    first, *rest = worker.SEGMENTS
+    cs, _ = run_time_batched(ops, inputs[first], worker.SEGMENT_BLOCKS,
+                             return_carries=True, device="cpu")
+    for seg, key in enumerate(rest):
+        cs, want = run_time_batched(ops, inputs[key], blocks, carries=cs,
+                                    return_carries=True, device="cpu")
+        got = np.concatenate([r[f"segment.{form}{seg}"] for r in ranks],
+                             axis=-1)
+        assert got.shape == tuple(want.shape)
+        np.testing.assert_allclose(got, want.numpy(), rtol=0,
+                                   atol=PREFIX_ATOL)
+
+
+JAX_COMPILED = {
+    "mono": (lambda: jchains.fm_chain(front="fused", fuse_back=True), 1e-5),
+    "am": JAX["am_planar"],
+}
+
+
+@pytest.mark.parametrize("call", [0, 1])
+@pytest.mark.parametrize("name", sorted(JAX_COMPILED))
+def test_compiled_matches_jax_sharded(ranks, inputs, name, call):
+    """The ranks' compiled outputs joined against the JAX package's
+    ``jax.jit(lambda g: run_time_sharded(...))`` on the same recording."""
+    mode, key = worker.COMPILED[name][:2]
+    make, atol = JAX_COMPILED[name]
+    got = np.concatenate([r[f"{name}.compiled{call}"] for r in ranks],
+                         axis=-1)
+    want = jax_sharded(mode, make(), inputs[key + ("", "2")[call]])
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_unequal_spans_raise_at_compile_time_on_every_rank(ranks):
+    """One rank's span longer than the others': the compile-time shape
+    check raises the same ValueError on every rank."""
+    errors = {str(r["compiled.unequal.error"]) for r in ranks}
+    assert len(errors) == 1
+    error, = errors
+    assert "differ in shape" in error
+    assert "(1024,)" in error and "(1088,)" in error
+
+
+def test_capturable_refuses_a_gloo_group_on_the_card(ranks):
+    """A gloo group runs gloo for CUDA tensors (``group_backend``), so its
+    collectives cannot be captured on the card; on the CPU there is no
+    graph, so any group will do.  No CUDA call is made."""
+    for r in ranks:
+        assert r["capturable"].tolist() == [False, True, True]
+
+
+def test_a_failure_on_one_rank_raises_on_every_rank(ranks):
+    """``on_every_rank``: a step that succeeds everywhere returns each
+    rank's result; one that raises on rank 2 raises there and on every
+    other rank, which names it."""
+    assert [int(r["agree.ok"]) for r in ranks] == list(range(WORLD))
+    for rank, r in enumerate(ranks):
+        text = str(r["agree.fail"])
+        if rank == 2:
+            assert text == "ArithmeticError: rank 2 failed"
+        else:
+            assert text.startswith("RuntimeError: ranks [2] of the group")

@@ -7,9 +7,12 @@ CPU, running the port's sharded runners (sdr_tpu_torch.parallel).
 MODE ``sharded`` (world 4): every scenario of ``SCENARIOS`` on the rank's
 span of the inputs in the ``.npz`` IN (time spans of a 4-rank ``"t"``
 mesh, channel spans of a ``"c"`` mesh, or both on a 2 x 2 grid), then the
-halo helpers on their own; it writes the rank's outputs to the ``.npz``
-OUT, and for a chain the runners refuse, the error's text.  MODE
-``multihost`` (world 2): each rank reads only its span of the recording
+halo helpers on their own, then each scenario of ``COMPILED`` through
+the eager runner and the compiled one (``compile_*_sharded``) on two
+input contents, a segmented run with carries over two calls, and the
+compiled calls' refusals and agreement; it writes the rank's outputs to
+the ``.npz`` OUT, and for a chain the runners refuse, the error's text.
+MODE ``multihost`` (world 2): each rank reads only its span of the recording
 IN through ``host_block_iterator``, runs the mono chain time-sharded, and
 rank 0 writes the joined output of each global block.  STORE is the
 ``file://`` rendezvous of the process group.  Imports torch and the port
@@ -31,12 +34,16 @@ from sdr_tpu_torch.apps import chains
 from sdr_tpu_torch.ops import design
 from sdr_tpu_torch.ops.channelize import channelizer_taps
 from sdr_tpu_torch.parallel import halo
-from sdr_tpu_torch.parallel import (channel_time_mesh, gather_time_sharded,
+from sdr_tpu_torch.parallel import (channel_time_mesh,
+                                    compile_channel_sharded,
+                                    compile_grid_sharded,
+                                    compile_time_sharded, gather_time_sharded,
                                     global_time_sharded, host_block_iterator,
                                     init_distributed, local_time_span,
                                     make_mesh, run_channel_sharded,
-                                    run_grid_sharded, run_time_sharded,
-                                    time_mesh)
+                                    run_grid_sharded, run_time_batched,
+                                    run_time_sharded, time_mesh)
+from sdr_tpu_torch.stream.pipeline import _unflatten, flatten_carries
 from sdr_tpu_torch.stream import (Agc, Channelize, DcBlocker, FftStream, Fir,
                                   FmDemod, Iir, IqConvertU8, Mix, Scale)
 
@@ -111,6 +118,25 @@ SCENARIOS = {
 # the halo helpers' inputs: rows of one stream, 2 a rank
 HALO_ROWS = 2
 
+# name -> (mode, input key, blocks a rank, ops) of the compiled runners,
+# each run on the inputs KEY and KEY + "2"; modes as SCENARIOS'
+COMPILED = {
+    "mono": ("time", "raw", 2, lambda: chains.fm_chain(device=CPU)),
+    "am": ("time", "raw", 2, lambda: chains.am_chain(device=CPU)),
+    "bank_channel": ("channel", "bank_long", 1,
+                     lambda: chains.channelizer_chain(4, device=CPU)),
+    "bank_grid": ("grid", "bank_long", 2,
+                  lambda: chains.channelizer_chain(4, device=CPU)),
+}
+# the segmented run: am_chain() from the carries after SEGMENTS[0] (one
+# process), then over SEGMENTS[1:] time-sharded, 2 blocks a rank
+SEGMENTS = ("raw", "raw2", "raw3")
+SEGMENT_BLOCKS = 2
+# how each compiled segment after the first takes its carries: the ones
+# the call returned passed back, none (the call's own buffers), or the
+# last rank's gathered (copied in)
+SEGMENT_FORMS = ("passed", "none", "gathered")
+
 
 def span(x: np.ndarray, axis: int, index: int, count: int) -> np.ndarray:
     """Part ``index`` of ``count`` equal parts of ``x`` along ``axis``."""
@@ -153,6 +179,123 @@ def halo_outputs(data, group, rank):
             "halo.row0": torch.tensor(halo.first_row(HALO_ROWS, group))}
 
 
+def local_span(mode, x, tmesh, cmesh, grid):
+    """This rank's part of ``x`` on the scenario's mesh."""
+    if mode == "time":
+        off, length = local_time_span(tmesh, x.shape[-1])
+        return torch.from_numpy(np.ascontiguousarray(x[..., off:off + length]))
+    if mode == "channel":
+        return torch.from_numpy(span(x, -2, cmesh.get_local_rank("c"),
+                                     cmesh["c"].size()))
+    c, t = grid.get_local_rank("c"), grid.get_local_rank("t")
+    return torch.from_numpy(np.ascontiguousarray(span(span(
+        x, -2, c, grid["c"].size()), -1, t, grid["t"].size())))
+
+
+def compile_scenario(mode, ops, x, nblocks, tmesh, cmesh, grid):
+    """The compiled runner of ``mode`` on this rank's span ``x``."""
+    if mode == "time":
+        return compile_time_sharded(ops, tmesh, x, nblocks=nblocks,
+                                    device=CPU)
+    if mode == "channel":
+        return compile_channel_sharded(ops, cmesh, x, device=CPU)
+    return compile_grid_sharded(ops, grid, x, nblocks=nblocks, device=CPU)
+
+
+def last_rank_carries(carries, group):
+    """The carries of the group's last rank (the state after the stream's
+    last block), on every rank: what enters the next segment."""
+    return _unflatten(carries, iter([halo.gather_ranks(leaf, group)[-1]
+                                     for leaf in flatten_carries(carries)]))
+
+
+def segmented(data, tmesh, results):
+    """``am_chain()`` over two segments of one stream, each time-sharded
+    over every rank with the carries entering rank 0's first block
+    (seeded by a run over an earlier recording): eagerly
+    (``run_time_batched(group=)``, the last rank's carries threaded into
+    the next segment), and through one compiled call for each of
+    SEGMENT_FORMS."""
+    group = tmesh.get_group("t")
+    ops = chains.am_chain(device=CPU)
+    seed, _ = run_time_batched(ops, data[SEGMENTS[0]], SEGMENT_BLOCKS,
+                               return_carries=True, device=CPU)
+    xs = [local_span("time", data[k], tmesh, None, None)
+          for k in SEGMENTS[1:]]
+
+    def keep(form, i, c, y):
+        results[f"segment.{form}{i}"] = y.clone().numpy()
+        results.update({f"segment.{form}{i}.carry{j}": leaf.clone().numpy()
+                        for j, leaf in enumerate(flatten_carries(c))})
+
+    cs = seed
+    for i, x in enumerate(xs):
+        c, y = run_time_batched(ops, x, SEGMENT_BLOCKS, carries=cs,
+                                return_carries=True, device=CPU, group=group)
+        keep("eager", i, c, y)
+        cs = last_rank_carries(c, group)
+    for form in SEGMENT_FORMS:
+        call = compile_time_sharded(ops, tmesh, xs[0].clone(),
+                                    nblocks=SEGMENT_BLOCKS, carries=seed,
+                                    return_carries=True, device=CPU)
+        c, y = call()
+        keep(form, 0, c, y)
+        cs = {"passed": c, "none": None,
+              "gathered": last_rank_carries(c, group)}[form]
+        c, y = call(xs[1], carries=cs)
+        keep(form, 1, c, y)
+        results[f"segment.{form}.copies"] = np.array([call.input_copies,
+                                                      call.carry_copies])
+
+
+def compiled(rank, world, data, tmesh, cmesh, grid, results):
+    """Each COMPILED scenario eager and compiled on two input contents,
+    the segmented run, then the compiled calls' refusals and agreement."""
+    eager = {"time": lambda ops, x, nb: run_time_sharded(
+                 ops, tmesh, x, nblocks=nb, device=CPU),
+             "channel": lambda ops, x, nb: run_channel_sharded(
+                 ops, cmesh, x, device=CPU),
+             "grid": lambda ops, x, nb: run_grid_sharded(
+                 ops, grid, x, nblocks=nb, device=CPU)}
+    for name, (mode, key, nblocks, make) in COMPILED.items():
+        ops = make()
+        xs = [local_span(mode, data[k], tmesh, cmesh, grid)
+              for k in (key, key + "2")]
+        for i, x in enumerate(xs):
+            results[f"{name}.eager{i}"] = eager[mode](ops, x, nblocks).numpy()
+        call = compile_scenario(mode, ops, xs[0].clone(), nblocks, tmesh,
+                                cmesh, grid)
+        y = call()
+        results[f"{name}.compiled0"] = y.clone().numpy()
+        y = call(xs[1])
+        results[f"{name}.compiled1"] = y.clone().numpy()
+        results[f"{name}.input_copies"] = np.array(call.input_copies)
+    segmented(data, tmesh, results)
+    group = tmesh.get_group("t")
+    # spans of unequal length: the compile-time shape check raises on
+    # every rank, before any capture
+    try:
+        compile_time_sharded([Fir.filter(_fir_taps(), device=CPU)], tmesh,
+                             torch.zeros(1024 + 64 * (rank == world - 1)),
+                             device=CPU)
+    except ValueError as e:
+        results["compiled.unequal.error"] = np.array(str(e))
+    # a gloo group's CUDA collectives go through the host: no capture
+    results["capturable"] = np.array([
+        halo.capturable(group, "cuda"), halo.capturable(group, "cpu"),
+        halo.group_backend(group, "cuda") == "gloo"])
+    # a step that raises on rank 2 only raises on every rank
+    for what, bad in (("agree.ok", None), ("agree.fail", 2)):
+        def step():
+            if rank == bad:
+                raise ArithmeticError(f"rank {rank} failed")
+            return rank
+        try:
+            results[what] = np.array(halo.on_every_rank(step, group, CPU))
+        except (ArithmeticError, RuntimeError) as e:
+            results[what] = np.array(f"{type(e).__name__}: {e}")
+
+
 def sharded(rank, world, inp, out):
     data = np.load(inp)
     tmesh = time_mesh(device_type=CPU)
@@ -176,6 +319,7 @@ def sharded(rank, world, inp, out):
                          device=CPU)
     except ValueError as e:
         results["unequal.error"] = np.array(str(e))
+    compiled(rank, world, data, tmesh, cmesh, grid, results)
     np.savez(out, **results)
 
 
