@@ -5680,12 +5680,13 @@ def compiled_chain(name: str, seed: int, device, card: str) -> dict:
     replay with ``set_sync_debug_mode('error')``; both spans and both
     ``queued_split``s in turns (eager, compiled, compiled, eager); the
     device bytes an eager call and a replay allocate and the bytes the
-    graph's pool holds; an on-card recording's copy into the input."""
+    graph's pool holds; an on-card recording's copy into the input; the
+    call built with tracing on, its stages timed inside the graph."""
     from sdr_tpu_torch.parallel.sharded import (compile_time_batched,
                                                 run_time_batched)
-    from sdr_tpu_torch.profile_fm import queued_split, span_ms
+    from sdr_tpu_torch.profile_fm import queued_split, span_ms, stage_split
     from sdr_tpu_torch.stream.pipeline import flatten_carries
-    from sdr_tpu_torch.utils import graphs
+    from sdr_tpu_torch.utils import graphs, profiling
 
     ops, raw, nb = compiled_inputs(name, seed, device)
     _, raw2, _ = compiled_inputs(name, seed + 1, device)
@@ -5764,12 +5765,28 @@ def compiled_chain(name: str, seed: int, device, card: str) -> dict:
     # process(parallel_blocks=) pays a segment on the card)
     copy_in = queued_split(lambda: call.x.copy_(raw2))["device_ms"]
     del call
+    # built with tracing on: the same output and device kernels (each
+    # stage boundary is an event-record node, no kernel), and the stages'
+    # device ms inside the graph summing to the call's span between
+    # events outside it, within 3 %
+    with profiling.tracing():
+        traced = compile_time_batched(ops, raw, nb)
+    require(same_bits(traced(), eager),
+            f"compiled {name}: the replay built traced != the eager call")
+    traced_kernels = device_kernels(traced, "")
+    require(traced_kernels == replay_kernels, f"compiled {name}: built "
+            f"traced, the replay's kernels {traced_kernels} != "
+            f"{replay_kernels}")
+    staged = stage_split(traced)
+    require(abs(staged["sum_share"] - 1) <= 0.03, f"compiled {name}: the "
+            f"stages sum to {staged['sum_share']} of the call's span")
+    del traced
     torch.cuda.empty_cache()
     rec = {"chain": name, "blocks": nb, "input": list(raw.shape),
            "capture_ms": capture_ms, "eager_call_bytes": eager_bytes,
            "replay_bytes": replay_bytes, "pool_bytes": pool,
            "copy_in_device_ms": copy_in, "kernels": replay_kernels,
-           "card": card}
+           "stages": staged, "card": card}
     for label, runs in turns.items():
         for i, r in enumerate(runs):
             for k, v in r.items():
@@ -5787,7 +5804,9 @@ def compiled_chain(name: str, seed: int, device, card: str) -> dict:
           f"{[r['enqueue_ms'] for r in turns['compiled']]} ms; device "
           f"bytes an eager call allocates {eager_bytes}, a replay "
           f"{replay_bytes}, the graph's pool holds {pool}; the input copied "
-          f"in on the card {copy_in} ms; {card}")
+          f"in on the card {copy_in} ms; built traced, the same kernels "
+          f"and its stages summing to {staged['sum_share']:.4f} of the "
+          f"call's span: {staged['stage_ms']}; {card}")
     return rec
 
 

@@ -6,11 +6,17 @@ cosine, scipy's Parks-McClellan ``remez``, and a linear-phase FIR's
 magnitude response (``frequency_response``, ``plot_frequency``).  The
 arithmetic is the JAX package's, step for step, so the windows and
 ``fm_taps`` are bitwise the same.
+
+Every design the chains run (``remez``, scipy's import included, and
+``windowed_sinc``) is the set-up span ``design``, counted in
+``profiling.totals()``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from sdr_tpu_torch.utils.profiling import setup
 
 __all__ = ["sinc", "hanning", "hamming", "blackman", "windowed_sinc",
            "srrc", "remez", "frequency_response", "plot_frequency"]
@@ -46,13 +52,15 @@ def blackman(size: int) -> np.ndarray:
 
 def windowed_sinc(size: int, cutoff: float, window=hanning) -> np.ndarray:
     """Windowed-sinc FIR design."""
-    return (sinc(size, cutoff) * window(size)).astype(np.float32)
+    with setup("design"):
+        return (sinc(size, cutoff) * window(size)).astype(np.float32)
 
 
 def remez(numtaps: int, bands, desired, fs: float = 2.0) -> np.ndarray:
     """Parks-McClellan equiripple design (scipy.signal.remez conventions)."""
-    from scipy.signal import remez as _remez
-    return _remez(numtaps, bands, desired, fs=fs).astype(np.float32)
+    with setup("design"):
+        from scipy.signal import remez as _remez
+        return _remez(numtaps, bands, desired, fs=fs).astype(np.float32)
 
 
 def srrc(n: int, ts: int, beta: float) -> np.ndarray:

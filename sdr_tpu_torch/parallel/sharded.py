@@ -54,8 +54,10 @@ from sdr_tpu_torch.stream.pipeline import (Pipeline, StaticCarries,
                                            _clone_tree, _unflatten,
                                            as_input, as_tensor,
                                            flatten_carries)
+from sdr_tpu_torch.utils import profiling
 from sdr_tpu_torch.utils.device import resolve_device
 from sdr_tpu_torch.utils.graphs import Captured, new_pool
+from sdr_tpu_torch.utils.profiling import Stages, span, stage
 
 __all__ = ["time_sharded_fn", "run_time_batched", "compile_time_batched",
            "CompiledBatched", "run_time_sharded",
@@ -66,7 +68,7 @@ _MAX_DIMS = 8       # dims of a local input the shape check carries
 
 
 def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
-                    return_carries: bool = False, group=None):
+                    return_carries: bool = False, group=None, stages=None):
     """``fn(xb[B, *lead, n]) -> y[B, *lead, ...per-block output]`` running
     the chain block-parallel.
 
@@ -75,6 +77,9 @@ def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
     ``(carries, y)`` with each op's carry after every row, stacked on the
     [B] axis.  ``group``: the process group whose ranks hold consecutive
     batches of the stream (none: this batch is the whole stream).
+    ``stages``: the call's :class:`~sdr_tpu_torch.utils.profiling.Stages`
+    (:func:`batched_stages`), whose ``<i>.<Op>.carry`` and
+    ``<i>.<Op>.apply`` stages ``fn`` runs, or None.
 
     Raises ``ValueError`` before running anything, so before any
     collective and on every rank, when an op has no block-parallel form
@@ -91,13 +96,26 @@ def time_sharded_fn(ops: Sequence[StreamOp], initials=None,
     def fn(xb):
         new = []
         for i, op in enumerate(ops):
-            carry = op.shard_carry(xb, None if initials is None
-                                   else initials[i], group)
-            c2, xb = op.apply(carry, xb)
+            with stage(stages):             # <i>.<Op>.carry
+                carry = op.shard_carry(xb, None if initials is None
+                                       else initials[i], group)
+            with stage(stages):             # <i>.<Op>.apply
+                c2, xb = op.apply(carry, xb)
             new.append(c2)
         return (new, xb) if return_carries else xb
 
     return fn
+
+
+def batched_stages(ops, device) -> Stages | None:
+    """The stages of a block-parallel call while tracing is on (else
+    None): ``input`` (the rows' reshape and copy), each op's ``carry`` and
+    ``apply``, ``output`` (the restack, and the carries' last row and
+    write-back)."""
+    if not profiling.enabled():
+        return None
+    return Stages(["input", *profiling.op_stages(ops, carried=True),
+                   "output"], device)
 
 
 def _last_row(tree):
@@ -172,9 +190,11 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     group's ranks hold in rank order, all of one shape (checked); the
     output is this rank's span of the whole run's, and ``carries`` enter
     the stream's first block (rank 0's row 0)."""
-    fn = time_sharded_fn(ops, initials=carries,
-                         return_carries=return_carries, group=group)
     device = resolve_device(device)
+    stages = batched_stages(ops, device)
+    fn = time_sharded_fn(ops, initials=carries,
+                         return_carries=return_carries, group=group,
+                         stages=stages)
     x = as_input(x, device)
     if group is not None:
         _require_equal_shapes(x, group)
@@ -183,14 +203,17 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
         raise ValueError(f"signal length {n} not divisible by {nblocks}")
     t_axis = Pipeline(ops, block_in=n // nblocks, batch_shape=lead,
                       in_dtype=x.dtype, device=device).time_axis_out
-    # [B, *lead, n]: the kernels take contiguous rows (a copy only when
-    # there are leading dims and more than one block)
-    xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
-    out = fn(xb.contiguous())
-    if not return_carries:
-        return _restack(out, t_axis)
-    cb, yb = out
-    return _last_row(cb), _restack(yb, t_axis)
+    with stage(stages):                     # input
+        # [B, *lead, n]: the kernels take contiguous rows (a copy only
+        # when there are leading dims and more than one block)
+        xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
+        xb = xb.contiguous()
+    out = fn(xb)
+    with stage(stages):                     # output
+        if not return_carries:
+            return _restack(out, t_axis)
+        cb, yb = out
+        return _last_row(cb), _restack(yb, t_axis)
 
 
 def _write_spans(x: torch.Tensor, parts) -> None:
@@ -226,6 +249,12 @@ class CompiledBatched:
     Made without, the stream starts from its warm-up state at every call,
     and returned carries are fresh copies.
 
+    Built while tracing is on (``profiling.tracing()``), the call times its
+    stages inside the graph at every replay (:func:`batched_stages`), and
+    :meth:`stage_ms` reads them.  While tracing is on, a call is the span
+    ``call``, with ``call.copy_in`` (an input or carries copied in) and
+    ``call.replay`` inside it.
+
     Made with ``group``, the call is this rank's part of a sharded call
     (``run_time_batched(group=)``): the graph holds the group's gathers,
     ``carries`` enter the stream's first block (rank 0's row 0), and
@@ -255,26 +284,30 @@ class CompiledBatched:
         self._returned = None       # the own rows the last call returned
         t_axis = Pipeline(ops, block_in=n // nblocks, batch_shape=lead,
                           in_dtype=x.dtype, device=device).time_axis_out
+        self.stages = stages = batched_stages(ops, device)
         fn = time_sharded_fn(
             ops, initials=None if self.static is None else _unflatten(
                 self.static.tree, iter(self.static.bufs)),
-            return_carries=return_carries, group=group)
+            return_carries=return_carries, group=group, stages=stages)
         static = self.static
 
         def call():
-            xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
-            out = fn(xb.contiguous())
-            if not return_carries:
-                return _restack(out, t_axis), None
-            cb, yb = out
-            last = _last_row(cb)
-            if static is None:
+            with stage(stages):             # input
+                xb = x.reshape(lead + (nblocks, n // nblocks)).movedim(-2, 0)
+                xb = xb.contiguous()
+            out = fn(xb)
+            with stage(stages):             # output
+                if not return_carries:
+                    return _restack(out, t_axis), None
+                cb, yb = out
+                last = _last_row(cb)
+                if static is None:
+                    return _restack(yb, t_axis), last
+                if group is None:
+                    static.write(last)
+                    return _restack(yb, t_axis), None
+                static.write(_from_last_rank(last, group))
                 return _restack(yb, t_axis), last
-            if group is None:
-                static.write(last)
-                return _restack(yb, t_axis), None
-            static.write(_from_last_rank(last, group))
-            return _restack(yb, t_axis), last
 
         def capture():
             return Captured(call, device, pool, mutated=(
@@ -295,7 +328,34 @@ class CompiledBatched:
         _write_spans(self.x, [as_tensor(p) for p in parts])
         self.input_copies += len(parts)
 
+    def stage_ms(self) -> dict | None:
+        """``{stage: ms}`` of the last replay that finished (it waits for
+        it): read after a call and before the next, which records into
+        the same events.  None for a call built with tracing off."""
+        return None if self.stages is None else self.stages.ms()
+
     def __call__(self, x=None, carries=None):
+        if profiling.enabled():
+            return self._traced(x, carries)
+        if x is not None or carries is not None:
+            self._copy_in(x, carries)
+        y, last = self.graph.replay()
+        return self._result(y, last) if self.return_carries else y
+
+    def _traced(self, x, carries):
+        """The call as the span ``call``, holding ``call.copy_in`` (where
+        anything is copied in) and ``call.replay``."""
+        with span("call"):
+            if (x is not None and x is not self.x) or carries is not None:
+                with span("call.copy_in"):
+                    self._copy_in(x, carries)
+            with span("call.replay"):
+                out = self.graph.replay()
+            return self._result(*out)
+
+    def _copy_in(self, x, carries) -> None:
+        """``x`` (unless it is :attr:`x`) and ``carries`` into the call's
+        buffers."""
         if x is not None and x is not self.x:
             x = as_tensor(x)
             if tuple(x.shape) != tuple(self.x.shape) or \
@@ -311,7 +371,8 @@ class CompiledBatched:
                                  "them: compile with carries=")
             if not self._continues(carries):
                 self.static.load(carries)
-        y, last = self.graph.replay()
+
+    def _result(self, y, last):
         if not self.return_carries:
             return y
         if self.static is None:

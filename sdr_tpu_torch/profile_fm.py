@@ -26,14 +26,26 @@ before it), then in one process:
    capture's time, its memory pool's bytes and the host time of the
    graph's launch alone (``cudaGraphLaunch``), in turns with the eager
    call (eager, compiled, compiled, eager);
-2. ``REPS`` calls under ``torch.profiler``: the device time of each kernel
-   by name and their sum (busy), the kernels a call (the profiler's count,
-   memsets included), the device time of the PyTorch ops each
-   stream op's ``shard_carry`` and ``apply`` launch (a ``record_function``
-   range around each, set up here; the port's own kernels are launched
-   through ctypes, which the profiler does not link to a range, so they
-   count only by name), and the profiled wall time, which carries the
-   profiler's own overhead;
+2. with tracing on (``utils/profiling.py``): ``REPS`` eager calls under
+   ``torch.profiler``: the device time of each kernel by name and their
+   sum (busy), the kernels a call (the profiler's count, memsets
+   included), the device time of the PyTorch ops each stage of the call
+   launches (the program's ``sdr.<stage>`` ranges: ``input``, each op's
+   ``<i>.<Op>.carry`` and ``.apply``, ``output``; the port's own kernels
+   are launched through ctypes, which the profiler does not link to a
+   range, so they count only by name), and the profiled wall time, which
+   carries the profiler's own overhead; then the compiled call built with
+   tracing on (:func:`stage_split`): each stage's device time inside the
+   graph (``stage_ms()``), ``STAGE_REPS`` calls each queued behind a
+   device-side sleep, their sum against CUDA events around the call; the
+   cost of the stage events and host spans (:func:`tracing_cost`: device
+   and enqueue ms of the call built with tracing off and on, in turns);
+   and ``REPS`` compiled calls, two in flight, under the profiler
+   (:func:`call_gaps`): the card's idle gaps, each labelled by the
+   innermost program span (``sdr.*``) open on the host at its start, and
+   the share of the window the card idled inside the host's ``call``
+   span; the set-up totals (``profiling.totals()``: ``design``,
+   ``capture``);
 3. one call under ``cProfile``: the host functions that take the most
    time;
 4. each stream op alone (its ``shard_carry`` and ``apply`` on the batch
@@ -57,16 +69,15 @@ deemphasis=75e-6)``, ``stereo_fused``: the same with its back half on K5
 ``channelizer_chain(64)``.  No
 chain's work depends on the data but through the stereo pilot lock,
 which gates no kernel.  Needs a CUDA GPU.  The script reads only the
-package's public chains and runners, so a copy of it in another
-checkout (an earlier commit's, unpacked with ``git archive``) times that
-package with the same measurement.
+package's public chains, runners and tracing, so a copy of it in another
+checkout that has them (an earlier commit's, unpacked with ``git
+archive``) times that package with the same measurement.
 """
 
 from __future__ import annotations
 
 import argparse
 import cProfile
-import functools
 import io
 import json
 import pstats
@@ -76,18 +87,22 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from sdr_tpu_torch.apps.chains import (am_chain, channelizer_chain,
                                        fm_chain, fm_taps, waterfall_chain)
 from sdr_tpu_torch.kernels import KERNELS
 from sdr_tpu_torch.measure_ceilings import card_line
-from sdr_tpu_torch.parallel.sharded import run_time_batched
+from sdr_tpu_torch.parallel.sharded import (compile_time_batched,
+                                             run_time_batched)
 from sdr_tpu_torch.stream import ResampleFirScale
+from sdr_tpu_torch.utils import profiling
 from sdr_tpu_torch.utils.roofline import chain_roofline
 
 ROWS, ROW_BYTES = 32, 10_485_760      # the block-parallel main path
 REPS = 20
+STAGE_REPS = 64
+GAP_WARMUP = 16     # profiled calls before call_gaps' window opens
 SPLIT_REPS, SPLIT_SLEEP_CYCLES = 5, 200_000_000     # ~0.1 s head start
 
 
@@ -159,7 +174,6 @@ def queued_split(fn, reps: int = SPLIT_REPS) -> dict:
 def time_compiled(ops, raw, nblocks: int):
     """The compiled block-parallel call beside the eager one: ``(capture
     ms, bitwise equal to the eager call, pool bytes, the call)``."""
-    from sdr_tpu_torch.parallel.sharded import compile_time_batched
     from sdr_tpu_torch.utils.graphs import pool_bytes
     t0 = time.perf_counter()
     call = compile_time_batched(ops, raw, nblocks)
@@ -181,22 +195,136 @@ def span_ms(fn) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
-def _ranged(label, fn, *args):
-    with record_function(label):
-        return fn(*args)
+def op_ms(stages: dict | None, op: str) -> float | None:
+    """The ms of the stages of the ops of class ``op`` (``<i>.<op>.carry``
+    and ``.apply``) in ``stages`` (a ``stage_ms()``), matched by class
+    name, not index; None where there is none, or no stages."""
+    got = [ms for name, ms in (stages or {}).items()
+           if name.split(".")[1:2] == [op]]
+    return sum(got) if got else None
 
 
-def label_ops(ops) -> list:
-    """Wrap each op's ``shard_carry`` and ``apply`` in a profiler range
-    named ``<i> <Op>.<method>`` (on the instances; nothing else changes)."""
-    labels = []
-    for i, op in enumerate(ops):
-        for meth in ("shard_carry", "apply"):
-            label = f"{i} {type(op).__name__}.{meth}"
-            setattr(op, meth, functools.partial(_ranged, label,
-                                                getattr(op, meth)))
-            labels.append(label)
-    return labels
+def runner_ms(stages: dict | None) -> float | None:
+    """The ms of the stages the block-parallel runner adds over a
+    streamed run: ``input``, ``output`` and every op's ``carry`` (so an
+    op's carry counts both here and in :func:`op_ms`); None without
+    stages or without ``input``."""
+    if not stages or "input" not in stages:
+        return None
+    return sum(ms for name, ms in stages.items()
+               if name in ("input", "output") or name.endswith(".carry"))
+
+
+def idle_gaps(device, host) -> dict | None:
+    """The card's idle gaps from the first ``call`` span's start to the
+    last device record's end: ``device`` the records' ``(start, end)``,
+    ``host`` the program's spans ``(name, start, end)`` (us, one clock).
+    Each gap is labelled by the innermost span open at its start
+    (``outside`` where none is); ``call_idle_share`` is the share of the
+    window in which the card idled while a ``call`` span was open.  None
+    without a ``call`` span or a device record."""
+    inside = sorted((s, e) for n, s, e in host if n == "call")
+    if not inside or not device:
+        return None
+    device = sorted(device)
+    lo, hi = inside[0][0], max(e for _, e in device)
+    gaps, end = [], lo
+    for s, e in device:
+        if s > end:
+            gaps.append((end, s))
+        end = max(end, e)
+    labelled, idle = [], 0.0
+    for a, b in gaps:
+        open_ = [(e - s, n) for n, s, e in host if s <= a < e]
+        labelled.append((min(open_)[1] if open_ else "outside",
+                         (b - a) / 1e3))
+        idle += sum(max(0.0, min(b, e) - max(a, s)) for s, e in inside)
+    return {"window_ms": (hi - lo) / 1e3,
+            "idle_ms": sum(ms for _, ms in labelled),
+            "call_idle_share": idle / (hi - lo),
+            "gaps": sorted(labelled, key=lambda g: -g[1])[:10]}
+
+
+def stage_split(call, reps: int = STAGE_REPS) -> dict:
+    """A compiled call built with tracing on: medians over ``reps`` calls,
+    each queued behind a device-side sleep, of each stage's device ms
+    (``call.stage_ms()``), of the stages' sum and of the call's span
+    between CUDA events recorded around it outside the graph, the median
+    of each call's sum over its span (``sum_share``), and the medians of
+    :func:`runner_ms` and of each op class's :func:`op_ms`."""
+    stages, sums, outside = [], [], []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        a.record()
+        call()
+        b.record()
+        b.synchronize()
+        ms = call.stage_ms()
+        stages.append(ms)
+        sums.append(sum(ms.values()))
+        outside.append(a.elapsed_time(b))
+    classes = dict.fromkeys(name.split(".")[1] for name in stages[0]
+                            if name.count(".") == 2)
+    return {"stage_ms": {k: float(np.median([m[k] for m in stages]))
+                         for k in stages[0]},
+            "sum_ms": float(np.median(sums)),
+            "outside_ms": float(np.median(outside)),
+            "sum_share": float(np.median([s / o for s, o in
+                                          zip(sums, outside)])),
+            "runner_ms": float(np.median([runner_ms(m) for m in stages])),
+            "op_ms": {op: float(np.median([op_ms(m, op) for m in stages]))
+                      for op in classes}}
+
+
+def tracing_cost(off, on) -> dict:
+    """:func:`queued_split` of a compiled call built with tracing off and
+    of one built with it on (called with tracing on: its host spans
+    too), in turns (off, on, on, off)."""
+    def traced():
+        with profiling.tracing():
+            return on()
+
+    turns = [(label, queued_split(fn)) for label, fn in
+             (("off", off), ("on", traced), ("on", traced), ("off", off))]
+    return {label: {k: [q[k] for lab, q in turns if lab == label]
+                    for k in ("device_ms", "enqueue_ms")}
+            for label in ("off", "on")}
+
+
+def call_gaps(call, reps: int = REPS) -> dict:
+    """``reps`` calls of a compiled call, two in flight, with tracing on
+    under ``torch.profiler``, after ``GAP_WARMUP`` more (the first
+    launches under a profiler pay its start-up): :func:`idle_gaps` of the
+    card's records against the program's spans, from the first call
+    after the warm-up."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            profiling.tracing():
+        pending = []
+        for _ in range(GAP_WARMUP + reps):
+            if len(pending) == 2:
+                pending.pop(0).synchronize()
+            call()
+            e = torch.cuda.Event()
+            e.record()
+            pending.append(e)
+        torch.cuda.synchronize()
+    device, host = [], []
+    for e in prof.events():
+        tr = e.time_range
+        if e.name.startswith("sdr."):
+            # the profiler shows each range on the device's timeline too,
+            # as an annotation: no device work
+            if e.device_type == DeviceType.CPU:
+                host.append((e.name[4:], tr.start, tr.end))
+        elif e.device_type == DeviceType.CUDA:
+            device.append((tr.start, tr.end))
+    start = sorted(s for n, s, _ in host if n == "call")[GAP_WARMUP]
+    return idle_gaps([d for d in device if d[0] >= start],
+                     [h for h in host if h[1] >= start])
 
 
 def stage_times(ops, x, nblocks: int) -> list:
@@ -279,25 +407,31 @@ def main(argv=None) -> int:
           f"(eager first, above): " + "; ".join(
               f"{label} span {ms} ms, device {q['device_ms']} ms, "
               f"enqueue {q['enqueue_ms']} ms" for label, ms, q in turns))
+    with profiling.tracing():
+        traced = compile_time_batched(ops, raw, nblocks)
+    staged = stage_split(traced)
+    cost = tracing_cost(call, traced)
     del call
+    gaps = call_gaps(traced)
+    del traced
     torch.cuda.empty_cache()
 
-    labels = label_ops(ops)
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            profiling.tracing():
         t0 = time.perf_counter()
         for _ in range(REPS):
             run_time_batched(ops, raw, nblocks)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / REPS * 1e3
-    kernels, by_op = {}, {}
+    kernels, by_stage = {}, {}
     for e in prof.key_averages():
-        if e.key in labels:
+        if e.key.startswith("sdr."):
             # the range on the host holds the device time of the PyTorch
             # ops it launched; the profiler also records each range on the
             # device's timeline, which is not a kernel
             if e.device_type == DeviceType.CPU:
-                by_op[e.key] = e.device_time_total / 1e3 / REPS
+                by_stage[e.key[4:]] = e.device_time_total / 1e3 / REPS
         elif e.device_type == DeviceType.CUDA:
             kernels[e.key] = (e.self_device_time_total / 1e3 / REPS,
                               e.count / REPS)
@@ -319,11 +453,27 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:10.4f} ms  x{n:g}  {name[:100]}")
-    print("device time of the PyTorch ops each stream op launches (the "
-          "port's kernels, launched through ctypes, are not linked to a "
-          "range; they are listed by name above):")
-    for label in labels:
-        print(f"  {by_op.get(label, 0.0):10.4f} ms  {label}")
+    print("device time of the PyTorch ops each stage of the eager call "
+          "launches (the port's kernels, launched through ctypes, are not "
+          "linked to a range; they are listed by name above):")
+    for stage, ms in by_stage.items():
+        print(f"  {ms:10.4f} ms  {stage}")
+    print(f"the compiled call's stages inside the graph (median of "
+          f"{STAGE_REPS} calls): sum {staged['sum_ms']:.4f} ms against "
+          f"{staged['outside_ms']:.4f} ms between events outside it "
+          f"(each call's sum over its span: {staged['sum_share']:.4f})")
+    for stage, ms in staged["stage_ms"].items():
+        print(f"  {ms:10.4f} ms  {stage}")
+    print(f"  runner (input, output, every carry) {staged['runner_ms']:.4f}"
+          f" ms; by op class {staged['op_ms']}")
+    print(f"tracing's cost: device ms off {cost['off']['device_ms']}, on "
+          f"{cost['on']['device_ms']}; enqueue ms off "
+          f"{cost['off']['enqueue_ms']}, on {cost['on']['enqueue_ms']}")
+    print(f"the compiled call's idle gaps, two in flight: "
+          f"{gaps['idle_ms']:.4f} of {gaps['window_ms']:.4f} ms, inside "
+          f"the host's call span {100 * gaps['call_idle_share']:.3f} %; "
+          f"the longest, by the innermost program span: {gaps['gaps']}")
+    print(f"set-up totals (s): {profiling.totals()}")
     print(s.getvalue())
     print("each op alone, device time beside its floor (H100 SXM data "
           "sheet):")
@@ -337,7 +487,9 @@ def main(argv=None) -> int:
                       "span_ms": span, "device_busy_ms": busy,
                       "compiled": compiled,
                       "idle_share": 1 - busy / span, "queued": split,
-                      "profiled_wall_ms": wall, "ops_ms": by_op,
+                      "profiled_wall_ms": wall, "stages_eager_ms": by_stage,
+                      "stages_compiled": staged, "tracing_cost": cost,
+                      "call_gaps": gaps, "setup_totals": profiling.totals(),
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
                       "kernels_per_call": sum(n for _, n in
                                               kernels.values()),

@@ -37,8 +37,10 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.stream.block import StreamOp
+from sdr_tpu_torch.utils import profiling
 from sdr_tpu_torch.utils.device import resolve_device
 from sdr_tpu_torch.utils.graphs import Captured, new_pool, write_back
+from sdr_tpu_torch.utils.profiling import Stages, span, stage
 
 __all__ = ["Pipeline", "CompiledStep", "as_input", "flatten_carries",
            "CAPTURE_AT"]
@@ -130,11 +132,14 @@ class StaticCarries:
         return self.returned
 
 
-def _apply(ops, carries, x):
-    """One block through ``ops`` eagerly, threading each op's carry."""
+def _apply(ops, carries, x, stages=None):
+    """One block through ``ops`` eagerly, threading each op's carry;
+    ``stages``: the call's ``profiling.Stages``, whose ``<i>.<Op>.apply``
+    stages this runs, or None."""
     new = []
     for op, c in zip(ops, carries):
-        c, x = op.apply(c, x)
+        with stage(stages):                 # <i>.<Op>.apply
+            c, x = op.apply(c, x)
         new.append(c)
     return new, x
 
@@ -161,6 +166,13 @@ class CompiledStep:
     that are not the step's buffers: ``init()``, ``restore()``,
     ``carries_from_numpy``).
 
+    A shape captured while tracing is on (``profiling.tracing()``) times
+    its stages inside the graph at every replay, each op's
+    ``<i>.<Op>.apply`` and ``output`` (the carries' write-back), and
+    :meth:`stage_ms` reads them.  While tracing is on, a call is the span
+    ``call``, with ``call.copy_in`` (the block and carries copied in) and
+    ``call.replay`` inside it.
+
     The step holds the chain's ops, its device and its graphs' memory
     pool, not the pipeline: dropping the pipeline and the step frees the
     graphs and their pool at once."""
@@ -173,7 +185,9 @@ class CompiledStep:
         self.donate = bool(donate)
         self.capture_at = int(capture_at)
         self._calls = {}        # (shape, dtype) -> (input, carries, Captured)
+        self._staged = {}       # (shape, dtype) -> Stages, captured traced
         self._seen = {}         # (shape, dtype) -> eager calls made
+        self._stages = None     # the Stages of the last shape replayed
         self.input_copies = 0
         self.eager_calls = 0
 
@@ -181,23 +195,42 @@ class CompiledStep:
     def carry_copies(self) -> int:
         return sum(c.copies for _, c, _ in self._calls.values())
 
-    def _capture(self, carries, x: torch.Tensor):
+    def stage_ms(self) -> dict | None:
+        """``{stage: ms}`` of the last replay that finished (it waits for
+        it): read after a call and before the next, which records into
+        the same events.  None where that shape was captured with tracing
+        off, or nothing was replayed."""
+        return None if self._stages is None else self._stages.ms()
+
+    def _capture(self, key, carries, x: torch.Tensor):
         ops = self.ops
         xin = torch.empty(x.shape, dtype=x.dtype, device=self.device)
         xin.copy_(x)
         self.input_copies += 1
         static = StaticCarries(carries, self.device)
+        stages = None
+        if profiling.enabled():
+            stages = self._staged[key] = Stages(
+                [*profiling.op_stages(ops, carried=False), "output"],
+                self.device)
 
         def step():
             new, y = _apply(ops, _unflatten(static.tree, iter(static.bufs)),
-                            xin)
-            static.write(new)
+                            xin, stages)
+            with stage(stages):             # output
+                static.write(new)
             return y
 
         return xin, static, Captured(step, self.device, self.pool,
                                      mutated=static.bufs)
 
     def __call__(self, carries, x):
+        if profiling.enabled():
+            with span("call"):
+                return self._call(carries, x)
+        return self._call(carries, x)
+
+    def _call(self, carries, x):
         x = as_tensor(x)
         key = (tuple(x.shape), x.dtype)
         call = self._calls.get(key)
@@ -207,15 +240,18 @@ class CompiledStep:
                 self._seen[key] = seen + 1
                 self.eager_calls += 1
                 return _apply(self.ops, carries, as_input(x, self.device))
-            call = self._calls[key] = self._capture(carries, x)
+            call = self._calls[key] = self._capture(key, carries, x)
         else:
             xin, static, _ = call
-            static.load(carries)
-            xin.copy_(x)
+            with span("call.copy_in"):
+                static.load(carries)
+                xin.copy_(x)
             self.input_copies += 1
         _, static, graph = call
-        y = graph.replay().clone()
-        return static.result(self.donate), y
+        self._stages = self._staged.get(key)
+        with span("call.replay"):
+            y = graph.replay()
+        return static.result(self.donate), y.clone()
 
 
 class Pipeline:
@@ -311,8 +347,11 @@ class Pipeline:
 
     def apply(self, carries, x):
         """One block through the whole chain, eagerly: each op's kernels
-        enqueued from Python (the compiled step's function)."""
-        return _apply(self.ops, carries, x)
+        enqueued from Python (the compiled step's function).  While
+        tracing is on, each op's ``<i>.<Op>.apply`` is a span."""
+        stages = (Stages(profiling.op_stages(self.ops, carried=False),
+                         self.device) if profiling.enabled() else None)
+        return _apply(self.ops, carries, x, stages)
 
     def jit_step(self, donate: bool = True) -> CompiledStep:
         """The compiled single-block step, ``step(carries, x) -> (carries,

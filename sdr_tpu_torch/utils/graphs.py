@@ -53,6 +53,10 @@ parallel/sharded.py) is captured the same way, with three more rules
 A replay of such a graph is a collective: every rank of the group replays
 its graph, in the same order as its other collectives.
 
+The making of a ``Captured`` is the set-up span ``capture`` (its
+warm-up runs ``capture.warmup``, the capture itself ``capture.graph``),
+counted in ``profiling.totals()``.
+
 On the CPU, asked for explicitly (``device='cpu'``), there is no graph:
 :class:`Captured` keeps the function and each replay runs it again on the
 same static buffers, so the CPU tests exercise the buffer handling the
@@ -64,6 +68,8 @@ from __future__ import annotations
 import gc
 
 import torch
+
+from sdr_tpu_torch.utils import profiling
 
 __all__ = ["Captured", "keep", "new_pool", "pool_bytes", "write_back",
            "WARMUP"]
@@ -140,8 +146,9 @@ class Captured:
         self.graph = None
         self.outputs = None
         self._kept = []
-        if self.device.type == "cuda":
-            self._capture(pool, list(mutated))
+        with profiling.setup("capture"):
+            if self.device.type == "cuda":
+                self._capture(pool, list(mutated))
         captures += 1
 
     def _capture(self, pool, mutated) -> None:
@@ -152,7 +159,7 @@ class Captured:
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(current)
-            with torch.cuda.stream(side):
+            with profiling.setup("capture.warmup"), torch.cuda.stream(side):
                 for _ in range(WARMUP):
                     self.fn()
                 for t, s in zip(mutated, saved):
@@ -165,7 +172,8 @@ class Captured:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=pool):
+                with profiling.setup("capture.graph"), \
+                        torch.cuda.graph(graph, pool=pool):
                     self.outputs = self.fn()
             finally:
                 if collecting:

@@ -1,38 +1,263 @@
-"""Tracing and timing helpers on ``torch.profiler`` (counterpart of
-sdr_tpu/utils/profiling.py).
+"""The port's tracing, and timing helpers on ``torch.profiler``
+(counterpart of sdr_tpu/utils/profiling.py).
 
-``trace`` names a region in a profile, ``profile`` records one around a
-block of code and writes it under a directory (open it in Perfetto or
-``chrome://tracing``), and ``timed`` reports a region's wall time after
-waiting for the card.
+Tracing is off by default and costs one flag check a span while it is
+off.  :func:`tracing` turns it on for a block (so does :func:`profile`).
+While it is on:
+
+* each span (:func:`trace`, a caller's region; :func:`span`, the
+  program's own at its layer boundaries) records its name, its start and
+  end on the host's ``perf_counter_ns``, its parent span and the compiled
+  call's index (``graphs.replays`` at its start: spans of one call share
+  it) into a bounded buffer that :func:`spans` returns and :func:`clear`
+  empties, and, while ``torch.profiler`` records, is emitted as a
+  ``record_function`` range on the profiler's clock: ``<name>`` for a
+  caller's region, ``sdr.<name>`` for the program's;
+* a call built while it is on times its stages (:class:`Stages`): a
+  CUDA event at each stage boundary, which ``torch.cuda.graph`` captures
+  as an event-record node, so every replay times the stages inside the
+  graph (the host clock on the CPU); the compiled calls' ``stage_ms()``
+  reads them.
+
+Set-up spans (:func:`setup`: the filter designs, ``design``; the graph
+captures, ``capture``, ``capture.warmup``, ``capture.graph``) add their
+duration to :func:`totals` on every run, traced or not: two clock reads a
+set-up.
+
+``profile`` records a Perfetto trace (``chrome://tracing``) of a block
+and writes it under a directory; ``timed`` reports a region's wall time
+after waiting for the card.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 from pathlib import Path
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import torch
 
+from sdr_tpu_torch.utils import graphs
 from sdr_tpu_torch.utils.device import resolve_device
 
-__all__ = ["trace", "profile", "timed"]
+__all__ = ["trace", "span", "setup", "tracing", "enabled", "spans", "clear",
+           "totals", "Span", "Stages", "stage", "op_stages", "profile",
+           "timed", "SPAN_LIMIT"]
+
+SPAN_LIMIT = 65_536     # spans the buffer keeps; the oldest go first
+
+_on = False
+_buffer: collections.deque = collections.deque(maxlen=SPAN_LIMIT)
+_ids = itertools.count()
+_local = threading.local()          # each thread's open spans
+_totals: dict = {}
+_totals_lock = threading.Lock()
+_NULL = contextlib.nullcontext()
+
+
+class Span(NamedTuple):
+    """One finished span.  ``parent``: the ``id`` of the span open around
+    it on its thread, or None; ``call``: the compiled calls' replay count
+    at its start."""
+    id: int
+    name: str
+    parent: int | None
+    call: int
+    start_ns: int
+    end_ns: int
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+def _open() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Region:
+    """A span being recorded (made only while tracing is on)."""
+
+    __slots__ = ("name", "label", "id", "parent", "call", "start", "_range")
+
+    def __init__(self, name: str, label: str):
+        self.name, self.label = name, label
+
+    def __enter__(self):
+        stack = _open()
+        self.parent = stack[-1].id if stack else None
+        self.id = next(_ids)
+        self.call = graphs.replays
+        stack.append(self)
+        # a range costs microseconds of the host's time: only a running
+        # profiler records one
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.label)
+            self._range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _open().pop()
+        _buffer.append(Span(self.id, self.name, self.parent, self.call,
+                            self.start, end))
+        return False
+
+
+def enabled() -> bool:
+    """Whether tracing is on."""
+    return _on
 
 
 @contextlib.contextmanager
-def trace(name: str) -> Iterator[None]:
-    """A named region in the profile (``torch.profiler.record_function``)."""
-    with torch.profiler.record_function(name):
+def tracing() -> Iterator[None]:
+    """Tracing on for the block (and back to what it was after)."""
+    global _on
+    was, _on = _on, True
+    try:
         yield
+    finally:
+        _on = was
+
+
+def trace(name: str):
+    """A caller's named region: while tracing is on, a span ``name`` (and
+    under a running profiler a range of the same name); nothing
+    otherwise."""
+    return _Region(name, name) if _on else _NULL
+
+
+def span(name: str):
+    """The program's span ``name`` at a layer boundary: while tracing is
+    on, a span (and under a running profiler the range ``sdr.<name>``);
+    nothing otherwise."""
+    return _Region(name, "sdr." + name) if _on else _NULL
+
+
+@contextlib.contextmanager
+def setup(name: str) -> Iterator[None]:
+    """A set-up span: its host time is added to ``totals()[name]`` on
+    every run; while tracing is on it is also the span ``name``."""
+    t0 = time.perf_counter_ns()
+    try:
+        with span(name):
+            yield
+    finally:
+        dt = time.perf_counter_ns() - t0
+        with _totals_lock:
+            _totals[name] = _totals.get(name, 0) + dt
+
+
+def spans() -> list:
+    """The recorded spans (:class:`Span`), oldest first, each after every
+    span inside it."""
+    return list(_buffer)
+
+
+def clear() -> None:
+    """Empty the span buffer (the totals stay)."""
+    _buffer.clear()
+
+
+def totals() -> dict:
+    """Seconds spent in each set-up span since import, by name."""
+    with _totals_lock:
+        return {k: v / 1e9 for k, v in _totals.items()}
+
+
+class Stages:
+    """The stages of one call: ``names`` in the order the call runs them,
+    each entered as ``with stage(stages):`` in that order; a stage ends
+    where the next begins, the last at its own end.
+
+    A call builds one only while tracing is on (:func:`enabled`), so a
+    call built with tracing off makes and records nothing.  On the card
+    each boundary is a CUDA event (``enable_timing``, ``external``: under
+    ``torch.cuda.graph`` an event-record node), recorded on the current
+    stream; on the CPU the host clock.  Each stage is also the span
+    ``<name>`` while tracing is on when it runs.  :meth:`ms` reads the
+    last run's times: after a run ends and before the next records into
+    the same events."""
+
+    def __init__(self, names, device):
+        self.names = tuple(names)
+        n = len(self.names) + 1
+        self._events = ([torch.cuda.Event(enable_timing=True, external=True)
+                         for _ in range(n)]
+                        if torch.device(device).type == "cuda" else None)
+        self._host = [0] * n
+        self._k = 0
+        self._span = None
+
+    def _mark(self, k: int) -> None:
+        if self._events is None:
+            self._host[k] = time.perf_counter_ns()
+        else:
+            self._events[k].record()
+
+    def __enter__(self):
+        self._mark(self._k)
+        self._span = span(self.names[self._k])
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self._span.__exit__(exc_type, *exc)
+        self._k += 1
+        if exc_type is not None:
+            self._k = 0
+        elif self._k == len(self.names):
+            self._mark(self._k)
+            self._k = 0
+        return False
+
+    def ms(self) -> dict:
+        """``{stage: ms}`` of the last run (waits for its last event)."""
+        if self._events is None:
+            t = self._host
+            return {name: (t[k + 1] - t[k]) / 1e6
+                    for k, name in enumerate(self.names)}
+        ev = self._events
+        ev[-1].synchronize()
+        return {name: ev[k].elapsed_time(ev[k + 1])
+                for k, name in enumerate(self.names)}
+
+
+def stage(stages: Stages | None):
+    """The next stage of ``stages``; nothing for a call built with tracing
+    off."""
+    return _NULL if stages is None else stages
+
+
+def op_stages(ops, carried: bool) -> list:
+    """The stage names of an op loop: ``<i>.<Op>.carry`` (``carried``: the
+    block-parallel runner's ``shard_carry``) and ``<i>.<Op>.apply``."""
+    names = []
+    for i, op in enumerate(ops):
+        name = f"{i}.{type(op).__name__}"
+        if carried:
+            names.append(name + ".carry")
+        names.append(name + ".apply")
+    return names
 
 
 @contextlib.contextmanager
 def profile(logdir, device="cuda") -> Iterator[torch.profiler.profile]:
     """Record a ``torch.profiler`` trace of the block, the card's kernels
-    included (``device='cpu'``: the host only), and write it on exit as
+    included (``device='cpu'``: the host only), with tracing on (the
+    program's spans are its ``sdr.*`` ranges), and write it on exit as
     ``trace-<pid>-<ns>.json`` under ``logdir``.  Raises without a GPU
     unless ``device='cpu'``."""
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -41,7 +266,7 @@ def profile(logdir, device="cuda") -> Iterator[torch.profiler.profile]:
     out = Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
     prof = torch.profiler.profile(activities=acts)
-    with prof:
+    with prof, tracing():
         yield prof
     prof.export_chrome_trace(
         str(out / f"trace-{os.getpid()}-{time.time_ns()}.json"))
