@@ -656,6 +656,49 @@ def front_geometries(raw, taps):
                 i += 1
 
 
+def ring_geometries(raw, front):
+    """K1's ring at its edges, over rows of ``raw``: with the chain's taps,
+    fewer tiles than SMs, one tile a row, rows that end partway into a
+    slot (a short last tile), two rows of 162 tiles each, the streamed
+    block, ``shard_carry``'s one output a row over
+    ``H + 2f`` bytes and a tensor whose last row ends off 16-byte
+    alignment (its end byte by byte); and 64 taps at f = 16 (64 samples
+    a warp).  Yields ``(case, args, plan)``: the wrapper's args and the
+    plan of kernels/u8_front_demod.py:ring_plan."""
+    from sdr_tpu_torch.kernels.u8_front_demod import ring_plan
+    from sdr_tpu_torch.kernels.u8_front import pack_taps
+    from sdr_tpu_torch.ops.quantized import u8_front_plan
+    rng = np.random.default_rng(28)
+    t64, s64 = u8_front_plan(rng.uniform(-1, 1, 64).astype(np.float32),
+                             "s8")
+    t64 = torch.as_tensor(t64, device=raw.device)
+    # case, rows, outputs a row, row base offset, taps, scale, factor
+    chain = (front.tq, front.scale, front.factor)
+    cases = (("fewer_tiles_than_sms", 2, 30 * 1016, 3, *chain),
+             ("one_tile_a_row", 16, 200, 0, *chain),
+             ("short_last_tile", 8, 1016 * 40 + 517, 5, *chain),
+             ("two_rows", 2, 163_840, 0, *chain),
+             ("streamed", 1, STREAM_BLOCK // (2 * front.factor), 0, *chain),
+             ("one_output_a_row", ROWS, 1, 0, *chain),
+             ("end_off_16", 3, 1016 * 100 + 7, 1, *chain),
+             ("warp_samples_64", 3, 504 * 30 + 11, 7, t64, s64, 16))
+    for case, rows, num, shift, tq, scale, f in cases:
+        K = tq.numel()
+        H = 2 * (K - f)
+        n = 2 * ((num - 1) * f + K) - H + (5 if case == "end_off_16" else 0)
+        if case == "streamed":
+            n = STREAM_BLOCK
+        if case == "one_output_a_row":
+            n = 2 * f
+        x = misaligned(raw[:rows * n].view(rows, n), shift)
+        hist = torch.as_tensor(rng.integers(0, 256, (rows, H)),
+                               dtype=torch.uint8, device=raw.device)
+        liq = torch.as_tensor(rng.normal(size=(rows, 2)).astype(np.float32),
+                              device=raw.device)
+        nw = pack_taps(tq.cpu().numpy()).shape[-1]
+        yield case, (tq, scale, f, x, hist, liq, num), ring_plan(f, K, nw)
+
+
 def fir_geometries(x0, taps):
     """K3's extra geometries over the rows of ``x0``: f in {1, 2, 3, 4, 5,
     8, 16} x K in {1, 51, 64, 65, 200} x starts 0 to 7, each at a row base
@@ -887,6 +930,15 @@ def check_kernels(raw, ops):
         got = u8_front_demod.u8_front_demod(*a)
         want = u8_front_demod.u8_front_demod_reference(*a)
         err1 = max(err1, max_err(got[0], want[0]), max_err(got[1], want[1]))
+        g1 += 1
+    # the ring's edges
+    for case, a, plan in ring_geometries(raw, front):
+        got = u8_front_demod.u8_front_demod(*a)
+        want = u8_front_demod.u8_front_demod_reference(*a)
+        e = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        print(f"K1 ring {case}: rows {a[3].shape[0]}, outputs {a[-1]}, "
+              f"plan {plan}, max err {e}")
+        err1 = max(err1, e)
         g1 += 1
     torch.cuda.synchronize()
     require(torch.isfinite(y1).all().item(), "K1 output finite")

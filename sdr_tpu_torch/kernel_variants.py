@@ -9,7 +9,13 @@ each snippet found exactly once or the tool raises (:func:`variant`),
 built like the kernels themselves into ``build/variants/<name>/``.  A
 variant that drops work (``no_sums``: the windows are staged but not
 summed; ``no_demod``: K1 writes a sum of the products instead of the
-atan2; ``resample_no_stores``: K2 sums but stores (almost) nothing;
+atan2; ``ring_no_stores``: K1 computes the atan2 but stores (almost)
+nothing; ``ring_no_loads``: K1's producer copies its block's first S
+tiles only, and the consumers compute every later tile from the bytes
+left in its slot; ``ring_no_deint``: K1's consumer warps sum planes
+never deinterleaved; ``ring_skeleton``: K1's warps only wait, read
+heads and release slots (no copies, deinterleave, sums, demod or
+stores); ``resample_no_stores``: K2 sums but stores (almost) nothing;
 ``backhalf_no_stage1`` / ``no_stage2``: K5 without its resample or its
 FIR sums; ``fir_dec_no_sums``: K3's staged f > 1 branch stages and
 splits its tiles into phase rows but sums nothing; ``fft_no_stores``,
@@ -21,7 +27,11 @@ committed rounding); ``fma`` and ``fir_dec_fma`` contract K3's (and K5's second
 stage's) multiply and add (not the plain version's rounding) and show
 what the no-FMA order costs; the others change a design choice (the
 runtime loop in place of a compiled geometry, the phase rows unpadded,
-4 outputs a thread at f = 8, half the tile; for K3's complex form
+4 outputs a thread at f = 8, half the tile (K4's ``ns512``, K1's
+``ring_w64``), K1's tiles of 256 samples a warp in one slot
+(``ring_w256``); K1's ring of two slots (``ring_stages2``), at two
+blocks an SM (``ring_occ2``, five slots) or four (``ring_occ4``, two
+slots, 56 registers); for K3's complex form
 ``fir_iq_both_planes``, a thread summing both planes of its two
 outputs and storing them as one float4; ``fir_iq_inline``, the tile's
 split and sums inlined into the persistent loop) and must equal the
@@ -206,10 +216,45 @@ VARIANTS = {
         "  if (pos >= 0) return make_int2(0, 0);\n"
         "  const int nw = tp.count();\n")]),
     "no_demod": (("u8_front_demod",), [(
-        "      y[row * num + m] = poly_atan2(bq, a);",
-        "      y[row * num + m] = bq + a;")]),
-    "ns512": (("u8_front_demod", "u8_front"), [(
+        "        r[j] = poly_atan2(bq, a);", "        r[j] = bq + a;")]),
+    "ns512": (("u8_front",), [(
         "for (long long ns = 4LL * NT;", "for (long long ns = 2LL * NT;")]),
+    "ring_w64": (("u8_front_demod",), [(
+        "constexpr int kMaxWarpSamples = 128;",
+        "constexpr int kMaxWarpSamples = 64;")]),
+    "ring_w256": (("u8_front_demod",), [
+        ("constexpr int kMaxWarpSamples = 128;",
+         "constexpr int kMaxWarpSamples = 256;"),
+        ("constexpr int kMinStages = 3, kMaxStages = 8;",
+         "constexpr int kMinStages = 1, kMaxStages = 8;")]),
+    "ring_stages2": (("u8_front_demod",), [(
+        "constexpr int kMinStages = 3, kMaxStages = 8;",
+        "constexpr int kMinStages = 2, kMaxStages = 2;")]),
+    "ring_occ2": (("u8_front_demod",), [(
+        "constexpr int kBlocksPerSm = 3;",
+        "constexpr int kBlocksPerSm = 2;")]),
+    "ring_occ4": (("u8_front_demod",), [
+        ("constexpr int kBlocksPerSm = 3;",
+         "constexpr int kBlocksPerSm = 4;"),
+        ("constexpr int kMinStages = 3, kMaxStages = 8;",
+         "constexpr int kMinStages = 2, kMaxStages = 8;")]),
+    "ring_no_stores": (("u8_front_demod",), [(
+        "          yt[q] = r[j];",
+        "          if (r[j] == 1e38f) yt[q] = r[j];")]),
+    "ring_no_deint": (("u8_front_demod",), [(
+        "    if (ws > 1)\n      deinterleave(",
+        "    if (ws < 0)\n      deinterleave(")]),
+    "ring_skeleton": (("u8_front_demod",), [
+        ("    if (ws > 1)\n      deinterleave(",
+         "    if (ws < 0)\n      deinterleave("),
+        ("    if (ws > 1) {\n      // sample q",
+         "    if (ws < 0) {\n      // sample q"),
+        ("        const unsigned bytes = 16u * (sp.c1 - sp.c0);",
+         "        const unsigned bytes = 0u * (sp.c1 - sp.c0);")]),
+    "ring_no_loads": (("u8_front_demod",), [(
+        "        const unsigned bytes = 16u * (sp.c1 - sp.c0);",
+        "        const unsigned bytes = k < stages ? 16u * (sp.c1 - sp.c0) "
+        ": 0u;")]),
     "fir_no_sums": (("fir",), [(
         "      if (K == 64)\n        sums_at<64>(acc, xs, s_taps, K, off);\n"
         "      else if (K == 65)\n        sums_at<65>(acc, xs, s_taps, K, off);"
@@ -443,7 +488,9 @@ VARIANTS = {
         ("constexpr int kDftRows = 4096;", "constexpr int kDftRows = 8192;"),
         ("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 2)")]),
 }
-EXACT = {"ns512", "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
+EXACT = {"ns512", "ring_w64", "ring_w256", "ring_stages2", "ring_occ2",
+         "ring_occ4",
+         "fir_runtime_taps", "fir_dec_runtime", "fir_dec_nopad",
          "fir_iq_both_planes", "fir_iq_inline",
          "fir_dec_rc4", "fir_dec_occ3", "fir_dec_occ4", "fir_dec_span4096", "resample_runtime_geometry",
          "resample_tile1536", "resample_unroll2", "fft_occ2", "agc_one_wave",

@@ -5,7 +5,8 @@ u8_front_demod_pallas.  A row's stream is ``concat(hist, x)``: output m
 reads the bytes ``2(m*f + k) + c`` of it, so a streaming caller passes its
 history and block as they are and no seam split is needed.  The taps
 reach the kernel as ``__dp4a`` words (``u8_front.tap_words``), kept on
-the device for each taps tensor.
+the device for each taps tensor.  :func:`ring_plan` mirrors the source's
+plan: the tile, the ring's slots and the shared memory a launch takes.
 """
 
 from __future__ import annotations
@@ -20,13 +21,90 @@ from sdr_tpu_torch.kernels.u8_front import tap_words
 from sdr_tpu_torch.ops.demod import fm_demod_planar
 from sdr_tpu_torch.ops.quantized import front_acc
 
-__all__ = ["KERNEL", "u8_front_demod", "u8_front_demod_reference"]
+__all__ = ["KERNEL", "ring_plan", "u8_front_demod",
+           "u8_front_demod_reference"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 KERNEL = Kernel("u8_front_demod", {
     "launch_u8_front_demod": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I,
                               _I, _I, _LL, ctypes.c_float],
 })
+
+# csrc/u8_front_demod.cu's plan: eight consumer warps and a producer warp
+# a block, three blocks an SM (BLOCK_BYTES each at most), 3 to 8 slots
+WARPS, BLOCKS_PER_SM = 8, 3
+MIN_STAGES, MAX_STAGES = 3, 8
+BLOCK_BYTES = 229_376 // BLOCKS_PER_SM
+MAX_SMEM = 232_448              # an H100 block's shared memory
+BAR_BYTES = 48 * MAX_STAGES     # the barriers and each slot's head
+
+
+def _align16(v):
+    return (v + 15) // 16 * 16
+
+
+def plane_len(samples, f, K):
+    """Plane samples that ``samples`` samples read (u8_window.cuh)."""
+    return (samples - 1) * f + K
+
+
+def raw_bytes(samples, f, K):
+    """Stream bytes of ``samples`` samples with their alignment slack and
+    u8w::deinterleave's read past them (u8_window.cuh's raw_bytes)."""
+    return _align16(8 * ((plane_len(samples, f, K) + 3) // 4) + 32)
+
+
+def plane_bytes(samples, f, nw):
+    return _align16((samples - 1) * f + 4 * nw + 8)
+
+
+def tile_outputs(W):
+    """A tile's outputs: each consumer warp's W samples, the first the
+    predecessor of its W - 1 outputs."""
+    return WARPS * (W - 1)
+
+
+def slot_bytes(W, f, K):
+    """A slot: a tile's stream bytes, their alignment slack, and 32 bytes
+    for the deinterleave's 16-byte reads past them."""
+    return raw_bytes(tile_outputs(W) + 1, f, K) + 32
+
+
+def ring_bytes(W, stages, f, K, nw):
+    """A block's shared memory: the barriers, ``stages`` slots, each
+    consumer warp's two planes."""
+    return (BAR_BYTES + stages * slot_bytes(W, f, K)
+            + 2 * WARPS * plane_bytes(W, f, nw))
+
+
+def tiles_per_row(num, W):
+    return -(-num // tile_outputs(W))
+
+
+def ring_plan(f, K, nw):
+    """K1's tile and ring at factor ``f``, ``K`` taps, ``nw`` tap words.
+
+    ``W`` samples a consumer warp takes of a tile (a tile is
+    ``tile_outputs(W)`` outputs), ``stages`` slots, ``pair`` (three
+    blocks an SM, else one) and ``smem`` bytes a block; ``W`` 0 where no
+    ring fits.  ``W`` is the largest of 128, 64 and 32 whose ring of at
+    least MIN_STAGES slots fits BLOCK_BYTES, with as many slots as fit."""
+    def fit(W, budget):
+        s = (budget - ring_bytes(W, 0, f, K, nw)) // slot_bytes(W, f, K)
+        return int(min(max(s, 0), MAX_STAGES))
+
+    plan = dict(W=0, stages=0, pair=True, smem=0)
+    for W in (128, 64, 32):
+        if fit(W, BLOCK_BYTES) >= MIN_STAGES:
+            plan.update(W=W, stages=fit(W, BLOCK_BYTES))
+            break
+    else:
+        plan.update(W=32, stages=fit(32, MAX_SMEM), pair=False)
+        if plan["stages"] == 0:
+            plan["W"] = 0
+    if plan["W"]:
+        plan["smem"] = ring_bytes(plan["W"], plan["stages"], f, K, nw)
+    return plan
 
 
 def _check(taps, factor, x, hist, last_iq, num):
