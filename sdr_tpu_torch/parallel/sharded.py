@@ -251,9 +251,10 @@ class CompiledBatched:
 
     Built while tracing is on (``profiling.tracing()``), the call times its
     stages inside the graph at every replay (:func:`batched_stages`), and
-    :meth:`stage_ms` reads them.  While tracing is on, a call is the span
-    ``call``, with ``call.copy_in`` (an input or carries copied in) and
-    ``call.replay`` inside it.
+    :meth:`stage_ms` reads them (:meth:`inner_ms` the ops' inner
+    stages).  While tracing is on, a call is the span ``call``, with
+    ``call.copy_in`` (an input or carries copied in) and ``call.replay``
+    inside it.
 
     Made with ``group``, the call is this rank's part of a sharded call
     (``run_time_batched(group=)``): the graph holds the group's gathers,
@@ -333,6 +334,12 @@ class CompiledBatched:
         it): read after a call and before the next, which records into
         the same events.  None for a call built with tracing off."""
         return None if self.stages is None else self.stages.ms()
+
+    def inner_ms(self) -> dict | None:
+        """The ops' inner stages of the same replay, ``{stage: {inner
+        stage: ms}}`` (``Stages.inner_ms``); None where :meth:`stage_ms`
+        is None."""
+        return None if self.stages is None else self.stages.inner_ms()
 
     def __call__(self, x=None, carries=None):
         if profiling.enabled():

@@ -37,7 +37,10 @@ before it), then in one process:
    carries the profiler's own overhead; then the compiled call built with
    tracing on (:func:`stage_split`): each stage's device time inside the
    graph (``stage_ms()``), ``STAGE_REPS`` calls each queued behind a
-   device-side sleep, their sum against CUDA events around the call; the
+   device-side sleep, their sum against CUDA events around the call, and
+   the ops' inner stages (``inner_ms()``: ``Agc``'s and ``DcBlocker``'s)
+   beside the stage they partition; the counters of one such call
+   (``profiling.counts()``: ``agc.premise_breaks``); the
    cost of the stage events and host spans (:func:`tracing_cost`: device
    and enqueue ms of the call built with tracing off and on, in turns);
    and ``REPS`` compiled calls, two in flight, under the profiler
@@ -251,8 +254,9 @@ def stage_split(call, reps: int = STAGE_REPS) -> dict:
     (``call.stage_ms()``), of the stages' sum and of the call's span
     between CUDA events recorded around it outside the graph, the median
     of each call's sum over its span (``sum_share``), and the medians of
-    :func:`runner_ms` and of each op class's :func:`op_ms`."""
-    stages, sums, outside = [], [], []
+    :func:`runner_ms` and of each op class's :func:`op_ms`, and each
+    inner stage's median (``inner_ms``, by the stage holding it)."""
+    stages, inner, sums, outside = [], [], [], []
     for _ in range(reps):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
@@ -263,12 +267,15 @@ def stage_split(call, reps: int = STAGE_REPS) -> dict:
         b.synchronize()
         ms = call.stage_ms()
         stages.append(ms)
+        inner.append(call.inner_ms())
         sums.append(sum(ms.values()))
         outside.append(a.elapsed_time(b))
     classes = dict.fromkeys(name.split(".")[1] for name in stages[0]
                             if name.count(".") == 2)
     return {"stage_ms": {k: float(np.median([m[k] for m in stages]))
                          for k in stages[0]},
+            "inner_ms": {k: {n: float(np.median([i[k][n] for i in inner]))
+                             for n in v} for k, v in inner[0].items()},
             "sum_ms": float(np.median(sums)),
             "outside_ms": float(np.median(outside)),
             "sum_share": float(np.median([s / o for s, o in
@@ -410,6 +417,9 @@ def main(argv=None) -> int:
     with profiling.tracing():
         traced = compile_time_batched(ops, raw, nblocks)
     staged = stage_split(traced)
+    profiling.clear()
+    traced()
+    counted = profiling.counts()        # one traced call's counters
     cost = tracing_cost(call, traced)
     del call
     gaps = call_gaps(traced)
@@ -466,6 +476,11 @@ def main(argv=None) -> int:
         print(f"  {ms:10.4f} ms  {stage}")
     print(f"  runner (input, output, every carry) {staged['runner_ms']:.4f}"
           f" ms; by op class {staged['op_ms']}")
+    for stage, inner in staged["inner_ms"].items():
+        print(f"  {stage} {staged['stage_ms'][stage]:.4f} ms, its inner "
+              f"stages {sum(inner.values()):.4f} ms: " + ", ".join(
+                  f"{name} {ms:.4f}" for name, ms in inner.items()))
+    print(f"counters of one traced compiled call: {counted}")
     print(f"tracing's cost: device ms off {cost['off']['device_ms']}, on "
           f"{cost['on']['device_ms']}; enqueue ms off "
           f"{cost['off']['enqueue_ms']}, on {cost['on']['enqueue_ms']}")
@@ -490,6 +505,7 @@ def main(argv=None) -> int:
                       "profiled_wall_ms": wall, "stages_eager_ms": by_stage,
                       "stages_compiled": staged, "tracing_cost": cost,
                       "call_gaps": gaps, "setup_totals": profiling.totals(),
+                      "counters": counted,
                       "kernels_ms": {k: v[0] for k, v in kernels.items()},
                       "kernels_per_call": sum(n for _, n in
                                               kernels.values()),

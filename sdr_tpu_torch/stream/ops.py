@@ -76,6 +76,7 @@ from sdr_tpu_torch.parallel.halo import (entering_state,
                                          first_row, left_halo,
                                          right_shift_scalar, substitute_first)
 from sdr_tpu_torch.stream.block import StreamOp
+from sdr_tpu_torch.utils import profiling
 from sdr_tpu_torch.utils.device import resolve_device
 from sdr_tpu_torch.utils.graphs import keep
 
@@ -867,6 +868,12 @@ class Agc(StreamOp):
     block: far below the chains' bounds for blocks much longer than the
     AGC's time constant.
 
+    Traced (utils/profiling.py), the block-parallel carry's stage splits
+    into the inner stages ``affine`` (K12's reduction) and ``prefix``
+    (K15), and ``apply`` into ``premise`` (the linear form's counter
+    ``agc.premise_breaks``: :meth:`premise_breaks`) and ``gains`` (K12's
+    scan).
+
     Carry: the gain entering the next block (one per stream: the planar
     form drops the plane axis), ``initial`` at warmup."""
 
@@ -893,27 +900,43 @@ class Agc(StreamOp):
         bs = tuple(batch_shape)[:-1] if self.planar else tuple(batch_shape)
         return torch.full(bs, self.initial, dtype=_F32, device=self.device)
 
+    def premise_breaks(self, x) -> torch.Tensor:
+        """The samples of ``x`` at which the linear form's premise breaks,
+        ``mu*|x| >= 1`` (the recurrence's factor ``1 - mu*|x|`` not above
+        0: the gain can turn negative, and ``|x*g|`` is no longer
+        ``|x|*g``), from the envelope the gains read: a 0-dim tensor."""
+        m = (torch.hypot(x[..., 0, :], x[..., 1, :]) if self.planar
+             else x.abs())
+        return torch.count_nonzero(m.mul_(float(np.float32(self.mu))) >= 1)
+
     def apply(self, carry, x):
-        if self.planar:
-            y, final = agc_linear.agc_apply(x.contiguous(), self.mu,
-                                            self.reference,
-                                            carry.contiguous())
+        if self.method == "linear":
+            with profiling.inner("premise"):
+                profiling.count("agc.premise_breaks",
+                                lambda: self.premise_breaks(x))
+        with profiling.inner("gains"):
+            if self.planar:
+                y, final = agc_linear.agc_apply(x.contiguous(), self.mu,
+                                                self.reference,
+                                                carry.contiguous())
+                return final, y
+            y, final = scans.agc(x, self.mu, self.reference, carry,
+                                 method=self.method)
             return final, y
-        y, final = scans.agc(x, self.mu, self.reference, carry,
-                             method=self.method)
-        return final, y
 
     def shard_carry(self, xb, initial=None, group=None):
         if self.method == "linear":
-            if self.planar:
-                A, B = agc_linear.agc_affine(xb.contiguous(), self.mu,
-                                             self.reference, planar=True)
-            else:
-                A, B = scans.agc_affine(xb, self.mu, self.reference)
-            g0 = self.initial if initial is None else torch.as_tensor(
-                initial, dtype=_F32, device=xb.device)
-            # the prefixes and Ap * g0 + Bp in one K15 launch
-            return entering_state(A, B, g0, group)
+            with profiling.inner("affine"):
+                if self.planar:
+                    A, B = agc_linear.agc_affine(xb.contiguous(), self.mu,
+                                                 self.reference, planar=True)
+                else:
+                    A, B = scans.agc_affine(xb, self.mu, self.reference)
+            with profiling.inner("prefix"):
+                g0 = self.initial if initial is None else torch.as_tensor(
+                    initial, dtype=_F32, device=xb.device)
+                # the prefixes and Ap * g0 + Bp in one K15 launch
+                return entering_state(A, B, g0, group)
         if self.approx_time_sharding is None:
             raise NotImplementedError(
                 "Agc(method='scan') cannot be time-sharded exactly; use "
@@ -948,7 +971,10 @@ class DcBlocker(StreamOp):
     f32 rounding:
     each row reduces to ``y -> alpha^n * y + B`` (``B`` the row's last
     output from a zero state), composed over the rows by
-    ``exclusive_affine_prefix``.
+    ``exclusive_affine_prefix``.  Traced, the carry's stage splits into
+    the inner stages ``halo`` (the sample before each row), ``state`` (K13,
+    each row's last output from rest, no outputs stored) and ``prefix``
+    (K15); the ``apply`` stage is K13's launch and its carries.
 
     Carry: ``(last_sample, last_output)``, two distinct tensors, zeros at
     warmup."""
@@ -968,19 +994,22 @@ class DcBlocker(StreamOp):
         return new, y
 
     def shard_carry(self, xb, initial=None, group=None):
-        last = left_halo(xb, 1, group=group)[..., 0]
-        if initial is not None:
-            last = substitute_first(last, initial[0], group)
-        _, (_, b) = scans.dc_blocker(xb, last, 0.0, self.alpha,
-                                     store=False)
-        # alpha^n is the same on every row: K15 reads it in place
-        a = keep(_alpha_power(self.alpha, xb.shape[-1],
-                              b.device)).expand_as(b)
-        if initial is None:
-            return last, exclusive_affine_prefix(a, b, group)[1]
-        return last, entering_state(
-            a, b, torch.as_tensor(initial[1], dtype=_F32, device=xb.device),
-            group)
+        with profiling.inner("halo"):
+            last = left_halo(xb, 1, group=group)[..., 0]
+            if initial is not None:
+                last = substitute_first(last, initial[0], group)
+        with profiling.inner("state"):
+            _, (_, b) = scans.dc_blocker(xb, last, 0.0, self.alpha,
+                                         store=False)
+        with profiling.inner("prefix"):
+            # alpha^n is the same on every row: K15 reads it in place
+            a = keep(_alpha_power(self.alpha, xb.shape[-1],
+                                  b.device)).expand_as(b)
+            if initial is None:
+                return last, exclusive_affine_prefix(a, b, group)[1]
+            return last, entering_state(
+                a, b, torch.as_tensor(initial[1], dtype=_F32,
+                                      device=xb.device), group)
 
 
 class Map(StreamOp):

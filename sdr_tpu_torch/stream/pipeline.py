@@ -169,7 +169,8 @@ class CompiledStep:
     A shape captured while tracing is on (``profiling.tracing()``) times
     its stages inside the graph at every replay, each op's
     ``<i>.<Op>.apply`` and ``output`` (the carries' write-back), and
-    :meth:`stage_ms` reads them.  While tracing is on, a call is the span
+    :meth:`stage_ms` reads them (:meth:`inner_ms` the ops' inner
+    stages).  While tracing is on, a call is the span
     ``call``, with ``call.copy_in`` (the block and carries copied in) and
     ``call.replay`` inside it.
 
@@ -201,6 +202,11 @@ class CompiledStep:
         the same events.  None where that shape was captured with tracing
         off, or nothing was replayed."""
         return None if self._stages is None else self._stages.ms()
+
+    def inner_ms(self) -> dict | None:
+        """The ops' inner stages of the same replay (``Stages.inner_ms``);
+        None where :meth:`stage_ms` is None."""
+        return None if self._stages is None else self._stages.inner_ms()
 
     def _capture(self, key, carries, x: torch.Tensor):
         ops = self.ops

@@ -19,6 +19,18 @@ While it is on:
   graph (the host clock on the CPU); the compiled calls' ``stage_ms()``
   reads them.
 
+An op splits its stage into inner stages (:func:`inner`,
+``<i>.<Op>.<name>``: ``Agc``'s ``affine``, ``prefix``, ``premise`` and
+``gains``, ``DcBlocker``'s ``halo``, ``state`` and ``prefix``), timed the
+same way inside the stage of the call running it; :meth:`Stages.inner_ms`
+reads them.
+
+Counters (:func:`count`, read by :func:`counts`): while tracing is on, a
+named number the program adds to at each run, on the device where it is
+a device tensor (inside a graph a captured add, read after the replay);
+while it is off, nothing is read, computed or launched.  The program's
+one counter is ``agc.premise_breaks`` (stream/ops.py ``Agc``).
+
 Set-up spans (:func:`setup`: the filter designs, ``design``; the graph
 captures, ``capture``, ``capture.warmup``, ``capture.graph``) add their
 duration to :func:`totals` on every run, traced or not: two clock reads a
@@ -46,8 +58,8 @@ from sdr_tpu_torch.utils import graphs
 from sdr_tpu_torch.utils.device import resolve_device
 
 __all__ = ["trace", "span", "setup", "tracing", "enabled", "spans", "clear",
-           "totals", "Span", "Stages", "stage", "op_stages", "profile",
-           "timed", "SPAN_LIMIT"]
+           "totals", "count", "counts", "Span", "Stages", "stage", "inner",
+           "op_stages", "profile", "timed", "SPAN_LIMIT"]
 
 SPAN_LIMIT = 65_536     # spans the buffer keeps; the oldest go first
 
@@ -57,6 +69,7 @@ _ids = itertools.count()
 _local = threading.local()          # each thread's open spans
 _totals: dict = {}
 _totals_lock = threading.Lock()
+_counters: dict = {}                # (name, device) -> an int64 tensor
 _NULL = contextlib.nullcontext()
 
 
@@ -167,14 +180,57 @@ def spans() -> list:
 
 
 def clear() -> None:
-    """Empty the span buffer (the totals stay)."""
+    """Empty the span buffer and zero the counters in place (a graph adds
+    to their tensors); the totals stay."""
     _buffer.clear()
+    with _totals_lock:
+        for t in _counters.values():
+            t.zero_()
 
 
 def totals() -> dict:
     """Seconds spent in each set-up span since import, by name."""
     with _totals_lock:
         return {k: v / 1e9 for k, v in _totals.items()}
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on; nothing
+    otherwise.  ``n``: a number, a tensor (a device tensor adds on its
+    device, a captured add inside a graph), or a function of no arguments
+    giving one, called only while tracing is on, so that an untraced run
+    computes nothing.  A device counter is made at its first traced run
+    outside a capture (a compiled call's warm-up): every run adds to it,
+    the warm-ups included, until :func:`clear`."""
+    if not _on:
+        return
+    if callable(n):
+        n = n()
+    n = torch.as_tensor(n, dtype=torch.int64)
+    key = (name, n.device)
+    with _totals_lock:
+        acc = _counters.get(key)
+        if acc is None:
+            if n.device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"counter {name!r} first counted inside "
+                                   "a capture: a graph would zero it at "
+                                   "every replay")
+            acc = _counters[key] = torch.zeros((), dtype=torch.int64,
+                                               device=n.device)
+    acc.add_(n)
+
+
+def counts() -> dict:
+    """Each counter's total since the last :func:`clear`, by name, summed
+    over devices (reading a device counter waits for the work queued
+    before it)."""
+    with _totals_lock:
+        items = list(_counters.items())
+    out: dict = {}
+    for (name, _), t in items:
+        out[name] = out.get(name, 0) + int(t.item())
+    return out
 
 
 class Stages:
@@ -189,7 +245,16 @@ class Stages:
     stream; on the CPU the host clock.  Each stage is also the span
     ``<name>`` while tracing is on when it runs.  :meth:`ms` reads the
     last run's times: after a run ends and before the next records into
-    the same events."""
+    the same events.
+
+    Inside a stage the op may open inner stages (:func:`inner`), each
+    named ``<i>.<Op>.<name>`` after the stage ``<i>.<Op>.<carry|apply>``
+    holding it: the first begins at its stage's start, each later one at
+    a boundary of its own (an event made at its first run), each ends
+    where the next inner stage of the same stage begins, the last at its
+    stage's end.  So they partition their stage, with one boundary less
+    than they number (an event-record node costs the card ~3 us);
+    :meth:`inner_ms` reads them."""
 
     def __init__(self, names, device):
         self.names = tuple(names)
@@ -200,6 +265,9 @@ class Stages:
         self._host = [0] * n
         self._k = 0
         self._span = None
+        self._inner: dict = {}      # inner stage -> its event or host ns
+        self._entered: list = []    # (stage index, inner stage), this run
+        self._last_inner: list = []     # the same, of the last whole run
 
     def _mark(self, k: int) -> None:
         if self._events is None:
@@ -207,13 +275,34 @@ class Stages:
         else:
             self._events[k].record()
 
+    def _mark_inner(self, name: str) -> str:
+        """Enter the inner stage ``name`` of the stage running: the first
+        of its stage starts at the stage's own boundary, a later one
+        records its own.  Returns its full name."""
+        full = f"{self.names[self._k].rsplit('.', 1)[0]}.{name}"
+        if self._entered and self._entered[-1][0] == self._k:
+            if self._events is None:
+                self._inner[full] = time.perf_counter_ns()
+            else:
+                ev = self._inner.get(full)
+                if ev is None:
+                    ev = self._inner[full] = torch.cuda.Event(
+                        enable_timing=True, external=True)
+                ev.record()
+        self._entered.append((self._k, full))
+        return full
+
     def __enter__(self):
+        if self._k == 0:
+            self._entered = []
         self._mark(self._k)
         self._span = span(self.names[self._k])
         self._span.__enter__()
+        _local.stages = self
         return self
 
     def __exit__(self, exc_type, *exc):
+        _local.stages = None
         self._span.__exit__(exc_type, *exc)
         self._k += 1
         if exc_type is not None:
@@ -221,6 +310,7 @@ class Stages:
         elif self._k == len(self.names):
             self._mark(self._k)
             self._k = 0
+            self._last_inner = self._entered
         return False
 
     def ms(self) -> dict:
@@ -234,11 +324,62 @@ class Stages:
         return {name: ev[k].elapsed_time(ev[k + 1])
                 for k, name in enumerate(self.names)}
 
+    def inner_ms(self) -> dict:
+        """``{stage: {inner stage: ms}}`` of the last run, each stage that
+        held inner stages with them in the order it ran them (waits for
+        its last event); empty where no op opened one."""
+        got = self._last_inner
+        if self._events is None:
+            t, start = self._host, self._inner
+
+            def ms(a, b):
+                return (b - a) / 1e6
+        else:
+            self._events[-1].synchronize()
+            t, start = self._events, self._inner
+
+            def ms(a, b):
+                return a.elapsed_time(b)
+        out: dict = {}
+        for j, (k, name) in enumerate(got):
+            nxt = got[j + 1] if j + 1 < len(got) else None
+            end = start[nxt[1]] if nxt and nxt[0] == k else t[k + 1]
+            first = self.names[k] not in out
+            out.setdefault(self.names[k], {})[name] = ms(
+                t[k] if first else start[name], end)
+        return out
+
 
 def stage(stages: Stages | None):
     """The next stage of ``stages``; nothing for a call built with tracing
     off."""
     return _NULL if stages is None else stages
+
+
+class _Inner:
+    """An inner stage being entered (made only inside a timed stage)."""
+
+    __slots__ = ("stages", "name", "_span")
+
+    def __init__(self, stages: Stages, name: str):
+        self.stages, self.name = stages, name
+
+    def __enter__(self):
+        self._span = span(self.stages._mark_inner(self.name))
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._span.__exit__(*exc)
+
+
+def inner(name: str):
+    """The inner stage ``name`` of the stage running on this thread
+    (``<i>.<Op>.<name>``, and while tracing is on its span); nothing
+    outside a timed stage, so an op in a call built with tracing off
+    records nothing."""
+    stages = getattr(_local, "stages", None)
+    return _NULL if stages is None else _Inner(stages, name)
 
 
 def op_stages(ops, carried: bool) -> list:
